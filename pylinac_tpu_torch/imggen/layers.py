@@ -1,0 +1,104 @@
+"""Synthetic EPID image layers for picket fence images, numpy and scipy.
+
+Port of ``pylinac_tpu/imggen/layers.py``: ``Layer`` ``:111``,
+``PerfectFieldLayer`` ``:170`` with the drawing helpers it uses
+(``clip_add`` ``:20``, ``even_round`` ``:30``, ``_polygon_coords`` ``:61``,
+``draw_rotated_rectangle`` ``:80``), and ``GaussianFilterLayer`` ``:251``.
+The blur uses ``scipy.ndimage.gaussian_filter`` (same "reflect" edges and
+truncation as the JAX filter, computed in float64 where the JAX one ran in
+float32, so a pixel may differ by one count after the cast back).
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+
+import numpy as np
+from scipy import ndimage
+
+
+def clip_add(image1: np.ndarray, image2: np.ndarray, dtype=np.uint16) -> np.ndarray:
+    combined = image1.astype(float) + image2.astype(float)
+    return np.clip(combined, np.iinfo(dtype).min, np.iinfo(dtype).max).astype(dtype)
+
+
+def even_round(num: float) -> int:
+    num = int(round(num))
+    return num + num % 2
+
+
+def _polygon_coords(row_coords, col_coords, shape):
+    """Scanline polygon pixel coords (skimage polygon convention)."""
+    rmin = max(int(np.floor(min(row_coords))), 0)
+    rmax = min(int(np.ceil(max(row_coords))) + 1, shape[0])
+    cmin = max(int(np.floor(min(col_coords))), 0)
+    cmax = min(int(np.ceil(max(col_coords))) + 1, shape[1])
+    yy, xx = np.mgrid[rmin:rmax, cmin:cmax]
+    inside = np.zeros(yy.shape, dtype=bool)
+    n = len(row_coords)
+    for i in range(n):
+        y1, x1 = row_coords[i], col_coords[i]
+        y2, x2 = row_coords[(i + 1) % n], col_coords[(i + 1) % n]
+        cond = ((y1 > yy) != (y2 > yy)) & (
+            xx < (x2 - x1) * (yy - y1) / (y2 - y1 + 1e-30) + x1)
+        inside ^= cond
+    rr, cc = np.nonzero(inside)
+    return rr + rmin, cc + cmin
+
+
+def draw_rotated_rectangle(shape, center, extent, angle: float):
+    """Pixel coords of a rectangle rotated about its centre."""
+    x0 = center[1] - extent[1] / 2
+    x1 = center[1] + extent[1] / 2
+    y0 = center[0] - extent[0] / 2
+    y1 = center[0] + extent[0] / 2
+    rect = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+    theta = np.radians(angle)
+    c, s = np.cos(theta), np.sin(theta)
+    rotation = np.array([[c, -s], [s, c]])
+    center_xy = np.array([center[1], center[0]])
+    rotated = (rect - center_xy) @ rotation + center_xy
+    return _polygon_coords(rotated[:, 1], rotated[:, 0], shape)
+
+
+class Layer(ABC):
+    """A composable image layer."""
+
+    @abstractmethod
+    def apply(self, image: np.ndarray, pixel_size: float, mag_factor: float) -> np.ndarray:
+        pass
+
+
+class PerfectFieldLayer(Layer):
+    """A square field without flattening-filter effects."""
+
+    def __init__(self, field_size_mm=(10, 10), cax_offset_mm=(0, 0),
+                 alpha: float = 1.0, rotation: float = 0):
+        self.field_size_mm = field_size_mm
+        self.cax_offset_mm = cax_offset_mm
+        self.alpha = alpha
+        self.rotation = rotation
+
+    def apply(self, image, pixel_size, mag_factor):
+        field_size_pix = [even_round(f * mag_factor / pixel_size)
+                          for f in self.field_size_mm]
+        cax_offset_pix = [v * mag_factor / pixel_size for v in self.cax_offset_mm]
+        field_center = [offset + (shape / 2) - 0.5
+                        for offset, shape in zip(cax_offset_pix, image.shape)]
+        rr, cc = draw_rotated_rectangle(image.shape, center=field_center,
+                                        extent=field_size_pix, angle=self.rotation)
+        temp = np.zeros(image.shape)
+        temp[rr, cc] = int(np.iinfo(image.dtype).max * self.alpha)
+        return clip_add(image, temp)
+
+
+class GaussianFilterLayer(Layer):
+    """Gaussian blur simulating scatter."""
+
+    def __init__(self, sigma_mm: float = 2):
+        self.sigma_mm = sigma_mm
+
+    def apply(self, image, pixel_size, mag_factor):
+        sigma_pix = self.sigma_mm / pixel_size
+        out = ndimage.gaussian_filter(np.asarray(image, np.float32), sigma_pix)
+        return out.astype(image.dtype)

@@ -1,0 +1,57 @@
+"""The port runs with neither jax nor pydantic importable.
+
+A child interpreter installs a meta-path finder that refuses ``jax``,
+``jaxlib`` and ``pydantic``, imports ``pylinac_tpu_torch``, makes a small
+AS500 picket fence with the port's own image generator and analyses it on
+the CPU. The machine with the card has neither package.
+"""
+
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+CHILD = textwrap.dedent("""
+    import importlib.abc, json, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "pydantic")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import torch
+    torch.set_num_threads(2)
+    import pylinac_tpu_torch
+    from pylinac_tpu_torch.imggen.layers import GaussianFilterLayer, PerfectFieldLayer
+    from pylinac_tpu_torch.imggen.simulators import AS500Image
+    from pylinac_tpu_torch.imggen.utils import generate_picketfence
+
+    path = tempfile.mkdtemp() + "/pf.dcm"
+    generate_picketfence(AS500Image(sid=1500), PerfectFieldLayer, path,
+                         final_layers=[GaussianFilterLayer(sigma_mm=1)],
+                         pickets=8, picket_spacing_mm=20, picket_width_mm=3)
+    (result,) = pylinac_tpu_torch.analyze_batch([path], tolerance=0.5, device="cpu")
+    print(json.dumps({
+        "pickets": result.number_of_pickets, "passed": result.passed,
+        "max_error_mm": result.max_error_mm,
+        "loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("pylinac_tpu",)),
+    }))
+""")
+
+
+def test_port_runs_without_jax_or_pydantic():
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    assert out["pickets"] == 8
+    assert out["passed"]
+    assert out["max_error_mm"] < 0.1
