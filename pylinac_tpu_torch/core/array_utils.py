@@ -1,16 +1,43 @@
-"""Host array helpers the synthetic image generator needs, numpy only.
+"""Host array helpers.
 
-Port of ``array_to_dicom`` (``pylinac_tpu/core/array_utils.py:143``) and
-``_rt_image_position`` (``:136``). The port's simulators make integer arrays
-only, so the JAX function's float-to-uint16 rescale is not carried over: a
-float array is rejected by ``Dataset.set_pixel_data``.
+Port of ``ground`` (``pylinac_tpu/core/array_utils.py:49``), ``filter``
+(``:53``), ``array_to_dicom`` (``:143``) and ``_rt_image_position``
+(``:136``). The port's simulators make integer arrays only, so the JAX
+``array_to_dicom``'s float-to-uint16 rescale is not carried over: a float
+array is rejected by ``Dataset.set_pixel_data``. ``filter`` runs the port's
+filters on the CPU, where the profiles live, as the JAX function routed
+them to its in-process CPU backend.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import dcm
+
+
+def ground(array: np.ndarray, value: float = 0) -> np.ndarray:
+    return array - array.min() + value
+
+
+def filter(array: np.ndarray, size: float | int = 0.05, kind: str = "median") -> np.ndarray:
+    """Median or Gaussian filter; a float ``size`` in (0, 1) is a fraction
+    of the array's length."""
+    from ..ops import filters
+
+    if isinstance(size, float):
+        if 0 < size < 1:
+            size = max(int(round(len(array) * size)), 1)
+        else:
+            raise ValueError("Float was passed but was not between 0 and 1")
+    if kind == "median":
+        out = filters._median_general(torch.from_numpy(np.array(array)), int(size))
+        return out.numpy().astype(array.dtype)
+    if kind == "gaussian":
+        x = torch.from_numpy(np.array(array, dtype=np.float32))
+        return filters.gaussian_filter(x, float(size)).numpy()
+    raise ValueError(f"Filter type {kind} unsupported. Use 'median' or 'gaussian'")
 
 
 def _rt_image_position(array: np.ndarray, dpmm: float) -> list[float]:

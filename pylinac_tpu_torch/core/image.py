@@ -1,16 +1,21 @@
-"""Host image model: a DICOM image loaded to a numpy array.
+"""Host image model: DICOM images, arrays and CT stacks as numpy arrays.
 
-Port of the part of ``pylinac_tpu/core/image.py`` that
-``PicketFenceBatch.__init__`` uses (``picketfence.py:928-937``):
-``BaseImage`` (``:201``: ``center``, ``crop``, ``shape``), ``DicomImage``
-(``:522``: load, ``sid``, ``sad``, ``dpmm``), ``LinacDicomImage`` (``:635``)
-and ``_rescale_dicom_values`` (``:142``), unchanged. Pixels stay on the host
-as numpy; the analysis stages them on the card.
+Port of the part of ``pylinac_tpu/core/image.py`` that the batched picket
+fence and the CatPhan analysis use: ``load`` (``:89``), ``BaseImage``
+(``:201``: ``center``, ``crop``, ``shape``, indexing and the numpy array
+protocol), ``DicomImage`` (``:522``: load, ``z_position``,
+``slice_spacing``, ``sid``, ``sad``, ``dpmm``), ``LinacDicomImage``
+(``:635``), ``ArrayImage`` (``:739``), ``z_position`` (``:775``),
+``DicomImageStack`` (``:796-879``: UID filter, z-sort, ``slice_spacing``,
+``metadata``) and ``_rescale_dicom_values`` (``:142``). Pixels stay on the
+host as numpy; the analyses stage them on the card. The lazy and zip
+stacks wait.
 """
 
 from __future__ import annotations
 
 import os.path as osp
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -72,6 +77,39 @@ class BaseImage:
     def shape(self):
         return self.array.shape
 
+    def __getitem__(self, item):
+        return self.array[item]
+
+    def __array__(self, dtype=None, copy=None):
+        # without this, np.asarray(image) would iterate and copy the array
+        if dtype is None or dtype == self.array.dtype:
+            return self.array if not copy else self.array.copy()
+        return self.array.astype(dtype)
+
+    def __len__(self):
+        return len(self.array)
+
+
+def load(path, **kwargs) -> BaseImage:
+    """An image from an image object, a numpy array or a DICOM file."""
+    if isinstance(path, BaseImage):
+        return path
+    if isinstance(path, np.ndarray):
+        return ArrayImage(path, **kwargs)
+    if dcm.is_dicom(path):
+        return DicomImage(path, **kwargs)
+    raise TypeError(
+        f"The argument `{path}` was not found to be a valid DICOM file or array")
+
+
+class ArrayImage(BaseImage):
+    """An image made directly from a numpy array (the JAX class's ``dpi``
+    and ``sid`` wait for a caller)."""
+
+    def __init__(self, array: np.ndarray, *, dtype=None):
+        self.array = np.asarray(array, dtype=dtype)
+        self.path = ""
+
 
 class DicomImage(BaseImage):
     """An image from a DICOM file (path, bytes or binary stream)."""
@@ -90,6 +128,17 @@ class DicomImage(BaseImage):
         self.array = _rescale_dicom_values(
             self.array, self.metadata, raw_pixels=raw_pixels,
             invert_pixels=invert_pixels)
+
+    @property
+    def z_position(self) -> float:
+        return z_position(self.metadata)
+
+    @property
+    def slice_spacing(self) -> float:
+        spacing = self.metadata.get("SpacingBetweenSlices")
+        if spacing is not None:
+            return abs(spacing)
+        return self.metadata.SliceThickness
 
     @property
     def sid(self) -> float | None:
@@ -132,3 +181,62 @@ class DicomImage(BaseImage):
 class LinacDicomImage(DicomImage):
     """A DICOM image from a linac. The JAX class adds gantry, collimator and
     couch angles, which the batched picket fence does not read."""
+
+
+def z_position(metadata: dcm.Dataset) -> float:
+    """Z position of a slice: ImagePositionPatient[2], else SliceLocation."""
+    try:
+        return float(metadata.ImagePositionPatient[2])
+    except AttributeError:
+        return float(metadata.SliceLocation)
+
+
+class DicomImageStack:
+    """An eager stack of DICOM CT/MR slices from a folder (searched
+    recursively), filtered to the most common series and sorted by z. Any
+    DICOM file with pixel data counts as a slice, as in the JAX loader."""
+
+    images: list[DicomImage]
+
+    def __init__(self, folder, dtype=None, min_number: int = 39,
+                 check_uid: bool = True, raw_pixels: bool = False):
+        paths = [str(p) for p in sorted(Path(folder).rglob("*")) if p.is_file()]
+        candidates = [DicomImage(p, dtype=dtype, raw_pixels=raw_pixels)
+                      for p in paths if dcm.is_dicom_image(p)]
+        if check_uid:
+            candidates = self._filter_uid(candidates, min_number)
+        candidates.sort(key=lambda img: img.z_position)
+        self.images = candidates
+        if len(self.images) < 2:
+            raise FileNotFoundError(f"No CT images were found in {folder}")
+
+    @staticmethod
+    def _filter_uid(images: list[DicomImage], min_number: int) -> list[DicomImage]:
+        uids = [img.metadata.get("SeriesInstanceUID") for img in images]
+        if not uids:
+            return images
+        most_common, count = Counter(uids).most_common(1)[0]
+        if count < min_number:
+            raise ValueError(
+                f"The minimum number of CT images ({min_number}) was not found")
+        return [img for img in images if img.metadata.get("SeriesInstanceUID") == most_common]
+
+    @property
+    def metadata(self) -> dcm.Dataset:
+        return self.images[0].metadata
+
+    @property
+    def metadatas(self) -> list[dcm.Dataset]:
+        return [img.metadata for img in self.images]
+
+    @property
+    def slice_spacing(self) -> float:
+        """Median z-gap between slices."""
+        zs = sorted(img.z_position for img in self.images)
+        return float(np.median(np.abs(np.diff(zs))))
+
+    def __getitem__(self, item) -> DicomImage:
+        return self.images[item]
+
+    def __len__(self):
+        return len(self.images)

@@ -3,8 +3,9 @@
 Port of ``pylinac_tpu/ops/peaks.py``: ``PeakResult`` ``:28``,
 ``_local_maxima`` ``:48``, ``_distance_filter`` ``:65``, ``peak_analysis``
 ``:87``, ``compact_slots`` ``:171``, ``main_peak`` ``:210``,
-``main_peak_ips`` ``:234``, ``select_top`` ``:253`` and the host wrapper
-``find_peaks`` ``:315``.
+``main_peak_ips`` ``:234``, ``select_top`` ``:253`` and the host wrappers
+``find_peaks`` ``:315``, ``find_peaks_rows`` ``:383`` and ``find_valleys``
+``:450``.
 
 Where the JAX functions took one signal and were ``vmap``-ed, these take a
 (B, N) batch of signals and return (B, K) slots. Nothing here syncs to the
@@ -302,16 +303,79 @@ def find_peaks(
         if not bool(res.overflowed[0]) or K >= trimmed.shape[1]:
             break
         K = min(K * 4, max(trimmed.shape[1], 1))
-    f = {name: getattr(res, name)[0].numpy() for name in res._fields[:-1]}
-    mask = f["valid"]
-    props = {
-        "prominences": f["prominences"][mask].astype(float),
-        "left_bases": f["left_bases"][mask] + lo,
-        "right_bases": f["right_bases"][mask] + lo,
-        "widths": f["widths"][mask].astype(float),
-        "width_heights": f["width_heights"][mask].astype(float),
-        "left_ips": f["left_ips"][mask].astype(float) + lo,
-        "right_ips": f["right_ips"][mask].astype(float) + lo,
-        "peak_heights": f["values"][mask].astype(float),
-    }
-    return f["positions"][mask].astype(np.int64) + lo, props
+    return _host_peaks(res, lo)[0]
+
+
+def find_peaks_rows(
+    rows: np.ndarray,
+    threshold: float = -np.inf,
+    peak_separation: float = 0,
+    max_number: int | None = None,
+    fwxm_height: float = 0.5,
+    min_width: int = 0,
+    search_region: tuple[float, float] = (0.0, 1.0),
+    peak_sort: str = "prominences",
+    required_prominence: float | None = None,
+    K: int = 64,
+) -> list[tuple[np.ndarray, dict]]:
+    """:func:`find_peaks` of each row of a (B, N) stack of host profiles
+    sharing every argument; ratio thresholds resolve per row, so the result
+    equals looping :func:`find_peaks` over the rows."""
+    rows = np.asarray(rows, dtype=np.float32)
+    b, n = rows.shape
+    if max_number is not None:
+        K = min(K, max(16, 4 * int(max_number)))
+    if 0 <= threshold <= 1:
+        rmin, rmax = rows.min(axis=1), rows.max(axis=1)
+        heights = (rmin + np.float32(threshold) * (rmax - rmin)).astype(np.float32)
+    else:
+        heights = np.full(b, threshold, np.float32)
+    if 0 <= peak_separation <= 1:
+        peak_separation = max(int(peak_separation * n), 1)
+    if max(search_region) <= 1:
+        lo = int(search_region[0] * n)
+        hi = int(search_region[1] * n)
+    else:
+        lo, hi = int(search_region[0]), int(search_region[1])
+    trimmed = torch.from_numpy(rows[:, lo:hi].copy())
+    prominence = (None if required_prominence is None
+                  else np.float32(required_prominence))
+    # escalate K geometrically while the raw maxima overflow the slots
+    while True:
+        res = peak_analysis(trimmed, K=K, rel_height=1 - fwxm_height,
+                            height=torch.from_numpy(heights),
+                            distance=float(peak_separation),
+                            min_width=float(min_width),
+                            required_prominence=prominence)
+        res = select_top(res, max_number, peak_sort)
+        if not bool(res.overflowed.any()) or K >= trimmed.shape[1]:
+            break
+        K = min(K * 4, max(trimmed.shape[1], 1))
+    return _host_peaks(res, lo)
+
+
+def _host_peaks(res: PeakResult, lo: int) -> list[tuple[np.ndarray, dict]]:
+    """Per row, the valid peaks' indices and scipy-style props, shifted by
+    the search-region start ``lo``."""
+    f = {name: getattr(res, name).numpy() for name in res._fields[:-1]}
+    out = []
+    for r in range(f["valid"].shape[0]):
+        mask = f["valid"][r]
+        props = {
+            "prominences": f["prominences"][r][mask].astype(float),
+            "left_bases": f["left_bases"][r][mask] + lo,
+            "right_bases": f["right_bases"][r][mask] + lo,
+            "widths": f["widths"][r][mask].astype(float),
+            "width_heights": f["width_heights"][r][mask].astype(float),
+            "left_ips": f["left_ips"][r][mask].astype(float) + lo,
+            "right_ips": f["right_ips"][r][mask].astype(float) + lo,
+            "peak_heights": f["values"][r][mask].astype(float),
+        }
+        out.append((f["positions"][r][mask].astype(np.int64) + lo, props))
+    return out
+
+
+def find_valleys(values: np.ndarray, **kwargs) -> tuple[np.ndarray, dict]:
+    """Valleys of a host profile: :func:`find_peaks` of ``max + min - v``."""
+    values = np.asarray(values, dtype=np.float32)
+    return find_peaks(values.max() + values.min() - values, **kwargs)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .core import image
-from .core.utilities import ResultBase, convert_to_enum
+from .core.utilities import ResultBase, convert_to_enum, resolve_device
 from .ops import peaks
 from .ops.picket_pipeline import PFLeafConfig, PFParams, picket_fence_batch
 
@@ -104,16 +104,6 @@ class PFResult(ResultBase):
     mlc_positions_by_leaf: dict[str, list[float]]
     mlc_errors_by_leaf: dict[str, list[float]]
     cax: dict
-
-
-def _resolve_device(device) -> torch.device:
-    """``None`` means CUDA; a CUDA device must exist."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "PicketFenceBatch.analyze runs on CUDA by default and no CUDA device "
-            "is available; pass device='cpu' to run the plain PyTorch path")
-    return device
 
 
 class PicketFenceBatch:
@@ -211,7 +201,7 @@ class PicketFenceBatch:
         """Analyse the batch on ``device`` (``None`` means ``"cuda"``, and
         raises when no CUDA device exists). Arguments as
         ``pylinac_tpu.picketfence.PicketFenceBatch.analyze``."""
-        device = _resolve_device(device)
+        device = resolve_device(device, "PicketFenceBatch.analyze")
         if action_tolerance is not None and tolerance < action_tolerance:
             raise ValueError("Tolerance cannot be lower than the action tolerance")
         self.tolerance = tolerance

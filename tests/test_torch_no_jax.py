@@ -1,9 +1,11 @@
 """The port runs with neither jax nor pydantic importable.
 
 A child interpreter installs a meta-path finder that refuses ``jax``,
-``jaxlib`` and ``pydantic``, imports ``pylinac_tpu_torch``, makes a small
-AS500 picket fence with the port's own image generator and analyses it on
-the CPU. The machine with the card has neither package.
+``jaxlib`` and ``pydantic``, imports ``pylinac_tpu_torch`` and
+``pylinac_tpu_torch.ct``, makes a small AS500 picket fence with the port's
+own image generator and analyses it on the CPU, and finds the regions of a
+small ring image with the CT region finder. The machine with the card has
+neither package.
 """
 
 import json
@@ -38,7 +40,14 @@ CHILD = textwrap.dedent("""
                          final_layers=[GaussianFilterLayer(sigma_mm=1)],
                          pickets=8, picket_spacing_mm=20, picket_width_mm=3)
     (result,) = pylinac_tpu_torch.analyze_batch([path], tolerance=0.5, device="cpu")
+
+    import numpy as np
+    import pylinac_tpu_torch.ct as ct
+    yy, xx = np.mgrid[:64, :64]
+    ring = np.where(np.abs(np.hypot(yy - 32, xx - 32) - 15) < 3, 1000.0, 0.0)
+    _, regions, n = ct.get_regions(ring, clear_borders=False, device="cpu")
     print(json.dumps({
+        "ct_regions": n, "ct_filled": max(r.filled_area for r in regions),
         "pickets": result.number_of_pickets, "passed": result.passed,
         "max_error_mm": result.max_error_mm,
         "loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("pylinac_tpu",)),
@@ -55,3 +64,5 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["pickets"] == 8
     assert out["passed"]
     assert out["max_error_mm"] < 0.1
+    assert out["ct_regions"] >= 1
+    assert out["ct_filled"] > 500  # the ring's edge band with its hole filled
