@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once) and runs both halves of the main path:
+``nvcc`` per source, all at once) and runs the three ported paths:
 
 - picket fence: checks the 3x3-median kernel bit for bit against its plain
   PyTorch twin, runs ``PicketFenceBatch`` on 64 EPID-like 1254x1254 uint16
@@ -16,13 +16,30 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   512x512 scans on the card and the single-scan ``CatPhan504`` on one of
   them, holds the kernel against its twins on every mask those runs gave
   it, checks every scan against the bars of ``tests/models/test_ct.py``
-  and the card against the CPU, then times the batch and the kernel.
+  and the card against the CPU, then times the batch and the kernel;
+- Winston-Lutz: checks the border-flood kernel (flood and filled-centroid
+  entries) bit for bit against its twins on the same mask kinds and shapes
+  plus one frame (1, 1280, 1280) and the bench's (8, 1280, 1280), writes
+  the bench's 8-frame AS1200 session, runs ``WinstonLutz`` on the card in
+  the default mode and under ``PYLINAC_TPU_FLOOD=packed`` and ``xla``, and
+  the single-image ``WinstonLutz2D`` on frame 0, holds the CCL and flood
+  kernels against their twins on every mask those runs gave them, checks
+  the results against the bars of ``tests/models/test_winstonlutz.py`` and
+  the card against the CPU, then times the batch and each kernel entry on
+  the masks of the run that counted it.
 
-The launch counts of each half are set to 0 just before it runs and read
+The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
 standard output is one JSON object with ``"ok": true``; the line before it
-lists each kernel with its launch count on the main path, its error against
-the twin and both times.
+lists each kernel with its launch count on its path, its error against the
+twin, its time, the twin's, its bound (the least time for the bytes it must
+move at 3.35 TB/s, or for its operations at the float32 rate, whichever is
+larger) and the time of one PyTorch call computing the same function where
+there is one (none does for these kernels). The WL phase ends by reporting
+where a warm batch spends its time: the warm wall under each flood
+selector, the peak device memory, one run under ``torch.profiler`` (device
+busy time, idle share, kernels and ops by device time) and one under
+cProfile.
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
 ``nvidia-smi``. Imports nothing of JAX.
@@ -31,9 +48,12 @@ Needs one CUDA device, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import functools
+import io
 import json
 import multiprocessing
+import pstats
 import shutil
 import statistics
 import subprocess
@@ -62,6 +82,24 @@ ROLL_TOL = 0.01           # degrees
 CCL_SHAPES = [(1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 512, 512), (CT_SCANS * CT_SLICES, 256, 256),
               (CT_SCANS, 512, 512), (CT_SCANS, 140, 140), (1, 140, 140)]
 CCL_KINDS = ("speckle 30%", "speckle 3%", "ring+noise", "spiral", "empty", "full")
+
+WL_FRAMES = 8             # the bench's session: gantry 0/90/180/270 x collimator 0/90
+PX_TOL = 1e-3             # selector and single-image centroids against the batch
+# the listed shapes, then the WL path's: one frame and the session
+FLOOD_SHAPES = CCL_SHAPES + [(1, 1280, 1280), (WL_FRAMES, 1280, 1280)]
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the float32 rate
+# outside the tensor cores, the rate charged to each kernel's operations
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time in ms for a kernel that must move ``bytes_moved``
+    (each input read once, each output written once) and do ``ops``
+    operations, and which of the two bounds it."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def card_line() -> str:
@@ -257,16 +295,34 @@ def check_ccl(ccl) -> float:
     return float(worst)
 
 
-@contextlib.contextmanager
-def recording_ccl_inputs():
-    """Within the block, record a copy of every mask that the region
-    properties hand to the CCL kernel, as (mode, masks, extra arguments).
-    The recorder wraps the entries that ``ops/label.py`` calls and passes
-    each call through unchanged, so the launch counts stay the kernel's."""
+def ccl_entries() -> list[tuple]:
+    """The names under which the region properties call the CCL kernel:
+    (module, attribute, mode)."""
     from pylinac_tpu_torch.ops import label as tlabel
 
+    return [(tlabel, "label_batch", "label"), (tlabel, "hole_roots_batch", "holes")]
+
+
+def flood_entries() -> list[tuple]:
+    """The names under which Winston-Lutz calls the flood kernel: the
+    batched selectors call both batch entries by their names in
+    ``winston_lutz.py``; ``fill_holes`` calls ``flood_from_border`` (B = 1)
+    by its name in ``ops/label.py``."""
+    from pylinac_tpu_torch import winston_lutz as twl
+    from pylinac_tpu_torch.ops import label as tlabel
+
+    return [(twl, "flood_from_border_batch", "flood"), (twl, "filled_centroid_batch", "centroid"),
+            (tlabel, "flood_from_border", "flood")]
+
+
+@contextlib.contextmanager
+def recording_inputs(entries):
+    """Within the block, record a copy of every mask handed to each entry
+    ``(module, attribute, mode)`` as (mode, masks, extra arguments). Each
+    recorder passes the call through unchanged, so the launch counts stay
+    the kernel's."""
     seen = []
-    originals = tlabel.label_batch, tlabel.hole_roots_batch
+    originals = [(module, name, getattr(module, name)) for module, name, _ in entries]
 
     def recorder(mode, fn):
         def call(masks, *args):
@@ -274,30 +330,52 @@ def recording_ccl_inputs():
             return fn(masks, *args)
         return call
 
-    tlabel.label_batch = recorder("label", originals[0])
-    tlabel.hole_roots_batch = recorder("holes", originals[1])
+    for (module, name, fn), (_, _, mode) in zip(originals, entries):
+        setattr(module, name, recorder(mode, fn))
     try:
         yield seen
     finally:
-        tlabel.label_batch, tlabel.hole_roots_batch = originals
+        for module, name, fn in originals:
+            setattr(module, name, fn)
 
 
-def check_path_masks(ccl, seen, what: str) -> None:
-    """The CCL kernel must equal its twins bit for bit on every mask that a
-    run of the path gave it."""
-    shapes = []
+def kernel_pairs(ccl, flood=None) -> dict:
+    """Each recorded mode's batch entry and its plain twin."""
+    pairs = {"label": (ccl.label_batch, ccl.label_reference),
+             "holes": (ccl.hole_roots_batch, ccl.hole_roots_reference)}
+    if flood is not None:
+        pairs["flood"] = flood.flood_from_border_batch, flood.flood_from_border_reference
+        pairs["centroid"] = flood.filled_centroid_batch, flood.filled_centroid_reference
+    return pairs
+
+
+def check_counts(seen, counts: dict[str, int], what: str) -> None:
+    """The recorded calls of each mode must equal its launch count."""
+    recorded = {mode: sum(m == mode for m, _, _ in seen) for mode in counts}
+    if recorded != counts:
+        raise RuntimeError(f"the {what} recorded {recorded} kernel inputs but launched {counts}")
+
+
+def check_path_masks(pairs: dict, seen, what: str) -> dict[str, float]:
+    """Each kernel must equal its twin bit for bit on every mask that a run
+    of the path gave it; returns the largest |kernel - twin| of each mode
+    (0.0 where they agree)."""
+    worst, shapes = {}, []
     for mode, masks, args in seen:
-        kernel, twin = ((ccl.label_batch, ccl.label_reference) if mode == "label"
-                        else (ccl.hole_roots_batch, ccl.hole_roots_reference))
+        masks = masks if masks.dim() == 3 else masks[None]
+        kernel, twin = pairs[mode]
         got, want = kernel(masks, *args), twin(masks, *args)
         torch.cuda.synchronize()
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        worst[mode] = max(worst.get(mode, 0.0), err)
         if not torch.equal(got, want):
-            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-            raise RuntimeError(f"ccl {mode} differs from its twin on a {what} mask of shape "
+            raise RuntimeError(f"{mode} differs from its twin on a {what} mask of shape "
                                f"{tuple(masks.shape)}: max |err| {err}")
         shapes.append(f"{mode} {tuple(masks.shape)}")
-    print(f"kernel check ccl on the {what}'s {len(seen)} kernel inputs: bit-equal to twins "
-          f"({', '.join(shapes)})")
+    print(f"kernel check on the {what}'s {len(seen)} kernel inputs: bit-equal to twins, "
+          f"max |err| {worst} ({', '.join(shapes)})")
+    return worst
 
 
 def make_scans(tmp: str) -> list[str]:
@@ -347,23 +425,34 @@ def check_ct_results(results: list[dict], what: str) -> None:
               f"{r['ctp528']['mtf_lp_mm']['50']:.4f} lp/mm: inside every bar")
 
 
-def compare_ct(a: dict, b: dict, what: str, path: str = "") -> float:
-    """Two result dicts: keys, integers, booleans and strings exact; the roll
-    within ROLL_TOL; other floats within MM_TOL or PCT_TOL %, whichever is
-    larger. Returns the largest float difference."""
+def ct_tol(path: str, a: float) -> float:
+    """CatPhan's bars: the roll within ROLL_TOL, other floats within MM_TOL
+    or PCT_TOL %, whichever is larger."""
+    return ROLL_TOL if path.endswith("catphan_roll_deg") else max(MM_TOL, PCT_TOL / 100 * abs(a))
+
+
+def wl_tol(path: str, a: float) -> float:
+    """Winston-Lutz's bar: every float (mm, and px for the points) within
+    MM_TOL."""
+    return MM_TOL
+
+
+def compare_tree(a, b, what: str, tol, path: str = "") -> float:
+    """Two result dicts: keys, integers, booleans and strings exact; each
+    float within ``tol(path, value)``. Returns the largest float
+    difference."""
     if isinstance(a, dict):
         if list(a) != list(b):
             raise RuntimeError(f"{what}{path}: keys {list(a)} != {list(b)}")
-        return max([compare_ct(a[k], b[k], what, f"{path}/{k}") for k in a
+        return max([compare_tree(a[k], b[k], what, tol, f"{path}/{k}") for k in a
                     if k not in ("date_of_analysis", "pylinac_version")], default=0.0)
     if isinstance(a, list):
         if len(a) != len(b):
             raise RuntimeError(f"{what}{path}: lengths differ")
-        return max([compare_ct(x, y, what, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))],
-                   default=0.0)
+        return max([compare_tree(x, y, what, tol, f"{path}[{i}]")
+                    for i, (x, y) in enumerate(zip(a, b))], default=0.0)
     if isinstance(a, float):
-        tol = ROLL_TOL if path.endswith("catphan_roll_deg") else max(MM_TOL, PCT_TOL / 100 * abs(a))
-        if not isinstance(b, float) or abs(a - b) > tol:
+        if not isinstance(b, float) or abs(a - b) > tol(path, a):
             raise RuntimeError(f"{what}{path}: {a} vs {b}")
         return abs(a - b)
     if a != b:
@@ -371,24 +460,33 @@ def compare_ct(a: dict, b: dict, what: str, path: str = "") -> float:
     return 0.0
 
 
-def time_pair(kernel, twin, x: torch.Tensor, n_kernel: int, n_twin: int) -> tuple[float, float]:
-    """Mean ms per call of a kernel and of its twin, timed with CUDA events
-    in turns (twin, kernel, kernel, twin)."""
-    def run(fn, n):
-        fn(x)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn(x)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
+def ccl_bound(masks: torch.Tensor) -> tuple[float, str]:
+    """CCL: one mask byte in and one int32 label out per pixel; about ten
+    integer operations per pixel for the union of its two or four edges."""
+    return bound(5 * masks.numel(), 10 * masks.numel())
 
+
+def time_ms(fn, x: torch.Tensor, n: int) -> float:
+    """Mean ms per call of ``fn(x)`` over n calls after one warm-up, timed
+    with CUDA events."""
+    fn(x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_pair(kernel, twin, x: torch.Tensor, n_kernel: int, n_twin: int) -> tuple[float, float]:
+    """Mean ms per call of a kernel and of its twin, timed in turns (twin,
+    kernel, kernel, twin)."""
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
-        times[which].append(run(twin if which == "plain" else kernel,
-                                n_twin if which == "plain" else n_kernel))
+        times[which].append(time_ms(twin if which == "plain" else kernel, x,
+                                    n_twin if which == "plain" else n_kernel))
     return statistics.mean(times["kernel"]), statistics.mean(times["plain"])
 
 
@@ -447,15 +545,18 @@ def picket_fence_phase(card: str, median) -> dict:
         frames = batch._stage_cache[1].to(torch.float32)
         kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference,
                                         frames, 50, 5)
+        # float32 in and out; a 19-pair compare-exchange network per pixel
+        bound_ms, bound_by = bound(8 * frames.numel(), 38 * frames.numel())
         print(f"[{card}] median3x3 at {tuple(frames.shape)}: kernel {kernel_ms:.4f} ms, "
-              f"plain twin {plain_ms:.3f} ms")
+              f"plain twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"name": "median3x3", "route": "cuda",
             "source": "pylinac_tpu_torch/csrc/median3x3.cu",
             "replaces": "pylinac_tpu/ops/pallas_median.py:27",
             "launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def catphan_phase(card: str, ccl) -> list[dict]:
@@ -475,7 +576,7 @@ def catphan_phase(card: str, ccl) -> list[dict]:
               f"{batch.cts[0].dicom_stack[0].array.dtype} in {time.perf_counter() - t0:.1f} s")
 
         ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
-        with recording_ccl_inputs() as batch_inputs:
+        with recording_inputs(ccl_entries()) as batch_inputs:
             batch.analyze(device="cuda")
             results = batch.results_data(as_dict=True)
         torch.cuda.synchronize()
@@ -488,31 +589,32 @@ def catphan_phase(card: str, ccl) -> list[dict]:
 
         single = ct.CatPhan504(dirs[0])
         ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
-        with recording_ccl_inputs() as single_inputs:
+        with recording_inputs(ccl_entries()) as single_inputs:
             single.analyze(device="cuda")
             single_result = single.results_data(as_dict=True)
         torch.cuda.synchronize()
-        single_launches = (ccl.label_batch.launches, ccl.hole_roots_batch.launches)
+        single_launches = {"label": ccl.label_batch.launches,
+                           "holes": ccl.hole_roots_batch.launches}
         # one launch of each mode localises the whole stack; the rest are
         # the B = 1 roll-slice and geometry-node searches
-        if min(single_launches) < 3:
+        if min(single_launches.values()) < 3:
             raise RuntimeError(f"the single-scan path made no B = 1 launches: {single_launches}")
-        print(f"CatPhan504 single-scan path: label launches {single_launches[0]}, holes "
-              f"launches {single_launches[1]} (1 each for the stack, the rest at B = 1)")
-        for what, seen, counts in (("batch run", batch_inputs, tuple(launches.values())),
+        print(f"CatPhan504 single-scan path: label launches {single_launches['label']}, holes "
+              f"launches {single_launches['holes']} (1 each for the stack, the rest at B = 1)")
+        for what, seen, counts in (("batch run", batch_inputs, launches),
                                    ("single-scan run", single_inputs, single_launches)):
-            if (sum(m == "label" for m, _, _ in seen), sum(m == "holes" for m, _, _ in seen)) != counts:
-                raise RuntimeError(f"the {what} recorded other kernel inputs than it launched")
-            check_path_masks(ccl, seen, what)
+            check_counts(seen, counts, what)
+            max_abs_err = max([max_abs_err,
+                               *check_path_masks(kernel_pairs(ccl), seen, what).values()])
         check_ct_results([single_result], "card single")
-        worst = compare_ct(results[0], single_result, "card batch vs card single")
+        worst = compare_tree(results[0], single_result, "card batch vs card single", ct_tol)
         print(f"card single scan vs card batch scan 0: agree (max difference {worst:.2e})")
 
         cpu = ct.CatPhan504(dirs[0])
         cpu.analyze(device="cpu")
         cpu_result = cpu.results_data(as_dict=True)
-        worst = max(compare_ct(cpu_result, single_result, "CPU vs card single"),
-                    compare_ct(cpu_result, results[0], "CPU vs card batch"))
+        worst = max(compare_tree(cpu_result, single_result, "CPU vs card single", ct_tol),
+                    compare_tree(cpu_result, results[0], "CPU vs card batch", ct_tol))
         print(f"card vs CPU on scan 0: agree (max difference {worst:.2e}; roll "
               f"{single_result['catphan_roll_deg']:.6f} vs {cpu_result['catphan_roll_deg']:.6f} deg)")
 
@@ -540,13 +642,333 @@ def catphan_phase(card: str, ccl) -> list[dict]:
                  functools.partial(ccl.label_reference, connectivity=2)),
                 ("holes", ccl.hole_roots_batch, ccl.hole_roots_reference)):
             kernel_ms, plain_ms = time_pair(kernel, twin, masks, 20, 3)
+            bound_ms, bound_by = ccl_bound(masks)
             print(f"[{card}] ccl {mode} at {tuple(masks.shape)} (the batch's localisation "
-                  f"masks): kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms")
+                  f"masks): kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
             lines.append({"name": f"ccl_{mode}", "route": "cuda",
                           "source": "pylinac_tpu_torch/csrc/ccl.cu",
                           "replaces": "pylinac_tpu/ops/pallas_label.py:336",
                           "launches": launches[mode], "max_abs_err": max_abs_err,
-                          "ms": kernel_ms, "plain_ms": plain_ms})
+                          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": None})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+def flood_bound(masks: torch.Tensor, entry: str) -> tuple[float, str]:
+    """Border flood: one mask byte in per pixel and, for the flood entry, one
+    int32 out (the centroid entry writes 8 bytes per image); about ten
+    operations per 32-pixel word and pass."""
+    out = 4 * masks.numel() if entry == "flood" else 8 * masks.shape[0]
+    return bound(masks.numel() + out, masks.numel())
+
+
+def check_flood(flood) -> float:
+    """Both flood entries must equal their twins bit for bit on the CCL
+    mask kinds at every shape; returns the largest |kernel - twin| (0.0 when
+    they agree)."""
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for shape in FLOOD_SHAPES:
+        for kind in CCL_KINDS:
+            masks = torch.from_numpy(ccl_mask(kind, shape, rng)).cuda()
+            for name, kernel, twin in (
+                    ("flood", flood.flood_from_border_batch, flood.flood_from_border_reference),
+                    ("filled centroid", flood.filled_centroid_batch,
+                     flood.filled_centroid_reference)):
+                got, want = kernel(masks), twin(masks)
+                torch.cuda.synchronize()
+                err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+                worst = max(worst, err)
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"{name} differs from its twin on {kind} at {shape}: "
+                                       f"max |err| {err}")
+        print(f"kernel check flood {shape}: flood and filled centroid bit-equal to twins "
+              f"on {', '.join(CCL_KINDS)}")
+    for bad, what in ((torch.zeros(1, 4, 4, device="cuda"), "float32"),
+                      (torch.zeros(1, 4, 6, dtype=torch.bool, device="cuda")[:, :, ::2],
+                       "non-contiguous")):
+        for fn in (flood.flood_from_border_batch, flood.filled_centroid_batch):
+            try:
+                fn(bad)
+            except (TypeError, ValueError) as e:
+                print(f"kernel check {fn.__name__} {what}: raised {type(e).__name__}")
+            else:
+                raise RuntimeError(f"{fn.__name__} accepted a {what} tensor")
+    return worst
+
+
+def check_wl_results(data: dict, what: str) -> None:
+    """``tests/models/test_winstonlutz.py``'s bars for the generated offset:
+    the shift is RIGHT 0.5 and DOWN 0.3 mm (``test_offset_bb_left``,
+    ``test_offset_bb_up_and_in``) and the gantry isocentre is tight
+    (``test_perfect_wl``)."""
+    sv = data["bb_shift_vector"]
+    checks = {
+        "8 images": data["num_total_images"] == WL_FRAMES,
+        "shift x 0.5 +- 0.3 mm": abs(sv["x"] - 0.5) < 0.3,
+        "shift y 0 +- 0.3 mm": abs(sv["y"]) < 0.3,
+        "shift z -0.3 +- 0.3 mm": abs(sv["z"] + 0.3) < 0.3,
+        "gantry iso diameter < 0.3 mm": data["gantry_3d_iso_diameter_mm"] < 0.3,
+        "all values finite": all(np.isfinite(v) for v in data.values() if isinstance(v, float)),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{what} fails {failed}: {data}")
+    print(f"{what}: shift ({sv['x']:.4f}, {sv['y']:.4f}, {sv['z']:.4f}) mm, max 2D CAX-BB "
+          f"{data['max_2d_cax_to_bb_mm']:.4f} mm, gantry iso "
+          f"{data['gantry_3d_iso_diameter_mm']:.6f} mm: inside every bar")
+
+
+def centres(data: dict) -> np.ndarray:
+    """(field x, field y, BB x, BB y) in px of each image of a result."""
+    details = data["image_details"] if "image_details" in data else [data]
+    return np.array([[d["field_cax"]["x"], d["field_cax"]["y"],
+                      d["bb_location"]["x"], d["bb_location"]["y"]] for d in details])
+
+
+def write_session(d: str) -> str:
+    """Write the bench's 8-frame session into ``d`` (AS1200 at SID 1000, a
+    30 mm field, a 5 mm BB 0.5 mm left and 0.3 mm up, gantry 0/90/180/270 x
+    collimator 0/90, 1 mm blur); returns ``d``."""
+    from pylinac_tpu_torch.imggen.layers import GaussianFilterLayer, PerfectFieldLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.imggen.utils import generate_winstonlutz
+
+    generate_winstonlutz(
+        simulator=AS1200Image(sid=1000), field_layer=PerfectFieldLayer,
+        final_layers=[GaussianFilterLayer(sigma_mm=1)], dir_out=d,
+        image_axes=[(g, c, 0) for g in (0, 90, 180, 270) for c in (0, 90)],
+        offset_mm_left=0.5, offset_mm_up=0.3)
+    return d
+
+
+def warm_run(wl) -> float:
+    """One analyze + results_data on the card from a fresh BB scan, the
+    frames staged (as ``bench.py:446-449``); returns its wall in ms."""
+    wl._bb_scan_cache = None
+    for img in wl.images:
+        img._precomputed_bb_points = None
+        img._precomputed_field_centroid = None
+    t0 = time.perf_counter()
+    wl.analyze(device="cuda")
+    wl.results_data()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profile_wl(card: str, wl, default_ms: float, top: int = 20) -> None:
+    """Where a warm WL batch spends its time: the warm wall under the two
+    exact selectors (median of 5 after 1 warm-up; the default's is
+    ``default_ms``), the peak device memory of a run, one run under
+    ``torch.profiler`` (the device's busy time, the sum of the device
+    kernels' self time, and its idle share against the profiled wall and
+    against ``default_ms``; the device kernels by self time and the host ops
+    by the device time of the kernels they launched) and one run under
+    cProfile (the host functions by cumulative time)."""
+    from torch.autograd import DeviceType
+
+    from pylinac_tpu_torch.winston_lutz import flood_selector
+
+    for mode in ("packed", "xla"):
+        with flood_selector(mode):
+            runs = [warm_run(wl) for _ in range(6)][1:]
+        print(f"[{card}] profile: PYLINAC_TPU_FLOOD={mode}: warm analyze + results_data median "
+              f"{statistics.median(runs):.3f} ms (runs ms: {', '.join(f'{t:.3f}' for t in runs)})")
+    with flood_selector(""):
+        torch.cuda.reset_peak_memory_stats()
+        warm_run(wl)
+        print(f"[{card}] profile: peak device memory of a run "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = warm_run(wl)
+        tables = {"kernel": {}, "op": {}}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                kind = "kernel" if e.device_type == DeviceType.CUDA else "op"
+                tables[kind][e.key] = (e.self_device_time_total / 1e3, e.count)
+        busy = sum(ms for ms, _ in tables["kernel"].values())
+        if busy <= 0:
+            raise RuntimeError("torch.profiler recorded no device time")
+        print(f"[{card}] profile: profiled run wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share {100 * (1 - busy / wall):.1f} % of the profiled wall and "
+              f"{100 * (1 - busy / default_ms):.1f} % of the unprofiled median {default_ms:.3f} ms")
+        for kind, rows in tables.items():
+            for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+                print(f"  {kind:6s} {ms:9.3f} ms  {n:5d} x  {key[:100]}")
+
+        pr = cProfile.Profile()
+        pr.enable()
+        wall = warm_run(wl)
+        pr.disable()
+        out = io.StringIO()
+        pstats.Stats(pr, stream=out).sort_stats("cumulative").print_stats(top * 2)
+        print(f"[{card}] profile: cProfile run wall {wall:.3f} ms")
+        print(out.getvalue())
+
+
+def ccl_line(name: str, replaces: str, launches: int, err: float, timed) -> dict:
+    """A kernels-line entry of ``csrc/ccl.cu``; ``timed`` is (ms, plain ms,
+    bound ms, bound by)."""
+    ms, plain_ms, bound_ms, bound_by = timed
+    return {"name": name, "route": "cuda", "source": "pylinac_tpu_torch/csrc/ccl.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def timed_pair(card: str, what: str, kernel, twin, x: torch.Tensor, bound_) -> tuple:
+    """Times a kernel against its twin on ``x`` and prints the line; returns
+    (ms, plain ms, bound ms, bound by)."""
+    kernel_ms, plain_ms = time_pair(kernel, twin, x, 20, 3)
+    bound_ms, bound_by = bound_(x)
+    print(f"[{card}] {what} at {tuple(x.shape)}: kernel {kernel_ms:.4f} ms, plain twin "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
+    """The Winston-Lutz path: flood kernel check, the 8-frame batch on the
+    card (default, packed and xla selectors), the single image, every mask
+    those runs handed the CCL and flood kernels, card against CPU, timing,
+    and where the time goes. Returns the kernels-line
+    entries of each counted run: the CCL kernel's 4-connected modes on the
+    batch's BB scan and on the single image's window, the flood entry on
+    the ``xla`` batch and on the single image, and the centroid entry on the
+    ``packed`` batch."""
+    from pylinac_tpu_torch import WinstonLutz, WinstonLutz2D
+    from pylinac_tpu_torch.winston_lutz import flood_selector
+
+    synth_err = check_flood(flood)
+    pairs = kernel_pairs(ccl, flood)
+    counters = {"label": ccl.label_batch, "holes": ccl.hole_roots_batch,
+                "flood": flood.flood_from_border_batch, "centroid": flood.filled_centroid_batch}
+
+    def counted_run(run, what: str):
+        """``run()`` with every launch count at 0 and every kernel input
+        recorded; checks the records against the counts and the kernels
+        against their twins on them. Returns (its result, its counts, its
+        recorded masks, the largest error of each mode)."""
+        for counter in counters.values():
+            counter.launches = 0
+        with recording_inputs(ccl_entries() + flood_entries()) as seen:
+            out = run()
+        torch.cuda.synchronize()
+        counts = {mode: counter.launches for mode, counter in counters.items()}
+        check_counts(seen, counts, what)
+        return out, counts, seen, check_path_masks(pairs, seen, what)
+
+    def analyze(wl, mode: str):
+        def run():
+            with flood_selector(mode):
+                wl.analyze(device="cuda")
+                return wl.results_data(as_dict=True)
+        return run
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wl_")
+    try:
+        t0 = time.perf_counter()
+        session = write_session(f"{tmp}/wl")
+        batch = WinstonLutz(session)
+        print(f"inputs: {len(batch.images)} WL frames {batch.images[0].shape} "
+              f"{batch.images[0].array.dtype} in {time.perf_counter() - t0:.1f} s")
+
+        results, launches, batch_inputs, batch_err = counted_run(
+            analyze(batch, ""), "WL batch run")
+        if min(launches["label"], launches["holes"]) < 1:
+            raise RuntimeError(f"the WL batch path launched a CCL mode no time: {launches}")
+        print(f"WL batch path: launches {launches}")
+        check_wl_results(results, "card batch")
+
+        cpu = WinstonLutz(session)
+        with flood_selector(""):
+            cpu.analyze(device="cpu")
+        worst = compare_tree(cpu.results_data(as_dict=True), results, "CPU vs card batch",
+                             wl_tol)
+        print(f"card vs CPU batch: agree (max difference {worst:.2e})")
+
+        selector_runs = {}
+        for mode, entry in (("packed", "centroid"), ("xla", "flood")):
+            data, counts, seen, err = counted_run(
+                analyze(WinstonLutz(session), mode), f"WL batch run under the {mode} selector")
+            selector_runs[mode] = counts, seen, err
+            if counts[entry] < 1:
+                raise RuntimeError(f"PYLINAC_TPU_FLOOD={mode} launched no "
+                                   f"{counters[entry].__name__}")
+            diff = float(np.abs(centres(data)[:, :2] - centres(results)[:, :2]).max())
+            if diff > PX_TOL:
+                raise RuntimeError(f"{mode} field centres differ from the default by {diff} px")
+            check_wl_results(data, f"card batch, {mode} selector")
+            print(f"WL batch, PYLINAC_TPU_FLOOD={mode}: launches {counts}, field centres "
+                  f"within {diff:.2e} px of the default")
+
+        single = WinstonLutz2D(str(batch.images[0].path))
+        single_data, single_launches, single_inputs, single_err = counted_run(
+            analyze(single, ""), "WL single-image run")
+        if min(single_launches["flood"], single_launches["label"],
+               single_launches["holes"]) < 1:
+            raise RuntimeError(f"the single image launched a kernel no time: {single_launches}")
+        diff = float(np.abs(centres(single_data) - centres(results)[:1]).max())
+        if diff > PX_TOL:
+            raise RuntimeError(f"the single image differs from batch image 0 by {diff} px")
+        print(f"WinstonLutz2D on frame 0: launches {single_launches}; within {diff:.2e} px of "
+              f"the batch")
+
+        with flood_selector(""):  # a fresh BB scan per run, as bench.py:446-449
+            times = [warm_run(batch) for _ in range(6)]
+        warm = statistics.median(times[1:])
+        print(f"[{card}] warm WinstonLutz analyze + results_data of {WL_FRAMES} frames: "
+              f"median {warm:.1f} ms of 5 runs = {WL_FRAMES / warm * 1e3:.2f} images/s "
+              f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
+
+        def largest(seen, mode: str) -> torch.Tensor:
+            masks = max((m for m_, m, _ in seen if m_ == mode), key=torch.Tensor.numel)
+            return masks if masks.dim() == 3 else masks[None]
+
+        label4 = (functools.partial(ccl.label_batch, connectivity=1),
+                  functools.partial(ccl.label_reference, connectivity=1))
+        lines = []
+        for name, entry, (counts, seen, err), replaces, where in (
+                ("flood_from_border", "flood", selector_runs["xla"],
+                 "pylinac_tpu/ops/pallas_label.py:165", "the xla batch's field masks"),
+                ("filled_centroid", "centroid", selector_runs["packed"],
+                 "pylinac_tpu/ops/pallas_label.py:510", "the packed batch's field masks"),
+                ("flood_from_border_single", "flood", (single_launches, single_inputs, single_err),
+                 "pylinac_tpu/ops/pallas_label.py:165", "the single image's mask")):
+            masks = largest(seen, entry)
+            ms, plain_ms, bound_ms, bound_by = timed_pair(
+                card, f"{name} on {where}", *pairs[entry], masks,
+                functools.partial(flood_bound, entry=entry))
+            lines.append({"name": name, "route": "cuda",
+                          "source": "pylinac_tpu_torch/csrc/flood.cu", "replaces": replaces,
+                          "launches": counts[entry], "max_abs_err": max(synth_err, err[entry]),
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "library_ms": None})
+        field_masks = largest(selector_runs["xla"][1], "flood")
+        holes_ms = time_ms(ccl.hole_roots_batch, field_masks, 20)
+        print(f"[{card}] ccl holes on the same field masks: {holes_ms:.4f} ms")
+
+        for mode, kernel_twin in (("label", label4),
+                                  ("holes", (ccl.hole_roots_batch, ccl.hole_roots_reference))):
+            lines.append(ccl_line(
+                f"ccl_{mode}_bb_scan", "pylinac_tpu/ops/pallas_label.py:336", launches[mode],
+                batch_err[mode], timed_pair(card, f"ccl {mode} 4-conn on the BB scan's masks",
+                                            *kernel_twin, largest(batch_inputs, mode),
+                                            ccl_bound)))
+        # the single image's B = 1 window: the TPU's single-image kernels #2, #5
+        for mode, kernel_twin, replaces in (
+                ("label", label4, "pylinac_tpu/ops/pallas_label.py:69"),
+                ("holes", (ccl.hole_roots_batch, ccl.hole_roots_reference),
+                 "pylinac_tpu/ops/pallas_label.py:232")):
+            lines.append(ccl_line(
+                f"ccl_{mode}_single", replaces, single_launches[mode], single_err[mode],
+                timed_pair(card, f"ccl {mode} 4-conn on the single image's window",
+                           *kernel_twin, largest(single_inputs, mode), ccl_bound)))
+        profile_wl(card, batch, warm)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lines
@@ -559,17 +981,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from pylinac_tpu_torch.ops import ccl, median
+    from pylinac_tpu_torch.ops import ccl, flood, median
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    build_all([median.KERNEL, ccl.KERNEL])
+    build_all([median.KERNEL, ccl.KERNEL, flood.KERNEL])
     t0 = time.perf_counter()
     kernels = [picket_fence_phase(card, median)]
     print(f"picket fence phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += catphan_phase(card, ccl)
-    print(f"CatPhan phase: {time.perf_counter() - t0:.1f} s; whole run "
+    print(f"CatPhan phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += winston_lutz_phase(card, ccl, flood)
+    print(f"Winston-Lutz phase: {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,14 +5,17 @@ its layout (``ops/``, ``core/``, ``metrics/``, ``imggen/``,
 ``picketfence.py``, ``ct.py``), imports ``torch`` and never ``jax``, and runs
 its device work on an NVIDIA card through hand-written kernels (``csrc/``).
 Ported so far: the batched picket fence (``PicketFenceBatch``,
-``analyze_batch``) and the CatPhan 503/504/600/604 analyses, single scan
-and batched (``CatPhan504``, ``CatPhanBatch``).
+``analyze_batch``), the CatPhan 503/504/600/604 analyses, single scan and
+batched (``CatPhan504``, ``CatPhanBatch``), and the Winston-Lutz analyses
+(``WinstonLutz``, ``WinstonLutz2D``).
 """
 
+from .core.scale import MachineScale
 from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhanBatch
 from .picketfence import MLC, MLCArrangement, Orientation, PFResult, PicketFenceBatch, analyze_batch
 from .version import __version__
+from .winston_lutz import BBArrangement, WinstonLutz, WinstonLutz2D
 
-__all__ = ["CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604", "CatPhanBatch",
-           "MLC", "MLCArrangement", "Orientation", "PFResult", "PicketFenceBatch",
-           "analyze_batch", "__version__"]
+__all__ = ["BBArrangement", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
+           "CatPhanBatch", "MLC", "MLCArrangement", "MachineScale", "Orientation", "PFResult",
+           "PicketFenceBatch", "WinstonLutz", "WinstonLutz2D", "analyze_batch", "__version__"]

@@ -1,8 +1,9 @@
 """Host array helpers.
 
-Port of ``ground`` (``pylinac_tpu/core/array_utils.py:49``), ``filter``
-(``:53``), ``array_to_dicom`` (``:143``) and ``_rt_image_position``
-(``:136``). The port's simulators make integer arrays only, so the JAX
+Port of ``normalize`` (``pylinac_tpu/core/array_utils.py:28``), ``invert``
+(``:33``), ``ground`` (``:49``), ``filter`` (``:53``), ``stretch``
+(``:73``), ``get_dtype_info`` (``:85``), ``array_to_dicom`` (``:143``) and
+``_rt_image_position`` (``:136``). The port's simulators make integer arrays only, so the JAX
 ``array_to_dicom``'s float-to-uint16 rescale is not carried over: a float
 array is rejected by ``Dataset.set_pixel_data``. ``filter`` runs the port's
 filters on the CPU, where the profiles live, as the JAX function routed
@@ -19,6 +20,35 @@ from . import dcm
 
 def ground(array: np.ndarray, value: float = 0) -> np.ndarray:
     return array - array.min() + value
+
+
+def normalize(array: np.ndarray, value: float | None = None) -> np.ndarray:
+    val = array.max() if value is None else value
+    return array / val
+
+
+def invert(array: np.ndarray) -> np.ndarray:
+    """Value inversion, max + min - a, in the array's own dtype."""
+    return -array + array.max() + array.min()
+
+
+def get_dtype_info(dtype) -> np.iinfo | np.finfo:
+    try:
+        return np.iinfo(dtype)
+    except ValueError:
+        return np.finfo(dtype)
+
+
+def stretch(array: np.ndarray, min: float = 0, max: float = 1) -> np.ndarray:
+    """Ground and normalise to fit [min, max]."""
+    if max <= min:
+        raise ValueError(f"Max must be larger than min. Passed max of {max} was <= {min}")
+    dtype_info = get_dtype_info(array.dtype)
+    if max > dtype_info.max:
+        raise ValueError(f"Max of {max} larger than datatype maximum {dtype_info.max}")
+    if min < dtype_info.min:
+        raise ValueError(f"Min of {min} smaller than datatype minimum {dtype_info.min}")
+    return ground(normalize(ground(array)) * (max - min), value=min)
 
 
 def filter(array: np.ndarray, size: float | int = 0.05, kind: str = "median") -> np.ndarray:

@@ -1,8 +1,9 @@
 """Host geometry primitives, numpy only.
 
-Port of ``pylinac_tpu/core/geometry.py``: ``Point`` ``:44``, ``Vector``
-``:125``, ``Circle`` ``:174``, ``Line`` ``:213`` and ``Rectangle`` ``:282``,
-without their matplotlib and plotly drawing. The degree trig helpers,
+Port of ``pylinac_tpu/core/geometry.py``: the degree ``cos`` and ``sin``
+(``:26-31``), ``Point`` ``:44``, ``Vector`` ``:125``, ``Circle`` ``:174``,
+``Line`` ``:213`` (with the 3D point distance) and ``Rectangle`` ``:282``,
+without their matplotlib and plotly drawing. ``tan``, ``atan``,
 ``direction_to_coords``, ``vector_is_close`` and ``to_json`` wait for a
 caller.
 """
@@ -13,6 +14,14 @@ import math
 from collections.abc import Iterable
 
 import numpy as np
+
+
+def cos(degrees: float) -> float:
+    return math.cos(math.radians(degrees))
+
+
+def sin(degrees: float) -> float:
+    return math.sin(math.radians(degrees))
 
 
 class Point:

@@ -1,11 +1,13 @@
 """Host image model: DICOM images, arrays and CT stacks as numpy arrays.
 
 Port of the part of ``pylinac_tpu/core/image.py`` that the batched picket
-fence and the CatPhan analysis use: ``load`` (``:89``), ``BaseImage``
-(``:201``: ``center``, ``crop``, ``shape``, indexing and the numpy array
-protocol), ``DicomImage`` (``:522``: load, ``z_position``,
-``slice_spacing``, ``sid``, ``sad``, ``dpmm``), ``LinacDicomImage``
-(``:635``), ``ArrayImage`` (``:739``), ``z_position`` (``:775``),
+fence, the CatPhan and the Winston-Lutz analyses use: ``load`` (``:89``),
+``BaseImage`` (``:201``: ``center``, ``crop`` with ``edges``, ``invert``,
+``ground``, ``normalize``, ``check_inversion_by_histogram``, ``compute``,
+``shape``, indexing and the numpy array protocol), ``DicomImage`` (``:522``:
+load, ``z_position``, ``slice_spacing``, ``sid``, ``sad``, ``dpmm``,
+``cax``), ``LinacDicomImage`` (``:635-694``: axis angles from tags, file
+names or overrides), ``ArrayImage`` (``:739``), ``z_position`` (``:775``),
 ``DicomImageStack`` (``:796-879``: UID filter, z-sort, ``slice_spacing``,
 ``metadata``) and ``_rescale_dicom_values`` (``:142``). Pixels stay on the
 host as numpy; the analyses stage them on the card. The lazy and zip
@@ -15,12 +17,14 @@ stacks wait.
 from __future__ import annotations
 
 import os.path as osp
+import re
 from collections import Counter
 from pathlib import Path
 
 import numpy as np
 
 from . import dcm
+from .array_utils import ground, invert, normalize
 from .geometry import Point
 
 MM_PER_INCH = 25.4
@@ -72,6 +76,56 @@ class BaseImage:
             self.array = self.array[:, :-pixels]
         if self.array.size == 0:
             raise ValueError("Too many pixels removed; array is empty")
+
+    def invert(self) -> None:
+        self.array = invert(self.array)
+
+    def ground(self) -> float:
+        min_val = self.array.min()
+        self.array = ground(self.array)
+        return min_val
+
+    def normalize(self, norm_val=None) -> None:
+        if norm_val == "max":
+            norm_val = None
+        self.array = normalize(self.array, value=norm_val)
+
+    def check_inversion_by_histogram(self, percentiles=(5, 50, 95)) -> bool:
+        """Invert when the median is closer to the high percentile than to
+        the low one."""
+        was_inverted = False
+        p_low = np.percentile(self.array, percentiles[0])
+        p_mid = np.percentile(self.array, percentiles[1])
+        p_high = np.percentile(self.array, percentiles[2])
+        if abs(p_mid - p_low) > abs(p_mid - p_high):
+            was_inverted = True
+            self.invert()
+        return was_inverted
+
+    def compute(self, metrics):
+        """Compute plugin image metrics (:mod:`pylinac_tpu_torch.metrics.image`):
+        one metric's value, or a dict of values by metric name."""
+        from ..metrics.image import MetricBase
+
+        if not hasattr(self, "metrics"):
+            self.metrics, self.metric_values = [], {}
+        values = {}
+        if isinstance(metrics, MetricBase):
+            metrics = [metrics]
+        for metric in metrics:
+            metric.inject_image(self)
+            self.metrics.append(metric)
+            value = metric.context_calculate()
+            key = metric.full_name
+            suffix = 1
+            while key in values or key in self.metric_values:
+                suffix += 1
+                key = f"{metric.full_name}{suffix}"
+            values[key] = value
+        self.metric_values.update(values)
+        if len(values) == 1:
+            return values[key]
+        return values
 
     @property
     def shape(self):
@@ -177,10 +231,78 @@ class DicomImage(BaseImage):
             dpmm = self._dpi / MM_PER_INCH
         return dpmm
 
+    @property
+    def cax(self) -> Point:
+        """Beam CAX, accounting for EPID translations."""
+        try:
+            translation = self.metadata.XRayImageReceptorTranslation
+            mag_factor = self.sid / self.sad
+            x = self.center.x - translation[0] * self.dpmm / mag_factor
+            y = self.center.y + translation[1] * self.dpmm / mag_factor
+        except (AttributeError, ValueError, TypeError):
+            return self.center
+        return Point(x, y)
+
 
 class LinacDicomImage(DicomImage):
-    """A DICOM image from a linac. The JAX class adds gantry, collimator and
-    couch angles, which the batched picket fence does not read."""
+    """A DICOM image from a linac: gantry, collimator and couch angles from
+    the tags, from the file name (``use_filenames``) or from ``gantry``,
+    ``coll`` and ``couch`` overrides."""
+
+    gantry_keyword = "Gantry"
+    collimator_keyword = "Coll"
+    couch_keyword = "Couch"
+
+    def __init__(self, path, use_filenames: bool = False,
+                 axes_precision: int | None = None,
+                 missing_axis_value: float | str = 0, **kwargs):
+        self._axis_overrides = {}
+        for axis in ("gantry", "coll", "couch"):
+            if axis in kwargs:
+                self._axis_overrides[axis] = kwargs.pop(axis)
+        super().__init__(path, **kwargs)
+        self._use_filenames = use_filenames
+        self._axes_precision = axes_precision
+        self._missing_axis_value = missing_axis_value
+
+    def _get_axis_value(self, axis_str: str, axis_dcm_attr: str, override_key: str) -> float:
+        if override_key in self._axis_overrides:
+            return float(self._axis_overrides[override_key])
+        if self._use_filenames:
+            filename = osp.basename(str(self.path))
+            match = re.search(rf"(?<={axis_str})\d+\.?\d*", filename, flags=re.IGNORECASE)
+            if match is None:
+                if self._missing_axis_value == "raise":
+                    raise ValueError(
+                        f"The filename {filename} did not contain a {axis_str} value")
+                return float(self._missing_axis_value)
+            return self._round(float(match.group()))
+        value = self.metadata.get(axis_dcm_attr)
+        if value is None:
+            if self._missing_axis_value == "raise":
+                raise ValueError(f"No {axis_dcm_attr} tag found in the DICOM file")
+            return float(self._missing_axis_value)
+        return self._round(float(value))
+
+    def _round(self, value: float) -> float:
+        wrapped = value % 360
+        if self._axes_precision is not None:
+            wrapped = round(wrapped, self._axes_precision)
+        if wrapped in (360.0,):
+            wrapped = 0.0
+        return wrapped
+
+    @property
+    def gantry_angle(self) -> float:
+        return self._get_axis_value(self.gantry_keyword, "GantryAngle", "gantry")
+
+    @property
+    def collimator_angle(self) -> float:
+        return self._get_axis_value(self.collimator_keyword, "BeamLimitingDeviceAngle", "coll")
+
+    @property
+    def couch_angle(self) -> float:
+        return self._get_axis_value(self.couch_keyword, "PatientSupportAngle", "couch")
 
 
 def z_position(metadata: dcm.Dataset) -> float:

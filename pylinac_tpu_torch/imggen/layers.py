@@ -1,8 +1,11 @@
-"""Synthetic EPID image layers for picket fence images, numpy and scipy.
+"""Synthetic EPID image layers for picket fence and Winston-Lutz images,
+numpy and scipy.
 
 Port of ``pylinac_tpu/imggen/layers.py``: ``Layer`` ``:111``,
-``PerfectFieldLayer`` ``:170`` with the drawing helpers it uses
-(``clip_add`` ``:20``, ``even_round`` ``:30``, ``_polygon_coords`` ``:61``,
+``PerfectConeLayer`` ``:119``, ``PerfectFieldLayer`` ``:170``,
+``PerfectBBLayer`` ``:242`` with the drawing helpers they use
+(``clip_add`` ``:20``, ``even_round`` ``:30``, ``rotate_point`` ``:43``,
+``_disk_coords`` ``:49``, ``_polygon_coords`` ``:61``,
 ``draw_rotated_rectangle`` ``:80``), and ``GaussianFilterLayer`` ``:251``.
 The blur uses ``scipy.ndimage.gaussian_filter`` (same "reflect" edges and
 truncation as the JAX filter, computed in float64 where the JAX one ran in
@@ -25,6 +28,24 @@ def clip_add(image1: np.ndarray, image2: np.ndarray, dtype=np.uint16) -> np.ndar
 def even_round(num: float) -> int:
     num = int(round(num))
     return num + num % 2
+
+
+def rotate_point(x: float, y: float, angle: float) -> tuple[float, float]:
+    theta = np.radians(angle)
+    return (x * np.cos(theta) - y * np.sin(theta),
+            x * np.sin(theta) + y * np.cos(theta))
+
+
+def _disk_coords(center: tuple[float, float], radius: float, shape):
+    """Pixel coordinates strictly inside the circle (skimage disk convention)."""
+    cy, cx = center
+    rmin = max(int(np.floor(cy - radius)) - 1, 0)
+    rmax = min(int(np.ceil(cy + radius)) + 2, shape[0])
+    cmin = max(int(np.floor(cx - radius)) - 1, 0)
+    cmax = min(int(np.ceil(cx + radius)) + 2, shape[1])
+    yy, xx = np.mgrid[rmin:rmax, cmin:cmax]
+    mask = ((yy - cy) / radius) ** 2 + ((xx - cx) / radius) ** 2 < 1
+    return yy[mask], xx[mask]
 
 
 def _polygon_coords(row_coords, col_coords, shape):
@@ -69,6 +90,30 @@ class Layer(ABC):
         pass
 
 
+class PerfectConeLayer(Layer):
+    """A cone field without flattening-filter effects."""
+
+    def __init__(self, cone_size_mm: float = 10, cax_offset_mm=(0, 0),
+                 alpha: float = 1.0, rotation: float = 0):
+        self.cone_size_mm = cone_size_mm
+        self.cax_offset_mm = cax_offset_mm
+        self.alpha = alpha
+        self.rotation = rotation
+
+    def apply(self, image, pixel_size, mag_factor):
+        cone_size_pix = mag_factor * (self.cone_size_mm / 2) / pixel_size
+        off_y, off_x = rotate_point(
+            x=self.cax_offset_mm[0] * mag_factor / pixel_size,
+            y=self.cax_offset_mm[1] * mag_factor / pixel_size,
+            angle=self.rotation)
+        center = (off_y + (image.shape[0] / 2 - 0.5),
+                  off_x + (image.shape[1] / 2 - 0.5))
+        rr, cc = _disk_coords(center, cone_size_pix, image.shape)
+        temp = np.zeros(image.shape)
+        temp[rr, cc] = int(np.iinfo(image.dtype).max * self.alpha)
+        return clip_add(image, temp)
+
+
 class PerfectFieldLayer(Layer):
     """A square field without flattening-filter effects."""
 
@@ -90,6 +135,15 @@ class PerfectFieldLayer(Layer):
         temp = np.zeros(image.shape)
         temp[rr, cc] = int(np.iinfo(image.dtype).max * self.alpha)
         return clip_add(image, temp)
+
+
+class PerfectBBLayer(PerfectConeLayer):
+    """A BB: an attenuating (negative-alpha) disk."""
+
+    def __init__(self, bb_size_mm: float = 5, cax_offset_mm=(0, 0),
+                 alpha: float = -0.5, rotation: float = 0):
+        super().__init__(cone_size_mm=bb_size_mm, cax_offset_mm=cax_offset_mm,
+                         alpha=alpha, rotation=rotation)
 
 
 class GaussianFilterLayer(Layer):

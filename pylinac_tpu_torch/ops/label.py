@@ -1,11 +1,12 @@
 """Fixed-K region properties of labelled masks, batched.
 
 Port of ``pylinac_tpu/ops/label.py``: ``Regions`` ``:156``,
-``_perimeter_image`` ``:200``, ``regionprops`` ``:258``,
-``_props_from_label`` ``:326``, ``clear_border`` ``:559`` and
+``_perimeter_image`` ``:200``, ``fill_holes`` ``:224``, ``regionprops``
+``:258``, ``_props_from_label`` ``:326``, ``clear_border`` ``:559`` and
 ``regionprops_batch`` ``:628``. Labels and hole roots come from the CCL
-kernel (:mod:`pylinac_tpu_torch.ops.ccl`); everything here is plain PyTorch
-on the tensors' device.
+kernel (:mod:`pylinac_tpu_torch.ops.ccl`), the border flood of
+:func:`fill_holes` from the flood kernel (:mod:`pylinac_tpu_torch.ops.flood`);
+everything else here is plain PyTorch on the tensors' device.
 
 The slot semantics are JAX's: the K + 1 smallest component roots in
 ascending order, K slots reported, so a mask with K or more regions shows
@@ -23,8 +24,7 @@ from JAX in the last bits.
 
 Not ported: ``pack_regions`` and ``regions_to_host`` (``:694-725``), which
 worked around the TPU link; :meth:`Regions.to_numpy` takes their place.
-``label``, ``fill_holes`` and ``keep_largest`` wait for the slices that use
-them.
+``label`` and ``keep_largest`` wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .ccl import hole_roots_batch, label_batch
+from .flood import flood_from_border
 
 _CROSS = [(-1, 0), (1, 0), (0, -1), (0, 1)]
 _DIAG = [(-1, -1), (-1, 1), (1, -1), (1, 1)]
@@ -267,28 +268,54 @@ def _props_from_label(mask: torch.Tensor, lab: torch.Tensor, intensity: torch.Te
         label_id=label_id)
 
 
+# elements of the (chunk, H*W, K) inside test of _hull_area: 128 MB of bool
+_HULL_CHUNK_ELEMENTS = 2**27
+
+
 def _hull_area(in_mask: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
                slot: torch.Tensor, K: int) -> torch.Tensor:
-    """Convex-hull pixel counts from D = 32 support functions: a pixel centre
-    is inside the hull iff its projection is at most the region's support in
-    every direction. The estimate circumscribes the true hull with O(1/D^2)
-    excess. One image at a time, since the test is (H*W, K)."""
+    """Convex-hull pixel counts of (B, K) slots from D = 32 support
+    functions: a pixel centre is inside the hull iff its projection is at
+    most the region's support in every direction. The estimate circumscribes
+    the true hull with O(1/D^2) excess.
+
+    The whole batch goes through each direction at once: one
+    ``scatter_reduce_`` gives the (B, K + 2) supports, then one comparison
+    the inside test. Images go in chunks that keep the (chunk, H*W, K) test
+    near 128 MB. Every pixel's projection is the same float32 product and
+    sum as in the JAX function (``ops/label.py:527-539``)."""
     D = 32
     thetas = np.arange(D) * (2 * np.pi / D)
     nx = torch.as_tensor(np.cos(thetas), dtype=torch.float32)
     ny = torch.as_tensor(np.sin(thetas), dtype=torch.float32)
-    out = []
-    for i in range(in_mask.shape[0]):
-        inside = torch.ones(rr.shape[0], K, dtype=torch.bool, device=rr.device)
+    b, n = in_mask.shape
+    chunk = max(1, _HULL_CHUNK_ELEMENTS // max(n * K, 1))
+    region = in_mask > 0
+    out = [torch.zeros(0, K, device=rr.device)]
+    for lo in range(0, b, chunk):
+        hi = min(lo + chunk, b)
+        inside = torch.ones(hi - lo, n, K, dtype=torch.bool, device=rr.device)
         for d in range(D):
             proj = rr * float(ny[d]) + cc * float(nx[d])
-            support = torch.full((K + 2,), float("-inf"), device=rr.device)
-            support = support.scatter_reduce(
-                0, slot[i], torch.where(in_mask[i] > 0, proj, float("-inf")),
-                "amax", include_self=True)[:K]
-            inside &= proj[:, None] <= support[None, :] + 1e-3
-        out.append(inside.sum(dim=0).to(torch.float32))
-    return torch.stack(out)
+            support = torch.full((hi - lo, K + 2), float("-inf"), device=rr.device)
+            support.scatter_reduce_(
+                1, slot[lo:hi], torch.where(region[lo:hi], proj, float("-inf")),
+                "amax", include_self=True)
+            inside &= proj[None, :, None] <= support[:, None, :K] + 1e-3
+        out.append(inside.sum(dim=1).to(torch.float32))
+    return torch.cat(out)
+
+
+def fill_holes(mask: torch.Tensor) -> torch.Tensor:
+    """scipy.ndimage.binary_fill_holes of one (H, W) bool mask: background
+    not 4-connected to the border becomes foreground.
+
+    The TPU branch of the JAX function (``ops/label.py:230-233``) at every
+    size: ``mask | (flood == 0)`` with the border flood of
+    :func:`ops.flood.flood_from_border`, which launches ``csrc/flood.cu`` on
+    the card. JAX took its XLA fill above the VMEM budget; the card has
+    none."""
+    return mask | (flood_from_border(mask.contiguous()) == 0)
 
 
 def clear_border(regions: Regions) -> Regions:

@@ -3,9 +3,10 @@
 A child interpreter installs a meta-path finder that refuses ``jax``,
 ``jaxlib`` and ``pydantic``, imports ``pylinac_tpu_torch`` and
 ``pylinac_tpu_torch.ct``, makes a small AS500 picket fence with the port's
-own image generator and analyses it on the CPU, and finds the regions of a
-small ring image with the CT region finder. The machine with the card has
-neither package.
+own image generator and analyses it on the CPU, finds the regions of a
+small ring image with the CT region finder, and analyses a small generated
+Winston-Lutz set (four AS500 frames) with ``pylinac_tpu_torch.winston_lutz``
+on the CPU. The machine with the card has neither package.
 """
 
 import json
@@ -46,7 +47,18 @@ CHILD = textwrap.dedent("""
     yy, xx = np.mgrid[:64, :64]
     ring = np.where(np.abs(np.hypot(yy - 32, xx - 32) - 15) < 3, 1000.0, 0.0)
     _, regions, n = ct.get_regions(ring, clear_borders=False, device="cpu")
+
+    from pylinac_tpu_torch.imggen.simulators import AS500Image
+    from pylinac_tpu_torch.imggen.utils import generate_winstonlutz
+    from pylinac_tpu_torch.winston_lutz import WinstonLutz
+    wl_dir = tempfile.mkdtemp() + "/wl"
+    generate_winstonlutz(AS500Image(sid=1000), PerfectFieldLayer, wl_dir,
+                         final_layers=[GaussianFilterLayer(sigma_mm=1)], offset_mm_left=1)
+    wl = WinstonLutz(wl_dir)
+    wl.analyze(device="cpu")
+    wl_data = wl.results_data()
     print(json.dumps({
+        "wl_images": wl_data.num_total_images, "wl_shift_x": wl_data.bb_shift_vector["x"],
         "ct_regions": n, "ct_filled": max(r.filled_area for r in regions),
         "pickets": result.number_of_pickets, "passed": result.passed,
         "max_error_mm": result.max_error_mm,
@@ -66,3 +78,5 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["max_error_mm"] < 0.1
     assert out["ct_regions"] >= 1
     assert out["ct_filled"] > 500  # the ring's edge band with its hole filled
+    assert out["wl_images"] == 4
+    assert abs(out["wl_shift_x"] - 1) < 0.3  # the BB 1 mm left: shift RIGHT 1 mm
