@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once) and runs the three ported paths:
+``nvcc`` per source, all at once) and runs the four ported paths:
 
 - picket fence: checks the 3x3-median kernel bit for bit against its plain
   PyTorch twin, runs ``PicketFenceBatch`` on 64 EPID-like 1254x1254 uint16
@@ -26,7 +26,16 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   kernels against their twins on every mask those runs gave them, checks
   the results against the bars of ``tests/models/test_winstonlutz.py`` and
   the card against the CPU, then times the batch and each kernel entry on
-  the masks of the run that counted it.
+  the masks of the run that counted it;
+- 2D gamma: checks the gamma kernel against its twin (NaN masks equal,
+  every other value equal) at seven shapes and dta values, under
+  global and local normalisation (NaN and +-inf inputs) with fill NaN and
+  -1, runs the bench's 16 pairs of 768x1024 uint16 through
+  ``gamma_2d_batch`` and pair 0 through ``gamma_2d`` on the card, holds the
+  kernel against its twin on every input those runs gave it, checks the
+  maps against a float32 numpy oracle (the bench's) and the CPU run, then
+  times the batch with and without the fetch, profiles it, times its
+  stages between CUDA events, and times the kernel against its twin.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
@@ -87,6 +96,18 @@ WL_FRAMES = 8             # the bench's session: gantry 0/90/180/270 x collimato
 PX_TOL = 1e-3             # selector and single-image centroids against the batch
 # the listed shapes, then the WL path's: one frame and the session
 FLOOD_SHAPES = CCL_SHAPES + [(1, 1280, 1280), (WL_FRAMES, 1280, 1280)]
+
+# the bench's Gamma2D (bench.py:727-731): 16 pairs of 768x1024 uint16, DTA 9
+# px, 3 % global dose, cap 2, 5 % threshold
+GAMMA_PAIRS, GAMMA_H, GAMMA_W = 16, 768, 1024
+GAMMA_DTA, GAMMA_DOSE_TA, GAMMA_CAP, GAMMA_THRESH = 9, 3.0, 2.0, 5.0
+GAMMA_ORACLE_TOL = 1e-3   # bench.py:797
+GAMMA_CPU_TOL = 1e-6
+# (shape, dta) of the kernel checks: the listed ones, the first past the
+# kernel's shared-memory tile (dta 47 reads device memory), the bench's
+GAMMA_CASES = [((1, 8, 8), 1), ((3, 40, 130), 3), ((3, 40, 130), 5), ((2, 97, 131), 9),
+               ((1, 16, 16), 20), ((1, 24, 40), 47), ((GAMMA_PAIRS, GAMMA_H, GAMMA_W), 9)]
+GAMMA_SCALARS = [(2.0, 0.05, float("nan")), (2.0, 0.05, -1.0), (1.5, 0.3, float("nan"))]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the float32 rate
 # outside the tensor cores, the rate charged to each kernel's operations
@@ -317,17 +338,17 @@ def flood_entries() -> list[tuple]:
 
 @contextlib.contextmanager
 def recording_inputs(entries):
-    """Within the block, record a copy of every mask handed to each entry
-    ``(module, attribute, mode)`` as (mode, masks, extra arguments). Each
-    recorder passes the call through unchanged, so the launch counts stay
-    the kernel's."""
+    """Within the block, record a copy of the first tensor handed to each
+    entry ``(module, attribute, mode)`` as (mode, tensor, the other
+    positional arguments, the keyword arguments). Each recorder passes the
+    call through unchanged, so the launch counts stay the kernel's."""
     seen = []
     originals = [(module, name, getattr(module, name)) for module, name, _ in entries]
 
     def recorder(mode, fn):
-        def call(masks, *args):
-            seen.append((mode, masks.clone(), args))
-            return fn(masks, *args)
+        def call(masks, *args, **kwargs):
+            seen.append((mode, masks.clone(), args, kwargs))
+            return fn(masks, *args, **kwargs)
         return call
 
     for (module, name, fn), (_, _, mode) in zip(originals, entries):
@@ -351,25 +372,35 @@ def kernel_pairs(ccl, flood=None) -> dict:
 
 def check_counts(seen, counts: dict[str, int], what: str) -> None:
     """The recorded calls of each mode must equal its launch count."""
-    recorded = {mode: sum(m == mode for m, _, _ in seen) for mode in counts}
+    recorded = {mode: sum(m == mode for m, *_ in seen) for mode in counts}
     if recorded != counts:
         raise RuntimeError(f"the {what} recorded {recorded} kernel inputs but launched {counts}")
 
 
+def agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
+    """Kernel output against twin output: ``torch.equal``, with NaN equal to
+    NaN at the same place; and the largest |kernel - twin| where neither is
+    NaN (0.0 when they agree)."""
+    got64, want64 = got.to(torch.float64), want.to(torch.float64)
+    nan = torch.isnan(got64)
+    same = torch.equal(nan, torch.isnan(want64)) and torch.equal(got64[~nan], want64[~nan])
+    diff = (got64 - want64).abs()[~(nan | torch.isnan(want64))]
+    return same, float(diff.max()) if diff.numel() else 0.0
+
+
 def check_path_masks(pairs: dict, seen, what: str) -> dict[str, float]:
-    """Each kernel must equal its twin bit for bit on every mask that a run
-    of the path gave it; returns the largest |kernel - twin| of each mode
-    (0.0 where they agree)."""
+    """Each kernel must equal its twin bit for bit on every input that a
+    run of the path gave it; returns the largest |kernel - twin| of each
+    mode (0.0 where they agree)."""
     worst, shapes = {}, []
-    for mode, masks, args in seen:
+    for mode, masks, args, kwargs in seen:
         masks = masks if masks.dim() == 3 else masks[None]
         kernel, twin = pairs[mode]
-        got, want = kernel(masks, *args), twin(masks, *args)
+        got, want = kernel(masks, *args, **kwargs), twin(masks, *args, **kwargs)
         torch.cuda.synchronize()
-        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
-        err = float(diff.max()) if diff.numel() else 0.0
+        same, err = agree(got, want)
         worst[mode] = max(worst.get(mode, 0.0), err)
-        if not torch.equal(got, want):
+        if not same:
             raise RuntimeError(f"{mode} differs from its twin on a {what} mask of shape "
                                f"{tuple(masks.shape)}: max |err| {err}")
         shapes.append(f"{mode} {tuple(masks.shape)}")
@@ -635,7 +666,7 @@ def catphan_phase(card: str, ccl) -> list[dict]:
               f"(runs ms: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])})")
 
         # the batch's localisation masks, its largest kernel input: (240, 256, 256)
-        masks = max((m for _, m, _ in batch_inputs), key=torch.Tensor.numel)
+        masks = max((m for _, m, *_ in batch_inputs), key=torch.Tensor.numel)
         lines = []
         for mode, kernel, twin in (
                 ("label", functools.partial(ccl.label_batch, connectivity=2),
@@ -926,7 +957,7 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
               f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
 
         def largest(seen, mode: str) -> torch.Tensor:
-            masks = max((m for m_, m, _ in seen if m_ == mode), key=torch.Tensor.numel)
+            masks = max((m for m_, m, *_ in seen if m_ == mode), key=torch.Tensor.numel)
             return masks if masks.dim() == 3 else masks[None]
 
         label4 = (functools.partial(ccl.label_batch, connectivity=1),
@@ -974,6 +1005,288 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
     return lines
 
 
+def gamma_inputs(shape: tuple[int, int, int], dta: int, local: bool,
+                 gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """A (ref_n, eval_p) pair on the card, normalised as ``gamma_2d`` does:
+    doses over [0, 100) with 1 % NaN in the reference and in the evaluation,
+    1 % negative evaluations, 1 % negative and 2 % zero references, divided
+    by 3 % of the finite reference maximum (``local``: of each reference
+    pixel, so that a zero reference gives a NaN ``ref_n`` and +-inf in
+    ``eval_p``), the evaluation edge-padded by ``dta``. Globally normalised
+    values lie on both sides of the thresholds 0.05 and 0.3."""
+    def uniform():
+        return torch.rand(shape, generator=gen, device=gen.device)
+
+    ref = uniform() * 100
+    ev = ref + (uniform() - 0.5) * 4
+    u, v = uniform(), uniform()
+    ref = torch.where(u < 0.01, torch.nan, torch.where(u < 0.02, -ref, ref))
+    ref = torch.where((u >= 0.02) & (u < 0.04), 0.0, ref)
+    ev = torch.where(v < 0.01, torch.nan, torch.where(v < 0.02, -ev, ev))
+    dose_ta = 0.03 * (ref if local else torch.nan_to_num(ref).amax())
+    eval_p = torch.nn.functional.pad((ev / dose_ta)[:, None], (dta,) * 4, mode="replicate")[:, 0]
+    return (ref / dose_ta).contiguous(), eval_p.contiguous()
+
+
+def check_gamma(gamma2d) -> float:
+    """The gamma kernel must equal its twin (NaN masks equal, every other
+    value equal) at every shape and dta of GAMMA_CASES, under global
+    and local normalisation, with each (cap, threshold, fill) of
+    GAMMA_SCALARS; returns the largest |kernel - twin| (0.0 when they
+    agree)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for shape, dta in GAMMA_CASES:
+        for local in (False, True):
+            ref_n, eval_p = gamma_inputs(shape, dta, local, gen)
+            for cap, threshold_n, fill in GAMMA_SCALARS:
+                got = gamma2d.gamma2d(ref_n, eval_p, dta, cap, threshold_n, fill)
+                want = gamma2d.gamma2d_reference(ref_n, eval_p, dta, cap, threshold_n, fill)
+                torch.cuda.synchronize()
+                same, err = agree(got, want)
+                worst = max(worst, err)
+                if not same:
+                    raise RuntimeError(f"gamma2d differs from its twin at {shape} dta {dta} "
+                                       f"(local {local}, cap {cap}, threshold {threshold_n}, "
+                                       f"fill {fill}): max |err| {err}")
+        print(f"kernel check gamma2d {shape} dta {dta}: bit-equal to twin, global and local "
+              f"normalisation, fill NaN and -1")
+    ref_n, eval_p = gamma_inputs((1, 8, 8), 1, False, gen)
+    for bad, what in (((ref_n.double(), eval_p.double()), "float64"),
+                      ((ref_n.transpose(1, 2), eval_p), "non-contiguous"),
+                      ((ref_n, eval_p[:, :-1]), "mis-padded")):
+        try:
+            gamma2d.gamma2d(*bad, 1, 2.0, 0.05, 0.0)
+        except (TypeError, ValueError) as e:
+            print(f"kernel check gamma2d {what}: raised {type(e).__name__}")
+        else:
+            raise RuntimeError(f"gamma2d accepted a {what} input")
+    return worst
+
+
+def sig(x):
+    return 1.0 / (1 + np.exp(np.clip(-x, -60, 60)))
+
+
+def gamma_pairs() -> tuple[np.ndarray, np.ndarray]:
+    """The bench's 16 uint16 reference/evaluation pairs (``bench.py:733-755``,
+    seed 0): square fields of half-width 256-280 px at 40000 counts, the
+    evaluation shifted by N(0, 1.5) px and scaled by N(1, 0.01), both with
+    N(0, 60) count noise."""
+    h, w = GAMMA_H, GAMMA_W
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    refs = np.empty((GAMMA_PAIRS, h, w), np.uint16)
+    evals = np.empty((GAMMA_PAIRS, h, w), np.uint16)
+    for i in range(GAMMA_PAIRS):
+        cy, cx = h / 2, w / 2
+        half = 256 + (i % 4) * 8
+
+        def field(cy, cx, amp):
+            v = (sig((xx - (cx - half)) / 4) - sig((xx - (cx + half)) / 4))
+            v *= (sig((yy - (cy - half)) / 4) - sig((yy - (cy + half)) / 4))
+            return amp * v
+
+        r = field(cy, cx, 40000) + rng.normal(0, 60, (h, w))
+        e = (field(cy + rng.normal(0, 1.5), cx + rng.normal(0, 1.5),
+                   40000 * (1 + rng.normal(0, 0.01)))
+             + rng.normal(0, 60, (h, w)))
+        refs[i] = np.clip(r, 0, 65535).astype(np.uint16)
+        evals[i] = np.clip(e, 0, 65535).astype(np.uint16)
+    return refs, evals
+
+
+def gamma_oracle(reference: np.ndarray, evaluation: np.ndarray) -> np.ndarray:
+    """The bench's float32 numpy oracle of one pair (``bench.py:772-790``),
+    with its own copy of the disk. One change: ``bench.py:789`` blanks pixels
+    below 5 % of the raw maximum, where ``gamma_2d`` blanks those whose
+    normalised dose is below 0.05 (5 % of the 3 % dose criterion); the oracle
+    takes ``gamma_2d``'s definition, so that the NaN masks can be compared."""
+    h, w, dta = GAMMA_H, GAMMA_W, GAMMA_DTA
+    r = dta + 1
+    offsets = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)
+               if dy * dy + dx * dx < r * r]
+    reference = reference.astype(np.float32)
+    evaluation = evaluation.astype(np.float32)
+    dose_ta = GAMMA_DOSE_TA / 100.0 * reference.max()
+    ref_n = reference / dose_ta
+    eval_n = evaluation / dose_ta
+    eval_p = np.pad(eval_n, dta, mode="edge")
+    min_gamma2 = np.full((h, w), GAMMA_CAP ** 2, np.float32)
+    for dy, dx in offsets:
+        shifted = eval_p[dta + dy: dta + dy + h, dta + dx: dta + dx + w]
+        dd = shifted - ref_n
+        cand = (dy * dy + dx * dx) / (dta * dta) + dd * dd
+        np.minimum(min_gamma2, cand, out=min_gamma2)
+    gamma = np.minimum(np.sqrt(min_gamma2), GAMMA_CAP)
+    gamma[ref_n < GAMMA_THRESH / 100.0] = np.nan
+    return gamma
+
+
+def compare_gamma(got: np.ndarray, want: np.ndarray, tol: float, what: str) -> float:
+    """Equal NaN masks and |got - want| <= tol elsewhere; returns the
+    largest difference."""
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        raise RuntimeError(f"{what}: NaN masks differ in {int((np.isnan(got) != nan).sum())} px")
+    err = float(np.abs(got[~nan] - want[~nan]).max())
+    if err > tol:
+        raise RuntimeError(f"{what}: max |diff| {err} > {tol}")
+    return err
+
+
+def profile_gamma(card: str, run, wall_ms: float, top: int = 12) -> None:
+    """Where a warm ``gamma_2d_batch`` with the result fetched spends its
+    time: one run under ``torch.profiler`` after one profiled warm-up step
+    (without it the tracer can miss the first copies), the device busy time
+    against the profiled and the unprofiled wall, and the device work
+    (copies and kernels) by self time."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    # the step's own annotation spans the step on the device: not work
+    rows = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")}
+    busy = sum(ms for ms, _ in rows.values())
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    print(f"[{card}] gamma profile: profiled wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {100 * (1 - busy / wall):.1f} % of the profiled wall and "
+          f"{100 * (1 - busy / wall_ms):.1f} % of the unprofiled median {wall_ms:.3f} ms")
+    for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  device {ms:9.3f} ms  {n:5d} x  {key[:100]}")
+
+
+def gamma_stages(card: str, refs: np.ndarray, evals: np.ndarray, kw: dict) -> None:
+    """The stages of a warm ``gamma_2d_batch`` with the fetch, each between
+    CUDA events (median of 5 after 1 warm-up): staging (the pageable
+    host-to-device copies of both stacks and their widening), the prologue
+    and the kernel, and the fetch. A cross-check of the profiler, whose
+    trace can miss a pageable host-to-device copy."""
+    from pylinac_tpu_torch.ops import gamma as tgamma
+
+    runs = []
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks[0].record()
+        r, e = tgamma._stage(refs, torch.device("cuda")), tgamma._stage(evals, torch.device("cuda"))
+        marks[1].record()
+        out = tgamma._gamma_2d_staged(
+            r, e, kw["dose_to_agreement"], kw["distance_to_agreement"], kw["gamma_cap_value"],
+            kw["global_dose"], kw["dose_threshold"], float("nan"))
+        marks[2].record()
+        out.cpu()
+        marks[3].record()
+        torch.cuda.synchronize()
+        runs.append([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+    stage, compute, fetch = (statistics.median(col) for col in zip(*runs[1:]))
+    print(f"[{card}] gamma stages by CUDA events, median of 5: staging {stage:.3f} ms, "
+          f"prologue + kernel {compute:.3f} ms, fetch {fetch:.3f} ms, sum "
+          f"{stage + compute + fetch:.3f} ms")
+
+
+def gamma_phase(card: str, gamma2d) -> dict:
+    """The 2D gamma path: kernel checks, the bench's 16 pairs through
+    ``gamma_2d_batch`` and pair 0 through ``gamma_2d`` on the card, the
+    kernel held against its twin on every input those runs gave it, the
+    results against the numpy oracle and the CPU run, timing and a profile.
+    Returns the gamma kernel's line."""
+    from pylinac_tpu_torch.ops import gamma as tgamma
+
+    max_abs_err = check_gamma(gamma2d)
+    t0 = time.perf_counter()
+    refs, evals = gamma_pairs()
+    print(f"inputs: {GAMMA_PAIRS} gamma pairs {refs.shape[1:]} {refs.dtype} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(dose_to_agreement=GAMMA_DOSE_TA, distance_to_agreement=GAMMA_DTA,
+              gamma_cap_value=GAMMA_CAP, global_dose=True, dose_threshold=GAMMA_THRESH)
+
+    gamma2d.gamma2d.launches = 0
+    with recording_inputs([(tgamma, "gamma2d", "gamma")]) as seen:
+        batch = tgamma.gamma_2d_batch(refs, evals, device="cuda", **kw)
+        single = tgamma.gamma_2d(refs[0], evals[0], device="cuda", **kw)
+    torch.cuda.synchronize()
+    launches = gamma2d.gamma2d.launches
+    if launches < 2:
+        raise RuntimeError(f"the gamma path launched gamma2d {launches} times, want 2")
+    print(f"gamma path: gamma2d.launches = {launches} (the batch and the single pair)")
+    check_counts(seen, {"gamma": launches}, "gamma run")
+    max_abs_err = max(max_abs_err, check_path_masks(
+        {"gamma": (gamma2d.gamma2d, gamma2d.gamma2d_reference)}, seen, "gamma run")["gamma"])
+
+    batch_np = batch.cpu().numpy()
+    if batch_np.shape != (GAMMA_PAIRS, GAMMA_H, GAMMA_W) or batch.dtype != torch.float32:
+        raise RuntimeError(f"gamma_2d_batch gave {batch.dtype} {tuple(batch.shape)}")
+    if not torch.equal(torch.isnan(single), torch.isnan(batch[0])) or not torch.equal(
+            torch.nan_to_num(single), torch.nan_to_num(batch[0])):
+        raise RuntimeError("gamma_2d on pair 0 differs from the batch's pair 0")
+    finite = np.isfinite(batch_np)
+    passing = float((batch_np[finite] <= 1).mean())
+    if not (0.2 < finite.mean() < 1 and passing > 0.5):
+        raise RuntimeError(f"implausible gamma maps: {finite.mean():.3f} of pixels evaluated, "
+                           f"{passing:.3f} of them passing")
+    t0 = time.perf_counter()
+    oracle_err = max(compare_gamma(batch_np[i], gamma_oracle(refs[i], evals[i]),
+                                   GAMMA_ORACLE_TOL, f"gamma pair {i} vs numpy oracle")
+                     for i in range(GAMMA_PAIRS))
+    print(f"gamma results: {GAMMA_PAIRS} maps {batch_np.shape[1:]}, {finite.mean():.4f} of "
+          f"pixels evaluated, {passing:.4f} of those passing (gamma <= 1); all {GAMMA_PAIRS} "
+          f"pairs against the float32 numpy oracle: NaN masks equal, max |diff| {oracle_err:.3e} "
+          f"(bar {GAMMA_ORACLE_TOL}; {time.perf_counter() - t0:.1f} s); gamma_2d on pair 0 "
+          f"equal to the batch's pair 0")
+    t0 = time.perf_counter()
+    cpu = tgamma.gamma_2d_batch(refs, evals, device="cpu", **kw).numpy()
+    cpu_err = compare_gamma(batch_np, cpu, GAMMA_CPU_TOL, "gamma card vs CPU")
+    print(f"gamma card vs CPU on all {GAMMA_PAIRS} pairs: NaN masks equal, max |diff| "
+          f"{cpu_err:.3e} (bar {GAMMA_CPU_TOL}; CPU run {time.perf_counter() - t0:.1f} s)")
+
+    def run(fetch: bool):
+        out = tgamma.gamma_2d_batch(refs, evals, device="cuda", **kw)
+        if fetch:
+            out = out.cpu()
+        torch.cuda.synchronize()
+
+    walls = {}
+    for fetch in (False, True):
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            run(fetch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        walls[fetch] = statistics.median(times[1:])
+        print(f"[{card}] warm gamma_2d_batch of {GAMMA_PAIRS} pairs"
+              f"{' with .cpu()' if fetch else ', result on the card'}: median "
+              f"{walls[fetch]:.3f} ms of 5 runs = {GAMMA_PAIRS / walls[fetch] * 1e3:.1f} pairs/s "
+              f"(runs ms: {', '.join(f'{t:.3f}' for t in times[1:])})")
+    profile_gamma(card, functools.partial(run, True), walls[True])
+    gamma_stages(card, refs, evals, kw)
+
+    _, ref_n, (eval_p, dta, cap, threshold_n, fill), _ = max(seen, key=lambda s: s[1].numel())
+    n_offsets = len(gamma2d.offset_table(dta)[1])
+    ms, plain_ms = time_pair(
+        lambda r: gamma2d.gamma2d(r, eval_p, dta, cap, threshold_n, fill),
+        lambda r: gamma2d.gamma2d_reference(r, eval_p, dta, cap, threshold_n, fill),
+        ref_n, 20, 3)
+    # reference and padded evaluation in, the map out; per pixel and offset a
+    # sub, a mul, an add, the NaN test, the min and the offset's own load
+    bound_ms, bound_by = bound(4 * (2 * ref_n.numel() + eval_p.numel()),
+                               6 * n_offsets * ref_n.numel())
+    print(f"[{card}] gamma2d at {tuple(ref_n.shape)} dta {dta} ({n_offsets} offsets): kernel "
+          f"{ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": "gamma2d", "route": "cuda", "source": "pylinac_tpu_torch/csrc/gamma2d.cu",
+            "replaces": "pylinac_tpu/ops/pallas_gamma.py:27", "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -981,11 +1294,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from pylinac_tpu_torch.ops import ccl, flood, median
+    from pylinac_tpu_torch.ops import ccl, flood, gamma2d, median
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    build_all([median.KERNEL, ccl.KERNEL, flood.KERNEL])
+    build_all([median.KERNEL, ccl.KERNEL, flood.KERNEL, gamma2d.KERNEL])
     t0 = time.perf_counter()
     kernels = [picket_fence_phase(card, median)]
     print(f"picket fence phase: {time.perf_counter() - t0:.1f} s")
@@ -994,7 +1307,10 @@ def main() -> int:
     print(f"CatPhan phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += winston_lutz_phase(card, ccl, flood)
-    print(f"Winston-Lutz phase: {time.perf_counter() - t0:.1f} s; whole run "
+    print(f"Winston-Lutz phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels.append(gamma_phase(card, gamma2d))
+    print(f"gamma phase: {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,16 +6,19 @@ its layout (``ops/``, ``core/``, ``metrics/``, ``imggen/``,
 its device work on an NVIDIA card through hand-written kernels (``csrc/``).
 Ported so far: the batched picket fence (``PicketFenceBatch``,
 ``analyze_batch``), the CatPhan 503/504/600/604 analyses, single scan and
-batched (``CatPhan504``, ``CatPhanBatch``), and the Winston-Lutz analyses
-(``WinstonLutz``, ``WinstonLutz2D``).
+batched (``CatPhan504``, ``CatPhanBatch``), the Winston-Lutz analyses
+(``WinstonLutz``, ``WinstonLutz2D``) and the gamma index (``gamma_2d``,
+``gamma_2d_batch``, ``gamma_1d``, ``gamma_geometric``, ``gamma_bakai``).
 """
 
 from .core.scale import MachineScale
 from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhanBatch
+from .ops.gamma import gamma_1d, gamma_2d, gamma_2d_batch, gamma_bakai, gamma_geometric
 from .picketfence import MLC, MLCArrangement, Orientation, PFResult, PicketFenceBatch, analyze_batch
 from .version import __version__
 from .winston_lutz import BBArrangement, WinstonLutz, WinstonLutz2D
 
 __all__ = ["BBArrangement", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
            "CatPhanBatch", "MLC", "MLCArrangement", "MachineScale", "Orientation", "PFResult",
-           "PicketFenceBatch", "WinstonLutz", "WinstonLutz2D", "analyze_batch", "__version__"]
+           "PicketFenceBatch", "WinstonLutz", "WinstonLutz2D", "analyze_batch", "gamma_1d",
+           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "__version__"]

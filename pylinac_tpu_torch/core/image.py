@@ -4,10 +4,12 @@ Port of the part of ``pylinac_tpu/core/image.py`` that the batched picket
 fence, the CatPhan and the Winston-Lutz analyses use: ``load`` (``:89``),
 ``BaseImage`` (``:201``: ``center``, ``crop`` with ``edges``, ``invert``,
 ``ground``, ``normalize``, ``check_inversion_by_histogram``, ``compute``,
-``shape``, indexing and the numpy array protocol), ``DicomImage`` (``:522``:
-load, ``z_position``, ``slice_spacing``, ``sid``, ``sad``, ``dpmm``,
+``shape``, indexing and the numpy array protocol, and ``gamma``, the Bakai
+approximation, ``:377-402``), ``DicomImage`` (``:522``: load,
+``z_position``, ``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``,
 ``cax``), ``LinacDicomImage`` (``:635-694``: axis angles from tags, file
-names or overrides), ``ArrayImage`` (``:739``), ``z_position`` (``:775``),
+names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid`` and
+``dpmm``), ``z_position`` (``:775``),
 ``DicomImageStack`` (``:796-879``: UID filter, z-sort, ``slice_spacing``,
 ``metadata``) and ``_rescale_dicom_values`` (``:142``). Pixels stay on the
 host as numpy; the analyses stage them on the card. The lazy and zip
@@ -102,6 +104,33 @@ class BaseImage:
             self.invert()
         return was_inverted
 
+    def gamma(self, comparison_image: BaseImage, doseTA: float = 1, distTA: float = 1,
+              threshold: float = 0.1, ground: bool = True, normalize: bool = True,
+              device=None) -> np.ndarray:
+        """Bakai-approximation gamma against a comparison image of the same
+        DPI (within 0.1) and size (within 1.1 px), each checked for inversion
+        by its histogram on a copy; computed on ``device`` (``None`` means
+        CUDA) by :func:`pylinac_tpu_torch.ops.gamma.gamma_bakai`."""
+        from ..ops.gamma import gamma_bakai
+
+        def _is_close(a, b, delta):
+            return abs(a - b) <= delta
+
+        if not _is_close(self.dpi, comparison_image.dpi, delta=0.1):
+            raise AttributeError(
+                f"The image DPIs do not match: {self.dpi:.2f} vs. {comparison_image.dpi:.2f}")
+        if not (_is_close(self.shape[1], comparison_image.shape[1], 1.1)
+                and _is_close(self.shape[0], comparison_image.shape[0], 1.1)):
+            raise AttributeError(
+                f"The images are not the same size: {self.shape} vs. {comparison_image.shape}")
+        ref = ArrayImage(np.copy(self.array))
+        ref.check_inversion_by_histogram()
+        comp = ArrayImage(np.copy(comparison_image.array))
+        comp.check_inversion_by_histogram()
+        return gamma_bakai(ref.array, comp.array, dpmm=self.dpmm, doseTA=doseTA,
+                           distTA=distTA, threshold=threshold, ground=ground,
+                           normalize=normalize, device=device).cpu().numpy()
+
     def compute(self, metrics):
         """Compute plugin image metrics (:mod:`pylinac_tpu_torch.metrics.image`):
         one metric's value, or a dict of values by metric name."""
@@ -157,12 +186,26 @@ def load(path, **kwargs) -> BaseImage:
 
 
 class ArrayImage(BaseImage):
-    """An image made directly from a numpy array (the JAX class's ``dpi``
-    and ``sid`` wait for a caller)."""
+    """An image made directly from a numpy array, with an optional DPI at
+    the detector and SID (the DPI scales to isocentre by SID / 1000)."""
 
-    def __init__(self, array: np.ndarray, *, dtype=None):
+    def __init__(self, array: np.ndarray, *, dpi: float | None = None,
+                 sid: float | None = None, dtype=None):
         self.array = np.asarray(array, dtype=dtype)
+        self._dpi = dpi
+        self.sid = sid
         self.path = ""
+
+    @property
+    def dpmm(self) -> float | None:
+        dpi = self.dpi
+        return None if dpi is None else dpi / MM_PER_INCH
+
+    @property
+    def dpi(self) -> float | None:
+        if self._dpi is None:
+            return None
+        return self._dpi if self.sid is None else self._dpi * (self.sid / 1000)
 
 
 class DicomImage(BaseImage):
@@ -213,6 +256,11 @@ class DicomImage(BaseImage):
             except (TypeError, ValueError):
                 pass
         return self._sad
+
+    @property
+    def dpi(self) -> float | None:
+        dpmm = self.dpmm
+        return self._dpi if dpmm is None else dpmm * MM_PER_INCH
 
     @property
     def dpmm(self) -> float | None:

@@ -4,8 +4,9 @@ Port of ``pylinac_tpu/ops/filters.py``: the median filters
 (``median_filter`` ``:105``, ``_median_general`` ``:122``, ``_reflect_pad``
 ``:24``, ``_window_stack`` ``:82``), the Gaussian (``gaussian_kernel1d``
 ``:43``, ``correlate1d`` ``:51``, ``gaussian_filter1d`` ``:67``,
-``gaussian_filter`` ``:74``) and the Scharr edge filter
-(``scharr_component`` ``:165``, ``scharr`` ``:172``). Median size 3 goes to
+``gaussian_filter`` ``:74``), the Sobel derivative (``sobel`` ``:156``)
+and the Scharr edge filter (``scharr_component`` ``:165``, ``scharr``
+``:172``). Median size 3 goes to
 the hand-written kernel (:func:`pylinac_tpu_torch.ops.median.median3x3`);
 any other size to the stack-and-sort form, as in the JAX package, where
 only size 3 had a Pallas kernel.
@@ -107,8 +108,21 @@ def gaussian_filter(x: torch.Tensor, sigma: float, truncate: float = 4.0,
     return out
 
 
+_SOBEL_D = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
+_SOBEL_S = np.array([1.0, 2.0, 1.0], dtype=np.float32)
 _SCHARR_D = np.array([1.0, 0.0, -1.0], dtype=np.float32)
 _SCHARR_S = np.array([3.0, 10.0, 3.0], dtype=np.float32) / 16.0
+
+
+def sobel(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """scipy.ndimage.sobel along one dim: the derivative along ``dim``,
+    smoothing along every other dim of ``x``. Its taps are small integers, so
+    every product is exact and a NaN spreads to its neighbours, as in JAX."""
+    out = x.to(torch.float32)
+    dim = dim % x.dim()
+    for d in range(x.dim()):
+        out = correlate1d(out, _SOBEL_D if d == dim else _SOBEL_S, dim=d)
+    return out
 
 
 def scharr_component(x: torch.Tensor, dim: int) -> torch.Tensor:

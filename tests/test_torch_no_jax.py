@@ -4,9 +4,11 @@ A child interpreter installs a meta-path finder that refuses ``jax``,
 ``jaxlib`` and ``pydantic``, imports ``pylinac_tpu_torch`` and
 ``pylinac_tpu_torch.ct``, makes a small AS500 picket fence with the port's
 own image generator and analyses it on the CPU, finds the regions of a
-small ring image with the CT region finder, and analyses a small generated
+small ring image with the CT region finder, analyses a small generated
 Winston-Lutz set (four AS500 frames) with ``pylinac_tpu_torch.winston_lutz``
-on the CPU. The machine with the card has neither package.
+on the CPU, and takes the 2D gamma of a 32x32 pair with
+``pylinac_tpu_torch.ops.gamma``. The machine with the card has neither
+package.
 """
 
 import json
@@ -57,7 +59,14 @@ CHILD = textwrap.dedent("""
     wl = WinstonLutz(wl_dir)
     wl.analyze(device="cpu")
     wl_data = wl.results_data()
+
+    from pylinac_tpu_torch.ops.gamma import gamma_2d
+    dose = (np.random.default_rng(0).random((32, 32)) * 100 + 10).astype(np.float32)
+    g = gamma_2d(dose, dose * np.float32(1.01), dose_to_agreement=2.0,
+                 distance_to_agreement=2, device="cpu").numpy()
     print(json.dumps({
+        "gamma_shape": list(g.shape), "gamma_finite": int(np.isfinite(g).sum()),
+        "gamma_max": float(np.nanmax(g)),
         "wl_images": wl_data.num_total_images, "wl_shift_x": wl_data.bb_shift_vector["x"],
         "ct_regions": n, "ct_filled": max(r.filled_area for r in regions),
         "pickets": result.number_of_pickets, "passed": result.passed,
@@ -80,3 +89,6 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["ct_filled"] > 500  # the ring's edge band with its hole filled
     assert out["wl_images"] == 4
     assert abs(out["wl_shift_x"] - 1) < 0.3  # the BB 1 mm left: shift RIGHT 1 mm
+    assert out["gamma_shape"] == [32, 32]
+    assert out["gamma_finite"] == 32 * 32  # every pixel is above the 5 % threshold
+    assert out["gamma_max"] < 0.6  # a 1 % dose difference against a 2 % criterion
