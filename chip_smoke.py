@@ -11,12 +11,16 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   frames on the card, checks the results and holds them against the port's
   CPU run, then times the batch and the kernel;
 - CatPhan 504: checks the connected-component kernel (label mode, 4- and
-  8-connected, and hole-root mode) bit for bit against its twins on seeded
-  masks at eight shapes, runs ``CatPhanBatch`` on four synthetic 60-slice
+  8-connected, and hole-root mode) bit for bit against its twins on eight
+  seeded mask kinds (a checkerboard and a comb among them) at thirteen
+  shapes (the tile edges and every path shape among them), with ten
+  repeated launches equal, runs ``CatPhanBatch`` on four synthetic 60-slice
   512x512 scans on the card and the single-scan ``CatPhan504`` on one of
   them, holds the kernel against its twins on every mask those runs gave
   it, checks every scan against the bars of ``tests/models/test_ct.py``
-  and the card against the CPU, then times the batch and the kernel;
+  and the card against the CPU, then times and profiles the batch, and
+  times the kernel in each mode at every input shape of the batch run (and
+  each of its three passes);
 - Winston-Lutz: checks the border-flood kernel (flood and filled-centroid
   entries) bit for bit against its twins on the same mask kinds and shapes
   plus one frame (1, 1280, 1280) and the bench's (8, 1280, 1280), writes
@@ -35,7 +39,8 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   kernel against its twin on every input those runs gave it, checks the
   maps against a float32 numpy oracle (the bench's) and the CPU run, then
   times the batch with and without the fetch, profiles it, times its
-  stages between CUDA events, and times the kernel against its twin.
+  stages between CUDA events, and times the kernel against its twin on
+  both of the run's inputs.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
@@ -44,11 +49,11 @@ lists each kernel with its launch count on its path, its error against the
 twin, its time, the twin's, its bound (the least time for the bytes it must
 move at 3.35 TB/s, or for its operations at the float32 rate, whichever is
 larger) and the time of one PyTorch call computing the same function where
-there is one (none does for these kernels). The WL phase ends by reporting
-where a warm batch spends its time: the warm wall under each flood
-selector, the peak device memory, one run under ``torch.profiler`` (device
-busy time, idle share, kernels and ops by device time) and one under
-cProfile.
+there is one (none does for these kernels). The CatPhan phase profiles one
+warm batch under ``torch.profiler`` (device busy time, idle share, kernels
+and ops by device time). The WL phase ends by reporting where a warm batch
+spends its time: the warm wall under each flood selector, the peak device
+memory, one run under ``torch.profiler`` and one under cProfile.
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
 ``nvidia-smi``. Imports nothing of JAX.
@@ -86,11 +91,16 @@ CT_SCANS = 4              # the bench's CatPhan batch: 4 scans x 60 slices
 CT_SLICES = 60
 CT_SEED = 1234            # scan i has seed CT_SEED + i
 ROLL_TOL = 0.01           # degrees
-# the listed shapes, then the CatPhan path's: pooled localisation slices,
-# roll slices and geometry-node crops of the batch and of a single scan
-CCL_SHAPES = [(1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 512, 512), (CT_SCANS * CT_SLICES, 256, 256),
-              (CT_SCANS, 512, 512), (CT_SCANS, 140, 140), (1, 140, 140)]
-CCL_KINDS = ("speckle 30%", "speckle 3%", "ring+noise", "spiral", "empty", "full")
+# the listed shapes, the kernel's tile edges (32 columns x 32 rows), then the
+# CatPhan path's pooled localisation slices, roll slices and geometry-node
+# crops of the batch and of a single scan, and the WL BB scan's masks
+CCL_SHAPES = [(1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 512, 512),
+              (1, 31, 33), (2, 33, 31), (2, 1000, 1), (2, 1, 1000),
+              (CT_SCANS * CT_SLICES, 256, 256), (CT_SCANS, 512, 512), (CT_SCANS, 140, 140),
+              (1, 140, 140), (416, 134, 134)]
+CCL_KINDS = ("speckle 30%", "speckle 3%", "ring+noise", "spiral", "empty", "full", "checkerboard",
+             "comb")
+CCL_REPEATS = 10          # launches on one input that must give the same labels
 
 WL_FRAMES = 8             # the bench's session: gantry 0/90/180/270 x collimator 0/90
 PX_TOL = 1e-3             # selector and single-image centroids against the batch
@@ -247,7 +257,9 @@ def compare(card, cpu) -> float:
 
 def ccl_mask(kind: str, shape: tuple[int, int, int], rng) -> np.ndarray:
     """A (B, H, W) bool batch of one kind: the masks of
-    ``tests/ops/test_pallas_label.py:33-51`` drawn at any shape."""
+    ``tests/ops/test_pallas_label.py:33-51`` drawn at any shape, a
+    checkerboard (every diagonal an 8-connected edge) and a comb (vertical
+    bars on the even columns joined only along the bottom row)."""
     b, h, w = shape
     if kind == "speckle 30%":
         return rng.random(shape) > 0.7
@@ -258,6 +270,12 @@ def ccl_mask(kind: str, shape: tuple[int, int, int], rng) -> np.ndarray:
     if kind == "full":
         return np.ones(shape, bool)
     yy, xx = np.mgrid[:h, :w]
+    if kind == "checkerboard":
+        return np.broadcast_to((yy + xx) % 2 == 0, shape).copy()
+    if kind == "comb":
+        comb = xx % 2 == 0
+        comb[-1, :] = True
+        return np.broadcast_to(comb, shape).copy()
     if kind == "ring+noise":
         r = 0.4 * min(h, w)
         ring = np.abs(np.hypot(yy - h / 2, xx - w / 2) - r) < 1.5
@@ -276,8 +294,9 @@ def ccl_mask(kind: str, shape: tuple[int, int, int], rng) -> np.ndarray:
 
 def check_ccl(ccl) -> float:
     """The CCL kernel in label mode (4- and 8-connected) and hole-root mode
-    must equal its twins bit for bit; returns the largest |kernel - twin|
-    (0.0 when they agree)."""
+    must equal its twins bit for bit, and CCL_REPEATS more launches on the
+    same input must give the same labels; returns the largest |kernel -
+    twin| (0.0 when they agree)."""
     rng = np.random.default_rng(0)
     worst = 0
     for shape in CCL_SHAPES:
@@ -296,8 +315,10 @@ def check_ccl(ccl) -> float:
                 if not torch.equal(got, want):
                     raise RuntimeError(f"ccl {name} differs from its twin on {kind} at "
                                        f"{shape}: max |err| {err}")
+                if not all(torch.equal(kernel(masks), got) for _ in range(CCL_REPEATS)):
+                    raise RuntimeError(f"ccl {name} changed between launches on {kind} at {shape}")
         print(f"kernel check ccl {shape}: label 4/8-conn and holes bit-equal to twins "
-              f"on {', '.join(CCL_KINDS)}")
+              f"on {', '.join(CCL_KINDS)}; {CCL_REPEATS} repeated launches equal")
     mask = torch.from_numpy(ccl_mask("ring+noise", (1, 512, 512), rng)[0]).cuda()
     if not (torch.equal(ccl.label(mask, 2), ccl.label_reference(mask[None], 2)[0])
             and torch.equal(ccl.hole_roots(mask), ccl.hole_roots_reference(mask[None])[0])):
@@ -649,14 +670,17 @@ def catphan_phase(card: str, ccl) -> list[dict]:
         print(f"card vs CPU on scan 0: agree (max difference {worst:.2e}; roll "
               f"{single_result['catphan_roll_deg']:.6f} vs {cpu_result['catphan_roll_deg']:.6f} deg)")
 
-        times = []
-        for _ in range(6):
+        def warm_batch():
             for scan in batch.cts:
                 scan._slice_centroids = None  # a fresh localisation per run
-            t0 = time.perf_counter()
             batch.analyze(device="cuda")
             batch.results_data()
             torch.cuda.synchronize()
+
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            warm_batch()
             times.append(time.perf_counter() - t0)
         warm = statistics.median(times[1:])
         n_slices = sum(len(scan.dicom_stack) for scan in batch.cts)
@@ -664,28 +688,49 @@ def catphan_phase(card: str, ccl) -> list[dict]:
               f"median {warm * 1e3:.1f} ms of 5 runs = {CT_SCANS / warm:.3f} scans/s = "
               f"{n_slices / warm:.1f} slices/s "
               f"(runs ms: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])})")
+        device_profile(card, "CatPhan", warm_batch, warm * 1e3)
 
-        # the batch's localisation masks, its largest kernel input: (240, 256, 256)
-        masks = max((m for _, m, *_ in batch_inputs), key=torch.Tensor.numel)
-        lines = []
-        for mode, kernel, twin in (
-                ("label", functools.partial(ccl.label_batch, connectivity=2),
-                 functools.partial(ccl.label_reference, connectivity=2)),
-                ("holes", ccl.hole_roots_batch, ccl.hole_roots_reference)):
-            kernel_ms, plain_ms = time_pair(kernel, twin, masks, 20, 3)
-            bound_ms, bound_by = ccl_bound(masks)
-            print(f"[{card}] ccl {mode} at {tuple(masks.shape)} (the batch's localisation "
-                  f"masks): kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by})")
-            lines.append({"name": f"ccl_{mode}", "route": "cuda",
-                          "source": "pylinac_tpu_torch/csrc/ccl.cu",
-                          "replaces": "pylinac_tpu/ops/pallas_label.py:336",
-                          "launches": launches[mode], "max_abs_err": max_abs_err,
-                          "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "library_ms": None})
+        # every distinct input of the batch run in each mode: the pooled
+        # localisation slices (240, 256, 256), the roll slices (4, 512, 512)
+        # and the geometry-node crops (4, 140, 140); the kernels line takes
+        # the largest
+        inputs = {}
+        for mode, m, args, kwargs in batch_inputs:
+            key = (mode, tuple(m.shape))
+            inputs[key] = (m, args, kwargs, inputs.get(key, (None, None, None, 0))[3] + 1)
+        pairs, lines = kernel_pairs(ccl), []
+        for (mode, shape), (m, args, kwargs, n) in inputs.items():
+            kernel, twin = pairs[mode]
+            timed = timed_pair(card, f"ccl {mode} ({n} of the batch run's {launches[mode]} "
+                               f"launches)", lambda x: kernel(x, *args, **kwargs),
+                               lambda x: twin(x, *args, **kwargs), m, ccl_bound)
+            print_ccl_parts(card, ccl, mode, m, args, kwargs)
+            if shape == max((s for md, s in inputs if md == mode), key=np.prod):
+                lines.append(ccl_line(f"ccl_{mode}", "pylinac_tpu/ops/pallas_label.py:336",
+                                      launches[mode], max_abs_err, timed))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lines
+
+
+def print_ccl_parts(card: str, ccl, mode: str, masks: torch.Tensor, args, kwargs) -> None:
+    """Where the CCL kernel's time goes on one recorded input: the device
+    time of each of its three passes, under ``torch.profiler`` over 10
+    launches."""
+    from torch.autograd import DeviceType
+
+    connectivity = (args or (kwargs.get("connectivity", 1),))[0] if mode == "label" else 1
+    code, counter = ((ccl._LABEL, ccl.label_batch) if mode == "label"
+                     else (ccl._HOLES, ccl.hole_roots_batch))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ccl._launch(masks, code, connectivity, counter)
+        torch.cuda.synchronize()
+    parts = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and f"{name}_kernel" in e.key) / 10e3
+             for name in ("local", "border", "resolve")}
+    print(f"[{card}] ccl {mode} at {tuple(masks.shape)} by pass (torch.profiler, mean of 10): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in parts.items()))
 
 
 def flood_bound(masks: torch.Tensor, entry: str) -> tuple[float, str]:
@@ -790,17 +835,41 @@ def warm_run(wl) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def device_profile(card: str, what: str, run, default_ms: float, top: int = 20) -> None:
+    """One ``run()`` under ``torch.profiler``: the device's busy time (the
+    sum of the device kernels' self time) and its idle share against the
+    profiled wall and against ``default_ms``, the unprofiled median; the
+    device kernels by self time and the host ops by the device time of the
+    kernels they launched."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+    tables = {"kernel": {}, "op": {}}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            kind = "kernel" if e.device_type == DeviceType.CUDA else "op"
+            tables[kind][e.key] = (e.self_device_time_total / 1e3, e.count)
+    busy = sum(ms for ms, _ in tables["kernel"].values())
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    print(f"[{card}] {what} profile: profiled run wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {100 * (1 - busy / wall):.1f} % of the profiled wall and "
+          f"{100 * (1 - busy / default_ms):.1f} % of the unprofiled median {default_ms:.3f} ms")
+    for kind, rows in tables.items():
+        for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+            print(f"  {kind:6s} {ms:9.3f} ms  {n:5d} x  {key[:100]}")
+
+
 def profile_wl(card: str, wl, default_ms: float, top: int = 20) -> None:
     """Where a warm WL batch spends its time: the warm wall under the two
     exact selectors (median of 5 after 1 warm-up; the default's is
     ``default_ms``), the peak device memory of a run, one run under
-    ``torch.profiler`` (the device's busy time, the sum of the device
-    kernels' self time, and its idle share against the profiled wall and
-    against ``default_ms``; the device kernels by self time and the host ops
-    by the device time of the kernels they launched) and one run under
-    cProfile (the host functions by cumulative time)."""
-    from torch.autograd import DeviceType
-
+    ``torch.profiler`` (:func:`device_profile`) and one run under cProfile
+    (the host functions by cumulative time)."""
     from pylinac_tpu_torch.winston_lutz import flood_selector
 
     for mode in ("packed", "xla"):
@@ -813,24 +882,7 @@ def profile_wl(card: str, wl, default_ms: float, top: int = 20) -> None:
         warm_run(wl)
         print(f"[{card}] profile: peak device memory of a run "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            wall = warm_run(wl)
-        tables = {"kernel": {}, "op": {}}
-        for e in prof.key_averages():
-            if e.self_device_time_total > 0:
-                kind = "kernel" if e.device_type == DeviceType.CUDA else "op"
-                tables[kind][e.key] = (e.self_device_time_total / 1e3, e.count)
-        busy = sum(ms for ms, _ in tables["kernel"].values())
-        if busy <= 0:
-            raise RuntimeError("torch.profiler recorded no device time")
-        print(f"[{card}] profile: profiled run wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-              f"idle share {100 * (1 - busy / wall):.1f} % of the profiled wall and "
-              f"{100 * (1 - busy / default_ms):.1f} % of the unprofiled median {default_ms:.3f} ms")
-        for kind, rows in tables.items():
-            for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
-                print(f"  {kind:6s} {ms:9.3f} ms  {n:5d} x  {key[:100]}")
+        device_profile(card, "WL", lambda: warm_run(wl), default_ms, top)
 
         pr = cProfile.Profile()
         pr.enable()
@@ -985,11 +1037,12 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
 
         for mode, kernel_twin in (("label", label4),
                                   ("holes", (ccl.hole_roots_batch, ccl.hole_roots_reference))):
+            masks = largest(batch_inputs, mode)
             lines.append(ccl_line(
                 f"ccl_{mode}_bb_scan", "pylinac_tpu/ops/pallas_label.py:336", launches[mode],
                 batch_err[mode], timed_pair(card, f"ccl {mode} 4-conn on the BB scan's masks",
-                                            *kernel_twin, largest(batch_inputs, mode),
-                                            ccl_bound)))
+                                            *kernel_twin, masks, ccl_bound)))
+            print_ccl_parts(card, ccl, mode, masks, (1,) if mode == "label" else (), {})
         # the single image's B = 1 window: the TPU's single-image kernels #2, #5
         for mode, kernel_twin, replaces in (
                 ("label", label4, "pylinac_tpu/ops/pallas_label.py:69"),
@@ -1281,6 +1334,15 @@ def gamma_phase(card: str, gamma2d) -> dict:
                                6 * n_offsets * ref_n.numel())
     print(f"[{card}] gamma2d at {tuple(ref_n.shape)} dta {dta} ({n_offsets} offsets): kernel "
           f"{ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # the single pair's launch, the run's other one
+    _, ref_1, (eval_1, *_), _ = min(seen, key=lambda s: s[1].numel())
+    ms_1, plain_1 = time_pair(
+        lambda r: gamma2d.gamma2d(r, eval_1, dta, cap, threshold_n, fill),
+        lambda r: gamma2d.gamma2d_reference(r, eval_1, dta, cap, threshold_n, fill),
+        ref_1, 20, 3)
+    bound_1, _ = bound(4 * (2 * ref_1.numel() + eval_1.numel()), 6 * n_offsets * ref_1.numel())
+    print(f"[{card}] gamma2d at {tuple(ref_1.shape)} dta {dta} (the single pair): kernel "
+          f"{ms_1:.4f} ms, plain twin {plain_1:.3f} ms, bound {bound_1:.4f} ms")
     return {"name": "gamma2d", "route": "cuda", "source": "pylinac_tpu_torch/csrc/gamma2d.cu",
             "replaces": "pylinac_tpu/ops/pallas_gamma.py:27", "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

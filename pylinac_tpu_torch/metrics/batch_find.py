@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.array_utils import stretch
+from ..core.utilities import resolve_device
 from ..ops.label import Regions, clear_border, regionprops_batch
 
 # fixed threshold-slot count: the accumulated float scan of find_features
@@ -100,13 +101,15 @@ def bb_scan_core(windows: torch.Tensor, cutoffs: torch.Tensor, *, K: int, dpmm: 
 
 def batched_bb_windows(windows: list[np.ndarray], dpmm: float, bb_radius_mm: float,
                        tolerance_mm: float, invert: bool = True, K: int = 24,
-                       device: str | torch.device = "cpu") -> list[list[tuple[float, float]]]:
-    """The BB scan of a list of same-dpmm search windows on ``device``.
+                       device: str | torch.device | None = None) -> list[list[tuple[float, float]]]:
+    """The BB scan of a list of same-dpmm search windows on ``device``
+    (``None``: CUDA, which must exist).
 
     Windows are grouped by shape (edge cropping can shift a crop by a
     pixel); each group runs as one :func:`bb_scan_core`. Returns, per
     window, the kept weighted centroids (row, col) in window coordinates of
     the first successful threshold, or [] when nothing was found."""
+    device = resolve_device(device, "batched_bb_windows")
     prepared = []
     for win in windows:
         w = np.asarray(win, np.float32)

@@ -23,6 +23,7 @@ import torch
 
 from ..core.array_utils import stretch
 from ..core.geometry import Point
+from ..core.utilities import resolve_device
 from ..ops.label import Regions, clear_border, regionprops
 
 
@@ -169,7 +170,7 @@ def find_features(
     radius_tolerance_mm: float,
     min_separation_mm: float,
     K: int = 24,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> tuple[list[Point], list[np.ndarray], list[RegionView]]:
     """Scan the 50 threshold steps of the stretched sample from the lowest:
     label and measure each mask (4-connected, holes filled), keep the
@@ -178,7 +179,9 @@ def find_features(
     within ``min_separation_mm`` of one found before. Stops once
     ``max_number`` features are found; raises if fewer than ``min_number``
     were. Returns the points (offset into the image), their bbox outlines
-    and the regions kept at the last successful step."""
+    and the regions kept at the last successful step. Runs on ``device``;
+    ``None`` means CUDA, which must exist."""
+    device = resolve_device(device, "find_features")
     sample = stretch(np.asarray(sample, dtype=np.float32), min=0, max=1)
     dev_sample = torch.from_numpy(sample).to(device)
     imin, imax = float(sample.min()), float(sample.max())

@@ -6,8 +6,9 @@ Port of the Pallas TPU kernels of ``pylinac_tpu/ops/pallas_label.py``:
 ``_hole_kernel`` ``:232``) and ``_batched_call`` (``:425``, kernel
 ``_batched_sweep_kernel`` ``:336``) in its ``label`` (``:451``) and
 ``holes`` (``:458``) modes. One CUDA source, ``csrc/ccl.cu``, serves all
-four: a union-find whose roots are the component minima, the fixpoint the
-Pallas kernels reach by iterated min-propagation.
+four: a block-based union-find (row runs united in shared memory per tile,
+then across tile borders) whose roots are the component minima, the
+fixpoint the Pallas kernels reach by iterated min-propagation.
 
 :func:`label_batch` and :func:`hole_roots_batch` launch the kernel for a
 CUDA tensor and take the plain PyTorch twins :func:`label_reference` and
@@ -17,13 +18,14 @@ CUDA tensor and take the plain PyTorch twins :func:`label_reference` and
 Not ported: the VMEM budget guards (``label_pallas_supported`` ``:302``,
 ``label_batched_supported`` ``:464``) and the padding to (8, 128) tiles
 (``:322-333``). The card has no VMEM limit and no tile shape to pad to; the
-only size limit is B * H * W < 2**31, since the union runs on int32 global
-indices.
+only size limit is B * H * W < 2**31: the kernel indexes the pixels of an
+image with int32, and the wrapper keeps the whole batch under that bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -106,14 +108,10 @@ def _launch(masks: torch.Tensor, mode: int, connectivity: int, counted) -> torch
     out = torch.empty(masks.shape, dtype=torch.int32, device=masks.device)
     if masks.numel() == 0:
         return out
-    flags = torch.empty(masks.shape, dtype=torch.uint8, device=masks.device) \
-        if mode == _HOLES else None
     fn = _kernel()
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream(masks.device).cuda_stream
-        err = fn(masks.data_ptr(), out.data_ptr(),
-                 None if flags is None else flags.data_ptr(),
-                 b, h, w, mode, connectivity, stream)
+        err = fn(masks.data_ptr(), out.data_ptr(), b, h, w, mode, connectivity, stream)
     if err != 0:
         raise RuntimeError(f"CCL kernel launch failed: CUDA error {err}")
     counted.launches += 1
@@ -172,10 +170,11 @@ def hole_roots(mask: torch.Tensor) -> torch.Tensor:
     return hole_roots_batch(mask[None])[0]
 
 
+@functools.cache
 def _kernel():
+    """The C entry of ``csrc/ccl.cu``, built and typed once."""
     fn = _build.load(KERNEL).ccl_i32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

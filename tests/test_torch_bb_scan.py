@@ -172,7 +172,7 @@ def test_batched_windows_match_jax(jref):
     """``batched_bb_windows`` groups windows by shape and prepares them
     (invert, stretch) on the host, as the JAX function does."""
     raw = [1000 - np.asarray(WINDOWS[134][1]) * 1000, 1000 - np.asarray(WINDOWS[58][0]) * 1000]
-    got = batch_find.batched_bb_windows(raw, 2.976, BB_RADIUS_MM, TOL_MM)
+    got = batch_find.batched_bb_windows(raw, 2.976, BB_RADIUS_MM, TOL_MM, device="cpu")
     want = jref.batch.batched_bb_windows(raw, 2.976, BB_RADIUS_MM, TOL_MM)
     assert [len(g) for g in got] == [len(x) for x in want] == [1, 1]
     for g, x in zip(got, want):
@@ -191,7 +191,8 @@ def test_find_features_matches_jax(jref, size):
     conds = ("is_right_size_bb", "is_round", "is_right_circumference", "is_symmetric",
              "is_solid")
     pts, bounds, regions = utils.find_features(
-        sample, detection_conditions=[getattr(features, c) for c in conds], **kwargs)
+        sample, detection_conditions=[getattr(features, c) for c in conds], device="cpu",
+        **kwargs)
     jpts, jbounds, jregions = jref.utils.find_features(
         sample, detection_conditions=[getattr(jref.features, c) for c in conds], **kwargs)
     assert len(pts) == len(jpts) == 1
@@ -201,7 +202,21 @@ def test_find_features_matches_jax(jref, size):
         assert getattr(regions[0], attr) == getattr(jregions[0], attr), attr
     with pytest.raises(ValueError, match="minimum number"):
         utils.find_features(np.zeros((size, size)) + 0.5 * (np.arange(size) > size // 2),
-                            detection_conditions=[features.is_solid], **kwargs)
+                            detection_conditions=[features.is_solid], device="cpu", **kwargs)
+
+
+def test_window_scans_default_to_cuda(monkeypatch):
+    """``device=None`` means CUDA in both window scans, as in every entry of
+    the port: without a card they raise and name the CPU route."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    window = np.asarray(WINDOWS[58][0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_find.batched_bb_windows([window], 2.976, BB_RADIUS_MM, TOL_MM)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        utils.find_features(window, top_offset=0, left_offset=0, min_number=1, max_number=1,
+                            dpmm=2.976, detection_conditions=[features.is_solid],
+                            radius_mm=BB_RADIUS_MM, radius_tolerance_mm=TOL_MM,
+                            min_separation_mm=5)
 
 
 def test_wl_predicates_match_jax(jref):

@@ -48,9 +48,22 @@ def cuda():
     return torch.device("cuda")
 
 
+def _comb(h: int, w: int) -> np.ndarray:
+    """Vertical bars on the even columns, joined only along the bottom row:
+    one component whose bars meet only at the far end."""
+    comb = np.zeros((h, w), bool)
+    comb[:, ::2] = True
+    comb[-1, :] = True
+    return comb
+
+
 def _masks() -> dict[str, np.ndarray]:
     """The masks of ``tests/ops/test_pallas_label.py:33-51``: rings, speckle,
-    a spiral (the worst case for sweep convergence), empty and full."""
+    a spiral (the worst case for sweep convergence), empty and full; and two
+    that break a tiled union-find whose border or diagonal unions are
+    missing: a checkerboard (every diagonal an 8-connected edge, every pixel
+    its own 4-connected component) and a comb. JAX's interpret-mode Pallas
+    kernels reach the fixpoint on both within their 256-sweep cap."""
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[:64, :128]
     ring = np.abs(np.sqrt((yy - 32) ** 2 + (xx - 64) ** 2) - 25) < 1.5
@@ -68,6 +81,8 @@ def _masks() -> dict[str, np.ndarray]:
         "spiral": spiral,
         "empty": np.zeros((64, 128), bool),
         "full": np.ones((64, 128), bool),
+        "checkerboard": (yy + xx) % 2 == 0,
+        "comb": _comb(64, 128),
     }
 
 
@@ -174,7 +189,7 @@ def test_rejects_connectivity():
 
 
 def test_rejects_int32_overflow():
-    # B * H * W = 2**31: global indices would not fit int32 (meta: no memory)
+    # B * H * W = 2**31, one past the wrapper's bound (meta: no memory)
     masks = torch.empty((2, 2**15, 2**15), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="2\\*\\*31"):
         ccl.label_batch(masks)
@@ -187,22 +202,48 @@ def test_cpu_takes_the_twin_and_counts_no_launch():
     assert (ccl.label_batch.launches, ccl.hole_roots_batch.launches) == before
 
 
+def _kind(kind: str, shape: tuple[int, int, int], rng) -> np.ndarray:
+    """A (B, H, W) batch of one mask kind at any shape."""
+    b, h, w = shape
+    yy, xx = np.mgrid[:h, :w]
+    if kind == "speckle":
+        return rng.random(shape) > 0.7
+    if kind == "sparse":
+        return rng.random(shape) > 0.97
+    if kind == "ring+noise":
+        ring = np.abs(np.hypot(yy - h / 2, xx - w / 2) - 0.4 * min(h, w)) < 1.5
+        return ring[None] | (rng.random(shape) > 0.95)
+    plane = {"empty": np.zeros((h, w), bool), "full": np.ones((h, w), bool),
+             "checkerboard": (yy + xx) % 2 == 0, "comb": _comb(h, w)}[kind]
+    return np.broadcast_to(plane, shape).copy()
+
+
+CARD_KINDS = ("speckle", "sparse", "ring+noise", "empty", "full", "checkerboard", "comb")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 512, 512), (6, 64, 128)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 512, 512), (8, 64, 128),
+                                   (1, 31, 33), (2, 33, 31), (2, 1000, 1), (2, 1, 1000),
+                                   (416, 134, 134), (4, 140, 140), (240, 256, 256)])
 def test_kernel_matches_twin_on_card(cuda, shape):
+    """Every mode on every mask kind (the listed masks at their own shape)
+    equals its twin, one launch per call; ten more launches on the same
+    input give the same output."""
     rng = np.random.default_rng(11)
-    masks = torch.from_numpy(STACK if shape == (6, 64, 128) else rng.random(shape) > 0.6)
-    for connectivity in (1, 2):
-        before = ccl.label_batch.launches
-        got = ccl.label_batch(masks.to(cuda), connectivity)
-        torch.cuda.synchronize()
-        assert ccl.label_batch.launches == before + 1
-        assert torch.equal(got.cpu(), ccl.label_reference(masks, connectivity))
-    before = ccl.hole_roots_batch.launches
-    got = ccl.hole_roots_batch(masks.to(cuda))
-    torch.cuda.synchronize()
-    assert ccl.hole_roots_batch.launches == before + 1
-    assert torch.equal(got.cpu(), ccl.hole_roots_reference(masks))
+    batches = [STACK] if shape == STACK.shape else [_kind(k, shape, rng) for k in CARD_KINDS]
+    modes = [(f"label {c}", lambda m, c=c: ccl.label_batch(m, c),
+              lambda m, c=c: ccl.label_reference(m, c)) for c in (1, 2)]
+    modes.append(("holes", ccl.hole_roots_batch, ccl.hole_roots_reference))
+    for masks in batches:
+        masks = torch.from_numpy(masks).to(cuda)
+        for name, kernel, twin in modes:
+            before = ccl.label_batch.launches + ccl.hole_roots_batch.launches
+            got = kernel(masks)
+            torch.cuda.synchronize()
+            assert ccl.label_batch.launches + ccl.hole_roots_batch.launches == before + 1
+            assert torch.equal(got, twin(masks)), name
+            for _ in range(10):
+                assert torch.equal(kernel(masks), got), name
 
 
 @pytest.mark.cuda
