@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and runs the four ported paths:
 
 - picket fence: checks the 3x3-median kernel bit for bit against its plain
-  PyTorch twin, runs ``PicketFenceBatch`` on 64 EPID-like 1254x1254 uint16
-  frames on the card, checks the results and holds them against the port's
-  CPU run, then times the batch and the kernel;
+  PyTorch twin (the path's shape and ragged ones), runs
+  ``PicketFenceBatch`` on 64 EPID-like 1254x1254 uint16 frames on the card,
+  checks the results and holds them against the port's CPU run, then
+  times the batch and the kernel;
 - CatPhan 504: checks the connected-component kernel (label mode, 4- and
   8-connected, and hole-root mode) bit for bit against its twins on eight
   seeded mask kinds (a checkerboard and a comb among them) at thirteen
@@ -18,7 +19,11 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   512x512 scans on the card and the single-scan ``CatPhan504`` on one of
   them, holds the kernel against its twins on every mask those runs gave
   it, checks every scan against the bars of ``tests/models/test_ct.py``
-  and the card against the CPU, then times and profiles the batch, and
+  and the card against the CPU, shows the region sums order-fixed (ten
+  more ``regionprops_batch`` calls on the batch's largest masks and ten
+  ``radial_average`` calls on its NPS equal to the first, bit for bit; the
+  exact sum candidates timed on the run's largest input), then times and
+  profiles the batch (every warm run's results equal to the first's), and
   times the kernel in each mode at every input shape of the batch run (and
   each of its three passes);
 - Winston-Lutz: checks the border-flood kernel (flood and filled-centroid
@@ -29,12 +34,15 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   the single-image ``WinstonLutz2D`` on frame 0, holds the CCL and flood
   kernels against their twins on every mask those runs gave them, checks
   the results against the bars of ``tests/models/test_winstonlutz.py`` and
-  the card against the CPU, then times the batch and each kernel entry on
+  the card against the CPU, repeats the region sums of the BB scan as for
+  CatPhan, then times the batch (every warm run's results equal to the
+  first's) and each kernel entry on
   the masks of the run that counted it;
 - 2D gamma: checks the gamma kernel against its twin (NaN masks equal,
-  every other value equal) at seven shapes and dta values, under
+  every other value equal) at fifteen shapes and dta values (ragged widths,
+  each side of the kernel's shared-memory limits), under
   global and local normalisation (NaN and +-inf inputs) with fill NaN and
-  -1, runs the bench's 16 pairs of 768x1024 uint16 through
+  -1 and a cap that hides no candidate, runs the bench's 16 pairs of 768x1024 uint16 through
   ``gamma_2d_batch`` and pair 0 through ``gamma_2d`` on the card, holds the
   kernel against its twin on every input those runs gave it, checks the
   maps against a float32 numpy oracle (the bench's) and the CPU run, then
@@ -48,8 +56,9 @@ standard output is one JSON object with ``"ok": true``; the line before it
 lists each kernel with its launch count on its path, its error against the
 twin, its time, the twin's, its bound (the least time for the bytes it must
 move at 3.35 TB/s, or for its operations at the float32 rate, whichever is
-larger) and the time of one PyTorch call computing the same function where
-there is one (none does for these kernels). The CatPhan phase profiles one
+larger; gamma and the median count float32 instructions at the issue rate)
+and the time of one PyTorch call computing the same function where there
+is one (none does for these kernels). The CatPhan phase profiles one
 warm batch under ``torch.profiler`` (device busy time, idle share, kernels
 and ops by device time). The WL phase ends by reporting where a warm batch
 spends its time: the warm wall under each flood selector, the peak device
@@ -85,7 +94,12 @@ OFFSET_FILE = 1           # paths[1] has picket 3 moved by OFFSET_MM
 OFFSET_MM = 0.4
 MM_TOL = 0.01             # BASELINE.json parity bar
 PCT_TOL = 0.1
-KERNEL_SHAPES = [(N_FRAMES, 1254, 1254), (1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 1280, 1280)]
+# the path's shape, then ragged ones: W = 1, H = 1, W = 1, 2, 3 (mod 4),
+# widths below one thread's 4 columns, odd pitches (no float2 loads), and
+# heights around one thread's 16 rows and one block's 64
+KERNEL_SHAPES = [(N_FRAMES, 1254, 1254), (1, 1, 1), (1, 2, 3), (3, 37, 129), (1, 1280, 1280),
+                 (2, 1, 9), (2, 9, 1), (1, 70, 129), (1, 70, 130), (1, 70, 131), (2, 65, 3),
+                 (2, 64, 2), (1, 17, 6)]
 
 CT_SCANS = 4              # the bench's CatPhan batch: 4 scans x 60 slices
 CT_SLICES = 60
@@ -113,23 +127,39 @@ GAMMA_PAIRS, GAMMA_H, GAMMA_W = 16, 768, 1024
 GAMMA_DTA, GAMMA_DOSE_TA, GAMMA_CAP, GAMMA_THRESH = 9, 3.0, 2.0, 5.0
 GAMMA_ORACLE_TOL = 1e-3   # bench.py:797
 GAMMA_CPU_TOL = 1e-6
-# (shape, dta) of the kernel checks: the listed ones, the first past the
-# kernel's shared-memory tile (dta 47 reads device memory), the bench's
+# (shape, dta) of the kernel checks: the listed ones, the bench's, widths on
+# every side of the kernel's 4 pixels a thread and 128 a block, and dta on
+# each side of its shared-memory limits (23 | 24: the 48 KB a launch gets
+# without opting in; 70 | 71: the H100's 227 KB opt-in, past which the
+# kernel reads device memory)
 GAMMA_CASES = [((1, 8, 8), 1), ((3, 40, 130), 3), ((3, 40, 130), 5), ((2, 97, 131), 9),
-               ((1, 16, 16), 20), ((1, 24, 40), 47), ((GAMMA_PAIRS, GAMMA_H, GAMMA_W), 9)]
-GAMMA_SCALARS = [(2.0, 0.05, float("nan")), (2.0, 0.05, -1.0), (1.5, 0.3, float("nan"))]
+               ((1, 16, 16), 20), ((1, 24, 40), 47), ((GAMMA_PAIRS, GAMMA_H, GAMMA_W), 9),
+               ((1, 1, 1), 1), ((2, 9, 129), 2), ((1, 13, 131), 9), ((1, 7, 257), 4),
+               ((1, 20, 30), 23), ((1, 20, 30), 24), ((1, 6, 9), 70), ((1, 6, 9), 71)]
+# (cap, threshold, fill); the cap of 40 hides no candidate, so that every
+# offset of the disk can give the least value
+GAMMA_SCALARS = [(2.0, 0.05, float("nan")), (2.0, 0.05, -1.0), (1.5, 0.3, float("nan")),
+                 (40.0, 0.0, -1.0)]
+REPEATS = 10              # region-sum calls on one input that must give the same bits
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the float32 rate
-# outside the tensor cores, the rate charged to each kernel's operations
+# outside the tensor cores, the rate charged to the integer operations of
+# the CCL and flood kernels
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# float32 instructions a second, for kernels whose every operation is its
+# own instruction (gamma's unfused sub, mul, add and min; the median's
+# min/max): 132 SMs x 4 schedulers x 32 lanes, one warp instruction a
+# scheduler a clock, at the 1.98 GHz boost clock. 67 TFLOP/s is this rate
+# counting a fused multiply-add as two operations.
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, rate: float = F32_OPS_PER_S) -> tuple[float, str]:
     """The least time in ms for a kernel that must move ``bytes_moved``
     (each input read once, each output written once) and do ``ops``
-    operations, and which of the two bounds it."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    operations at ``rate`` a second, and which of the two bounds it."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -430,6 +460,120 @@ def check_path_masks(pairs: dict, seen, what: str) -> dict[str, float]:
     return worst
 
 
+def region_entries() -> list[tuple]:
+    """The names under which the paths call the region properties, their
+    float sums and the NPS radial average: (module, attribute, mode)."""
+    from pylinac_tpu_torch.metrics import batch_find
+    from pylinac_tpu_torch.ops import label as tlabel
+    from pylinac_tpu_torch.ops import stats as tstats
+
+    return [(tlabel, "regionprops_batch", "regionprops"),
+            (batch_find, "regionprops_batch", "regionprops"),
+            (tlabel, "slot_sums", "slot_sums"), (tstats, "radial_average", "radial_average")]
+
+
+def largest_record(seen, mode: str):
+    """The recorded call of ``mode`` with the largest first tensor, as
+    (tensor, positional arguments, keyword arguments), or None."""
+    records = [(x, args, kwargs) for m, x, args, kwargs in seen if m == mode]
+    return max(records, key=lambda r: r[0].numel()) if records else None
+
+
+def results_text(result) -> str:
+    """A typed result, or a list of them, as JSON without its
+    ``date_of_analysis`` fields (nested ones too): the one field that a
+    rerun must change."""
+    def undated(x):
+        if isinstance(x, dict):
+            return {k: undated(v) for k, v in x.items() if k != "date_of_analysis"}
+        return [undated(v) for v in x] if isinstance(x, list) else x
+
+    if isinstance(result, list):
+        return "\n".join(results_text(r) for r in result)
+    return json.dumps(undated(json.loads(result.model_dump_json())))
+
+
+def check_same_texts(texts: list[str], what: str) -> None:
+    """Every warm run's results must equal the first's, character for
+    character."""
+    differ = [i for i, t in enumerate(texts) if t != texts[0]]
+    if differ:
+        a, b = texts[0], texts[differ[0]]
+        at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise RuntimeError(f"{what}: warm runs {differ} give other results_data() than run 0; "
+                           f"run {differ[0]} from character {at}: {b[max(at - 80, 0):at + 80]!r} "
+                           f"against {a[max(at - 80, 0):at + 80]!r}")
+    print(f"{what}: the results_data() of all {len(texts)} warm runs equal the first's, "
+          f"character for character ({len(texts[0])} characters)")
+
+
+def check_region_repeats(seen, what: str) -> None:
+    """The card's region sums are order-fixed: REPEATS more calls of
+    ``regionprops_batch`` on the largest input a path gave it, and of
+    ``radial_average`` on the first NPS, must equal the first call's in
+    every field, bit for bit."""
+    from pylinac_tpu_torch.ops import label as tlabel
+    from pylinac_tpu_torch.ops import stats as tstats
+
+    masks, args, kwargs = largest_record(seen, "regionprops")
+    first = tlabel.regionprops_batch(masks, *args, **kwargs)
+    for _ in range(REPEATS):
+        again = tlabel.regionprops_batch(masks, *args, **kwargs)
+        differ = [name for name, a, b in zip(first._fields, first, again) if not torch.equal(a, b)]
+        if differ:
+            raise RuntimeError(f"{what}: regionprops_batch on {tuple(masks.shape)} changed "
+                               f"between calls in {differ}")
+    print(f"{what}: regionprops_batch on the recorded {tuple(masks.shape)} masks, "
+          f"{kwargs}: {REPEATS} more calls equal to the first in all {len(first)} fields")
+    nps = next((x for m, x, *_ in seen if m == "radial_average"), None)
+    if nps is not None:
+        first = tstats.radial_average(nps)
+        if not all(torch.equal(tstats.radial_average(nps), first) for _ in range(REPEATS)):
+            raise RuntimeError(f"{what}: radial_average on {tuple(nps.shape)} changed "
+                               f"between calls")
+        print(f"{what}: radial_average on the recorded {tuple(nps.shape)} NPS: {REPEATS} more "
+              f"calls equal to the first")
+
+
+def time_sum_candidates(card: str, seen, what: str) -> None:
+    """The exact region-sum candidates on the largest recorded ``slot_sums``
+    input: the float64 one-hot products the port keeps, the float32
+    ``scatter_add_`` it replaced (atomics), and a stable sort by slot with
+    ``segment_reduce``. Each is called REPEATS times (equal or not), held
+    against the kept one and timed; the kept one must repeat bit for bit."""
+    from pylinac_tpu_torch.ops import stats as tstats
+
+    values, (slot, k), _ = largest_record(seen, "slot_sums")
+    b, n, c = values.shape
+
+    def atomics():
+        index = slot.clamp(max=k)[..., None].expand(b, n, c)
+        return torch.zeros(b, k + 1, c, device=values.device).scatter_add_(1, index, values)[:, :k]
+
+    def sort_segment():
+        clamped = slot.clamp(max=k)
+        order = torch.sort(clamped, dim=1, stable=True).indices
+        counts = torch.zeros(b, k + 1, dtype=torch.int64, device=values.device)
+        counts.scatter_add_(1, clamped, torch.ones_like(clamped))
+        return torch.segment_reduce(values.gather(1, order[..., None].expand(b, n, c)), "sum",
+                                    lengths=counts, axis=1)[:, :k]
+
+    kept = tstats._onehot_sums(values, slot, k)
+    for name, fn in (("one-hot float64 bmm (kept)",
+                      functools.partial(tstats._onehot_sums, values, slot, k)),
+                     ("float32 scatter_add_, atomics (parent)", atomics),
+                     ("stable sort + segment_reduce", sort_segment)):
+        outs = [fn() for _ in range(REPEATS)]
+        repeat = all(torch.equal(o, outs[0]) for o in outs)
+        if name.endswith("(kept)") and not repeat:
+            raise RuntimeError(f"{what}: the kept region sums changed between calls")
+        diff = float((outs[0].double() - kept.double()).abs().max())
+        ms = time_ms(lambda _: fn(), values, 10)
+        print(f"[{card}] {what} region sums of {tuple(values.shape)} values into K = {k} slots: "
+              f"{name} {ms:.4f} ms; {REPEATS} calls {'equal' if repeat else 'NOT equal'}; max "
+              f"|diff| from the kept sums {diff:.3e}")
+
+
 def make_scans(tmp: str) -> list[str]:
     """Four synthetic CatPhan 504 scans (60 slices of 512x512 uint16, 2.5 mm
     slices, 0.5 mm pixels; seeds CT_SEED + i), written in parallel."""
@@ -597,8 +741,9 @@ def picket_fence_phase(card: str, median) -> dict:
         frames = batch._stage_cache[1].to(torch.float32)
         kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference,
                                         frames, 50, 5)
-        # float32 in and out; a 19-pair compare-exchange network per pixel
-        bound_ms, bound_by = bound(8 * frames.numel(), 38 * frames.numel())
+        # float32 in and out; per output 21 min/max instructions: 6 window
+        # columns sorted (6 each) for 4 outputs, then 12 (csrc/median3x3.cu)
+        bound_ms, bound_by = bound(8 * frames.numel(), 21 * frames.numel(), F32_INSTR_PER_S)
         print(f"[{card}] median3x3 at {tuple(frames.shape)}: kernel {kernel_ms:.4f} ms, "
               f"plain twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     finally:
@@ -628,7 +773,8 @@ def catphan_phase(card: str, ccl) -> list[dict]:
               f"{batch.cts[0].dicom_stack[0].array.dtype} in {time.perf_counter() - t0:.1f} s")
 
         ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
-        with recording_inputs(ccl_entries()) as batch_inputs:
+        with recording_inputs(ccl_entries()) as batch_inputs, \
+                recording_inputs(region_entries()) as region_inputs:
             batch.analyze(device="cuda")
             results = batch.results_data(as_dict=True)
         torch.cuda.synchronize()
@@ -638,6 +784,8 @@ def catphan_phase(card: str, ccl) -> list[dict]:
         print(f"CatPhan batch path: label_batch.launches = {launches['label']}, "
               f"hole_roots_batch.launches = {launches['holes']}")
         check_ct_results(results, "card batch")
+        check_region_repeats(region_inputs, "CatPhan batch run")
+        time_sum_candidates(card, region_inputs, "CatPhan batch run")
 
         single = ct.CatPhan504(dirs[0])
         ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
@@ -674,14 +822,17 @@ def catphan_phase(card: str, ccl) -> list[dict]:
             for scan in batch.cts:
                 scan._slice_centroids = None  # a fresh localisation per run
             batch.analyze(device="cuda")
-            batch.results_data()
+            data = batch.results_data()
             torch.cuda.synchronize()
+            return data
 
-        times = []
+        times, texts = [], []
         for _ in range(6):
             t0 = time.perf_counter()
-            warm_batch()
+            data = warm_batch()
             times.append(time.perf_counter() - t0)
+            texts.append(results_text(data))
+        check_same_texts(texts, "CatPhan warm batches")
         warm = statistics.median(times[1:])
         n_slices = sum(len(scan.dicom_stack) for scan in batch.cts)
         print(f"[{card}] warm CatPhanBatch analyze + results_data of {CT_SCANS} scans: "
@@ -821,18 +972,22 @@ def write_session(d: str) -> str:
     return d
 
 
-def warm_run(wl) -> float:
+def warm_run(wl, texts: list | None = None) -> float:
     """One analyze + results_data on the card from a fresh BB scan, the
-    frames staged (as ``bench.py:446-449``); returns its wall in ms."""
+    frames staged (as ``bench.py:446-449``); returns its wall in ms and
+    appends the results' text (:func:`results_text`) to ``texts``."""
     wl._bb_scan_cache = None
     for img in wl.images:
         img._precomputed_bb_points = None
         img._precomputed_field_centroid = None
     t0 = time.perf_counter()
     wl.analyze(device="cuda")
-    wl.results_data()
+    data = wl.results_data()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    wall = (time.perf_counter() - t0) * 1e3
+    if texts is not None:
+        texts.append(results_text(data))
+    return wall
 
 
 def device_profile(card: str, what: str, run, default_ms: float, top: int = 20) -> None:
@@ -960,12 +1115,15 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
         print(f"inputs: {len(batch.images)} WL frames {batch.images[0].shape} "
               f"{batch.images[0].array.dtype} in {time.perf_counter() - t0:.1f} s")
 
-        results, launches, batch_inputs, batch_err = counted_run(
-            analyze(batch, ""), "WL batch run")
+        with recording_inputs(region_entries()) as region_inputs:
+            results, launches, batch_inputs, batch_err = counted_run(
+                analyze(batch, ""), "WL batch run")
         if min(launches["label"], launches["holes"]) < 1:
             raise RuntimeError(f"the WL batch path launched a CCL mode no time: {launches}")
         print(f"WL batch path: launches {launches}")
         check_wl_results(results, "card batch")
+        check_region_repeats(region_inputs, "WL batch run")
+        time_sum_candidates(card, region_inputs, "WL batch run")
 
         cpu = WinstonLutz(session)
         with flood_selector(""):
@@ -1001,8 +1159,10 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
         print(f"WinstonLutz2D on frame 0: launches {single_launches}; within {diff:.2e} px of "
               f"the batch")
 
+        texts = []
         with flood_selector(""):  # a fresh BB scan per run, as bench.py:446-449
-            times = [warm_run(batch) for _ in range(6)]
+            times = [warm_run(batch, texts) for _ in range(6)]
+        check_same_texts(texts, "WL warm runs")
         warm = statistics.median(times[1:])
         print(f"[{card}] warm WinstonLutz analyze + results_data of {WL_FRAMES} frames: "
               f"median {warm:.1f} ms of 5 runs = {WL_FRAMES / warm * 1e3:.2f} images/s "
@@ -1328,10 +1488,10 @@ def gamma_phase(card: str, gamma2d) -> dict:
         lambda r: gamma2d.gamma2d(r, eval_p, dta, cap, threshold_n, fill),
         lambda r: gamma2d.gamma2d_reference(r, eval_p, dta, cap, threshold_n, fill),
         ref_n, 20, 3)
-    # reference and padded evaluation in, the map out; per pixel and offset a
-    # sub, a mul, an add, the NaN test, the min and the offset's own load
+    # reference and padded evaluation in, the map out; per pixel and offset
+    # four float32 instructions that may not fuse: sub, mul, add, min
     bound_ms, bound_by = bound(4 * (2 * ref_n.numel() + eval_p.numel()),
-                               6 * n_offsets * ref_n.numel())
+                               4 * n_offsets * ref_n.numel(), F32_INSTR_PER_S)
     print(f"[{card}] gamma2d at {tuple(ref_n.shape)} dta {dta} ({n_offsets} offsets): kernel "
           f"{ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     # the single pair's launch, the run's other one
@@ -1340,7 +1500,8 @@ def gamma_phase(card: str, gamma2d) -> dict:
         lambda r: gamma2d.gamma2d(r, eval_1, dta, cap, threshold_n, fill),
         lambda r: gamma2d.gamma2d_reference(r, eval_1, dta, cap, threshold_n, fill),
         ref_1, 20, 3)
-    bound_1, _ = bound(4 * (2 * ref_1.numel() + eval_1.numel()), 6 * n_offsets * ref_1.numel())
+    bound_1, _ = bound(4 * (2 * ref_1.numel() + eval_1.numel()), 4 * n_offsets * ref_1.numel(),
+                       F32_INSTR_PER_S)
     print(f"[{card}] gamma2d at {tuple(ref_1.shape)} dta {dta} (the single pair): kernel "
           f"{ms_1:.4f} ms, plain twin {plain_1:.3f} ms, bound {bound_1:.4f} ms")
     return {"name": "gamma2d", "route": "cuda", "source": "pylinac_tpu_torch/csrc/gamma2d.cu",

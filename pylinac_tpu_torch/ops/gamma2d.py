@@ -8,10 +8,11 @@ kernel ``_gamma_kernel`` ``:27``) and of the offset loop of the XLA form of
 one (H, W) image.
 
 :func:`gamma2d` launches the kernel for a CUDA tensor and takes the plain
-PyTorch twin :func:`gamma2d_reference` only for a CPU tensor. Both read the
-same offset table (:func:`offset_table`): the disk's (dy, dx) in JAX's order
+PyTorch twin :func:`gamma2d_reference` only for a CPU tensor. The twin reads
+the offset table (:func:`offset_table`): the disk's (dy, dx) in JAX's order
 and dist2 = (dy² + dx²) / dta² computed in float64 and rounded to float32,
-which is how JAX rounds that Python double. Not ported:
+which is how JAX rounds that Python double. The kernel reads the same
+values laid out by rows of the disk (:func:`row_table`). Not ported:
 ``gamma2d_pallas_supported`` (``:77``), the TPU's VMEM budget; the kernel
 serves every shape and every dta >= 1.
 """
@@ -27,6 +28,9 @@ import torch
 from . import _build
 
 KERNEL = "gamma2d"
+# the kernel's pixels per thread along x, and so the width of the blocks of
+# offsets in which it walks each row of the disk (csrc/gamma2d.cu:kP)
+BLOCK = 4
 
 
 def _disk_offsets(radius: int) -> list[tuple[int, int]]:
@@ -63,9 +67,36 @@ def offset_table(dta: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.cache
-def _device_table(dta: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def row_table(dta: int) -> tuple[np.ndarray, np.ndarray]:
+    """The disk of ``dta`` by rows, as the kernel walks it: an (n_rows, 4)
+    int32 array of (dy, c0, nb, offset) and the float32 dist2 values.
+
+    Row dy holds the offsets dx = c0 - dta + j for j in [0, nb * BLOCK):
+    ``c0`` is the multiple of BLOCK at or below dta - hw, where hw is the
+    row's half-width, and the nb blocks reach dta + hw. Its values start at
+    ``offset`` (a multiple of BLOCK) and are :func:`offset_table`'s dist2 for
+    the disk's offsets, +inf for the padding beyond the disk."""
     pairs, dist2 = offset_table(dta)
-    return (torch.from_numpy(pairs.copy()).to(device), torch.from_numpy(dist2.copy()).to(device))
+    rows, values = [], []
+    for dy in range(-dta, dta + 1):
+        in_row = pairs[:, 0] == dy
+        dxs, d2 = pairs[in_row, 1], dist2[in_row]
+        hw = int(dxs.max())
+        c0 = (dta - hw) // BLOCK * BLOCK
+        nb = (dta + hw) // BLOCK - (dta - hw) // BLOCK + 1
+        row = np.full(nb * BLOCK, np.inf, np.float32)
+        row[dxs - (c0 - dta)] = d2
+        rows.append((dy, c0, nb, sum(len(v) for v in values)))
+        values.append(row)
+    table, values = np.array(rows, np.int32), np.concatenate(values)
+    table.flags.writeable = values.flags.writeable = False
+    return table, values
+
+
+@functools.cache
+def _device_table(dta: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    rows, dist2 = row_table(dta)
+    return (torch.from_numpy(rows.copy()).to(device), torch.from_numpy(dist2.copy()).to(device))
 
 
 def gamma2d_reference(ref_n: torch.Tensor, eval_p: torch.Tensor, dta: int, cap: float,
@@ -126,12 +157,12 @@ def gamma2d(ref_n: torch.Tensor, eval_p: torch.Tensor, dta: int, cap: float,
     out = torch.empty_like(ref_n)
     if ref_n.numel() == 0:
         return out
-    pairs, dist2 = _device_table(dta, ref_n.device)
+    rows, dist2 = _device_table(dta, ref_n.device)
     fn = _kernel()
     with torch.cuda.device(ref_n.device):
         stream = torch.cuda.current_stream(ref_n.device).cuda_stream
-        err = fn(ref_n.data_ptr(), eval_p.data_ptr(), pairs.data_ptr(), dist2.data_ptr(),
-                 out.data_ptr(), len(dist2), b, h, w, dta, float(np.float32(cap)),
+        err = fn(ref_n.data_ptr(), eval_p.data_ptr(), rows.data_ptr(), dist2.data_ptr(),
+                 out.data_ptr(), len(rows), len(dist2), b, h, w, dta, float(np.float32(cap)),
                  float(np.float32(threshold_n)), float(np.float32(fill)), stream)
     if err != 0:
         raise RuntimeError(f"gamma2d kernel launch failed: CUDA error {err}")
@@ -144,7 +175,7 @@ gamma2d.launches = 0
 
 def _kernel():
     fn = _build.load(KERNEL).gamma2d_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -13,14 +13,22 @@ ascending order, K slots reported, so a mask with K or more regions shows
 K valid slots and callers take the same overflow path as in JAX. Where the
 JAX function matched pixels to slots through an (N, K + 1) compare matrix,
 this one finds each pixel's slot with ``torch.searchsorted`` on the
-ascending ids and sums with ``scatter_add_``. ``area_filled`` counts every
+ascending ids, counts with ``scatter_add_`` and sums with
+:func:`ops.stats.slot_sums`. ``area_filled`` counts every
 hole, as the JAX CPU branch does (``:452-461``); the JAX TPU branch keeps
 only the K + 1 smallest-root holes (``:431-433``).
 
-Sums run in float32 as in JAX. Counts, areas and coordinate sums are
-integers below 2**24, so they are exact whatever the order of the adds (or
-of the atomics on the card); intensity and second-moment sums may differ
-from JAX in the last bits.
+Counts (areas, hole areas) are float32 ``scatter_add_`` sums of 0/1,
+integers below 2**24 and exact in any order, atomics on the card included.
+The other sums go through :func:`ops.stats.slot_sums`, whose order is fixed
+on each device: on the CPU float32 adds in pixel order, on the card float64
+one-hot products rounded once to float32. The coordinate sums are integers
+and exact on the card; on the CPU they are exact below 2**24, which the
+second-moment sums ``rr*rr``, ``cc*cc`` and ``rr*cc`` pass within a few
+hundred pixels at row 300, and the row and column sums of a large region
+pass too. Those, and the intensity and perimeter sums, may differ between
+the CPU, the card and JAX in float32's last bits, but every run on one
+device gives the same bits.
 
 Not ported: ``pack_regions`` and ``regions_to_host`` (``:694-725``), which
 worked around the TPU link; :meth:`Regions.to_numpy` takes their place.
@@ -37,6 +45,7 @@ import torch
 
 from .ccl import hole_roots_batch, label_batch
 from .flood import flood_from_border
+from .stats import slot_sums
 
 _CROSS = [(-1, 0), (1, 0), (0, -1), (0, 1)]
 _DIAG = [(-1, -1), (-1, 1), (1, -1), (1, 1)]
@@ -167,11 +176,9 @@ def _props_from_label(mask: torch.Tensor, lab: torch.Tensor, intensity: torch.Te
     num = K + 2  # slots 0..K hold the K + 1 ids, slot K + 1 everything else
     slot, _ = _slots(ids, flat_lab, K + 1)
 
-    def seg(values: torch.Tensor, index: torch.Tensor = slot) -> torch.Tensor:
-        out = torch.zeros(b, num, *values.shape[2:], dtype=f32, device=dev)
-        if values.dim() == 3:
-            index = index[..., None].expand_as(values)
-        return out.scatter_add_(1, index, values)
+    def count(values: torch.Tensor, index: torch.Tensor = slot) -> torch.Tensor:
+        # 0/1 values: exact in any order
+        return torch.zeros(b, num, dtype=f32, device=dev).scatter_add_(1, index, values)[:, :K]
 
     def seg_extreme(values: torch.Tensor, reduce: str) -> torch.Tensor:
         init = float("-inf") if reduce == "amax" else float("inf")
@@ -179,7 +186,7 @@ def _props_from_label(mask: torch.Tensor, lab: torch.Tensor, intensity: torch.Te
         return out.scatter_reduce_(1, slot, values, reduce, include_self=True)[:, :K]
 
     in_mask = flat_mask.to(f32)
-    area = seg(in_mask)[:, :K]
+    area = count(in_mask)
 
     # holes: background components off the border. The enclosing region of
     # a hole is the one directly above its topmost-leftmost pixel, whose
@@ -189,7 +196,7 @@ def _props_from_label(mask: torch.Tensor, lab: torch.Tensor, intensity: torch.Te
     above = (hole_root - w).clamp(0, n - 1)
     hole_region = torch.where(is_hole, flat_lab.gather(1, above), -1)
     hole_slot, hole_ok = _slots(ids, hole_region, K + 1)
-    hole_areas = seg(hole_ok.to(f32), hole_slot)[:, :K]
+    hole_areas = count(hole_ok.to(f32), hole_slot)
     area_filled = area + hole_areas
 
     rr = torch.arange(h, dtype=f32, device=dev)[:, None].expand(h, w).reshape(n)
@@ -204,7 +211,7 @@ def _props_from_label(mask: torch.Tensor, lab: torch.Tensor, intensity: torch.Te
             on_border * in_mask, perim_img]          # border / perimeter
     if moments:
         cols += [rr * rr * in_mask, cc * cc * in_mask, rr * cc * in_mask]
-    sums = seg(torch.stack(cols, dim=-1))[:, :K]
+    sums = slot_sums(torch.stack(cols, dim=-1), slot, K)
     sum_i = sums[..., 2]
     safe_area = area.clamp(min=1)
     centroid_r = sums[..., 0] / safe_area

@@ -53,8 +53,9 @@ def median3x3(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"median3x3 runs on cpu or cuda, got {x.device}")
     b, h, w = x.shape if x.dim() == 3 else (1, *x.shape)
-    if b > 65535:
-        raise ValueError(f"median3x3 takes at most 65535 images, got {b}")
+    if b > 65535 or -(-h // 64) > 65535:
+        raise ValueError(f"median3x3 takes at most 65535 images of 4194240 rows, "
+                         f"got {tuple(x.shape)}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

@@ -11,6 +11,8 @@ Tolerances, each with its reason:
   another order and move a near-tie of the between-class variance by one
   bin.
 - ``nps_bundle``: 1e-5 relative; the float32 FFTs differ in their last bits.
+  The same bar holds with the card's order of the radial bin sums (float64
+  one-hot products, ``ops/stats.py:_onehot_sums``) run on the CPU.
 - ``find_peaks_rows``: equal to looping ``find_peaks`` (the same arithmetic
   per row), and to JAX's ``find_peaks_rows`` exactly in indices, 1e-6 in
   heights.
@@ -163,3 +165,9 @@ def test_find_valleys_matches_jax(jref, kw):
     jidx, jprops = jref.peaks.find_valleys(row, **kw)
     np.testing.assert_array_equal(idx, jidx)
     np.testing.assert_allclose(props["peak_heights"], jprops["peak_heights"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("length", [20, 41])
+def test_nps_bundle_card_order_matches_jax(jref, monkeypatch, length):
+    monkeypatch.setattr(tstats, "slot_sums", tstats._onehot_sums)
+    test_nps_bundle_matches_jax(jref, length)

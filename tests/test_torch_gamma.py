@@ -11,6 +11,10 @@ Tolerances:
   under XLA's rewrites; the measured largest difference is in each message).
 - the CUDA kernel against its twin on the card: NaN masks equal and every
   other value equal to the bit.
+- the kernel's row table (``row_table``) against ``offset_table``: the same
+  (dy, dx, dist2) entries bit for bit; the twin walked in the kernel's
+  order (rows, blocks of 4 offsets, +inf padding read against whatever lies
+  past the disk) equal to the twin to the bit.
 
 The JAX package is imported in a fixture, so that the card tests (marker
 ``cuda``) also run where jax is not installed:
@@ -26,13 +30,21 @@ import torch
 
 from pylinac_tpu_torch.ops import gamma as tg
 from pylinac_tpu_torch.ops.gamma2d import (
-    _disk_offsets, gamma2d, gamma2d_reference, offset_table)
+    BLOCK, _disk_offsets, gamma2d, gamma2d_reference, offset_table, row_table)
 
 NAN = float("nan")
 SCALARS = [(2.0, 0.05, NAN), (1.5, 0.3, -1.0), (NAN, 0.05, 7.0)]  # cap, threshold_n, fill
-# the shapes and dta values chip_smoke.py holds the kernel to its twin at
+# the shapes and dta values chip_smoke.py holds the kernel to its twin at:
+# widths on every side of the kernel's 4 pixels a thread and 128 a block,
+# and dta on each side of its shared-memory limits (23 | 24: the 48 KB a
+# launch gets without opting in; 70 | 71: the H100's 227 KB opt-in, past
+# which the kernel reads device memory)
 CARD_CASES = [((1, 8, 8), 1), ((3, 40, 130), 3), ((3, 40, 130), 5), ((2, 97, 131), 9),
-              ((1, 16, 16), 20), ((1, 24, 40), 47), ((16, 768, 1024), 9)]
+              ((1, 16, 16), 20), ((1, 24, 40), 47), ((16, 768, 1024), 9),
+              ((1, 2, 3), 1), ((2, 9, 129), 2), ((1, 13, 131), 9), ((1, 7, 257), 4),
+              ((1, 20, 30), 23), ((1, 20, 30), 24), ((1, 6, 9), 70), ((1, 6, 9), 71)]
+# a cap too large to hide any candidate: every offset of the disk can win
+CARD_SCALARS = SCALARS + [(40.0, 0.0, -1.0)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -137,6 +149,65 @@ def test_twin_matches_pallas_interpret(jref, dta, scalars):
     got = gamma2d_reference(torch.from_numpy(ref_n)[None], torch.from_numpy(eval_p)[None],
                             dta, cap, threshold_n, fill)[0]
     _assert_close(got.numpy(), want, 2e-6, f"twin vs Pallas at dta {dta}")
+
+
+@pytest.mark.parametrize("dta", range(1, 48))
+def test_row_table_is_the_offset_table(dta):
+    rows, d2 = row_table(dta)
+    pairs, dist2 = offset_table(dta)
+    assert rows.dtype == np.int32 and d2.dtype == np.float32
+    assert rows[:, 0].tolist() == list(range(-dta, dta + 1))
+    entries = []
+    for dy, c0, nb, off in rows.tolist():
+        assert c0 % BLOCK == 0 and off % BLOCK == 0 and c0 >= 0
+        for j in range(nb * BLOCK):
+            if np.isfinite(d2[off + j]):
+                entries.append((dy, c0 - dta + j, d2[off + j].view(np.int32).item()))
+            else:
+                assert d2[off + j] == np.inf
+        assert off + nb * BLOCK <= len(d2)
+    assert sum(nb for *_, nb, _ in rows.tolist()) * BLOCK == len(d2)
+    want = [(int(dy), int(dx), v.item()) for (dy, dx), v in zip(pairs, dist2.view(np.int32))]
+    assert sorted(entries) == sorted(want)
+
+
+def _twin_in_kernel_order(ref_n, eval_p, dta, cap, threshold_n, fill):
+    """The twin with the candidates taken as the kernel takes them: by rows
+    of :func:`row_table`, blocks of BLOCK offsets, the +inf padding read
+    against the values past the disk (here NaN, +-inf and finite junk past
+    the padded image), a NaN-dropping running minimum from +inf."""
+    b, h, w = ref_n.shape
+    wide = torch.cat([eval_p, torch.tensor([np.nan, np.inf, -np.inf, 3.0] * (2 * BLOCK),
+                                           dtype=torch.float32).expand(b, eval_p.shape[1], -1)],
+                     dim=2)
+    rows, d2 = row_table(dta)
+    least = torch.full_like(ref_n, float("inf"))
+    for dy, c0, nb, off in rows.tolist():
+        for j in range(nb * BLOCK):
+            dx = c0 - dta + j
+            shifted = wide[:, dta + dy: dta + dy + h, dta + dx: dta + dx + w]
+            dd = shifted - ref_n
+            least = torch.fmin(least, float(d2[off + j]) + dd * dd)
+    f32 = lambda v: torch.tensor(np.float32(v))  # noqa: E731
+    cap_t = f32(cap)
+    gamma = torch.minimum(torch.sqrt(torch.minimum(cap_t * cap_t, least).double()).float(), cap_t)
+    skip = torch.isnan(ref_n) | (ref_n < f32(threshold_n))
+    return torch.where(skip, f32(fill), gamma)
+
+
+@pytest.mark.parametrize("dta", [1, 2, 3, 5, 9])
+def test_twin_in_kernel_order_equals_twin(dta):
+    ref_n, eval_p = _normalised((2, 13, 19), dta, seed=30 + dta)
+    # global dose too: then the least candidate may sit anywhere in the disk
+    ref, ev = _pair((2, 13, 19), seed=40 + dta, ref_nan=False)
+    dose = np.float32(0.03) * np.nanmax(ref)
+    glob = (ref / dose, np.pad(ev / dose, [(0, 0), (dta, dta), (dta, dta)], mode="edge"))
+    for r, e in ((ref_n, eval_p), glob):
+        assert np.isnan(e).any() and (np.isinf(e).any() or r is glob[0])
+        r, e = torch.from_numpy(r), torch.from_numpy(e)
+        for cap, threshold_n, fill in SCALARS + [(40.0, 0.0, -1.0)]:
+            assert _same(_twin_in_kernel_order(r, e, dta, cap, threshold_n, fill),
+                         gamma2d_reference(r, e, dta, cap, threshold_n, fill))
 
 
 def test_twin_is_the_cpu_wrapper():
@@ -271,7 +342,7 @@ def test_default_device_needs_cuda():
 def test_kernel_matches_twin_on_card(cuda, shape, dta):
     ref_n, eval_p = _normalised(shape, dta, seed=sum(shape) + dta)
     r, e = torch.from_numpy(ref_n).to(cuda), torch.from_numpy(eval_p).to(cuda)
-    for cap, threshold_n, fill in SCALARS:
+    for cap, threshold_n, fill in CARD_SCALARS:
         before = gamma2d.launches
         got = gamma2d(r, e, dta, cap, threshold_n, fill)
         torch.cuda.synchronize()

@@ -2,7 +2,11 @@
 
 Tolerance: none. Every form computes one exact order statistic (rank 4 of
 9) of the same float32 values, so results are bit-equal, ties included.
-Inputs are finite, as on the main path (frames widened from uint16).
+Inputs are finite, as on the main path (frames widened from uint16). The
+CUDA kernel's network (sort each 3-pixel column, then med3 of the largest
+low, the middle middle and the smallest high) is modelled here in numpy,
+min/max for min/max as ``csrc/median3x3.cu`` writes it, and held to rank 4
+on every input over {0, 1, 2}.
 
 The JAX package is imported in a fixture, so that the card tests (marker
 ``cuda``) also run where jax is not installed:
@@ -21,6 +25,11 @@ from pylinac_tpu_torch.ops import filters as tfilters
 from pylinac_tpu_torch.ops.median import median3x3, median3x3_reference
 
 SHAPES = [(1, 1), (1, 2), (2, 3), (3, 1), (5, 7), (37, 129), (64, 65)]
+# the kernel checks of chip_smoke.py: W = 1, H = 1, W = 1, 2, 3 (mod 4),
+# widths below one thread's 4 columns, odd pitches (no float2 loads), and
+# heights around one thread's 16 rows and one block's 64
+CARD_SHAPES = [(1, 1, 1), (1, 2, 3), (3, 37, 129), (2, 1280, 1280), (2, 1, 9), (2, 9, 1),
+               (1, 70, 129), (1, 70, 130), (1, 70, 131), (2, 65, 3), (2, 64, 2), (1, 17, 6)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,8 +117,43 @@ def test_median3x3_rejects_rank(shape):
         median3x3(torch.zeros(shape))
 
 
+def _kernel_median9(p: np.ndarray) -> np.ndarray:
+    """Median of (..., 3, 3) windows (rows, columns) by the kernel's network,
+    min/max for min/max: sort each column (6), then med3(max of the lows,
+    med3 of the middles, min of the highs)."""
+    above, here, below = p[..., 0, :], p[..., 1, :], p[..., 2, :]
+    l1, h1 = np.minimum(above, here), np.maximum(above, here)
+    t = np.maximum(l1, below)
+    lo, mid, hi = np.minimum(l1, below), np.minimum(h1, t), np.maximum(h1, t)
+
+    def med3(a, b, c):
+        return np.maximum(np.minimum(a, b), np.minimum(np.maximum(a, b), c))
+
+    low = np.maximum(np.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    high = np.minimum(np.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    return med3(low, med3(mid[..., 0], mid[..., 1], mid[..., 2]), high)
+
+
+def test_kernel_network_is_rank_4_on_every_ternary_window():
+    windows = np.array(np.meshgrid(*[np.arange(3)] * 9, indexing="ij")).reshape(9, -1).T
+    got = _kernel_median9(windows.reshape(-1, 3, 3).astype(np.float32))
+    np.testing.assert_array_equal(got, np.sort(windows, axis=1)[:, 4])
+    assert len(windows) == 3**9
+
+
+@pytest.mark.parametrize("kind", ["noise", "ties"])
+def test_kernel_network_matches_twin(kind):
+    """The network on every 3x3 window of seeded images (edges replicated)
+    equals the twin."""
+    x = _image((3, 41, 67), kind, seed=13)
+    padded = np.pad(x, [(0, 0), (1, 1), (1, 1)], mode="edge")
+    windows = np.lib.stride_tricks.sliding_window_view(padded, (3, 3), axis=(1, 2))
+    np.testing.assert_array_equal(_kernel_median9(windows),
+                                  median3x3_reference(torch.from_numpy(x)).numpy())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 2, 3), (3, 37, 129), (2, 1280, 1280)])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_kernel_matches_twin_on_card(cuda, shape):
     x = torch.from_numpy(_image(shape, "ties", seed=11))
     before = median3x3.launches

@@ -10,7 +10,12 @@ second-moment features within 1e-4 px: the coordinate sums of these 48 x 40
 images are integers below 2**24 and exact, and the port rounds the
 central-moment subtraction once as XLA's fused multiply-add does, so only
 the float32 intensity sums can differ, in their last bits. Intensities and
-their min/max within 1e-6.
+their min/max within 1e-6. The card's order of the sums (float64 one-hot
+products, ``ops/stats.py:_onehot_sums``) runs here on the CPU too and is
+held to JAX at the same bars; on the card, repeated calls must give the
+same bits (marker ``cuda``):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_regionprops.py
 """
 
 import functools
@@ -22,6 +27,7 @@ import scipy.ndimage as ndi
 import torch
 
 from pylinac_tpu_torch.ops import label as tlabel
+from pylinac_tpu_torch.ops import stats as tstats
 
 EXACT = ("valid", "area", "area_filled", "touches_border", "bbox_rmin",
          "bbox_cmin", "bbox_rmax", "bbox_cmax")
@@ -57,6 +63,13 @@ def jref():
         return _jitted(tuple(sorted(kw.items())))(jnp.asarray(masks), jnp.asarray(inten))
 
     return SimpleNamespace(jax=jax, jnp=jnp, label=label, props=props)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
 
 
 def _inputs(seed: int, b: int = 5, h: int = 48, w: int = 40):
@@ -179,3 +192,70 @@ def test_overflow_shows_k_valid_slots():
     got = tlabel.regionprops(torch.from_numpy(mask), K=8, connectivity=2).to_numpy()
     assert got.valid.sum() == 8
     assert got.label_id.tolist() == [0, 3, 6, 9, 12, 15, 18, 21, 24]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_card_order_of_sums_matches_jax(jref, monkeypatch, seed, connectivity):
+    """The card's one-hot sums, run on the CPU, against JAX: the counts,
+    bboxes and integer coordinate sums exact, the rest within 1e-5
+    relative. JAX's float32 pixel-order sums, which the CPU's equal to the
+    bit, carry about n * 2**-24 of rounding over n terms (3.4e-6 of a
+    700-pixel perimeter here); the one-hot sums round once."""
+    monkeypatch.setattr(tlabel, "slot_sums", tstats._onehot_sums)
+    masks, inten = _inputs(seed)
+    jr = jref.props(masks, inten, K=16, connectivity=connectivity, hull=False)
+    tr = tlabel.regionprops_batch(torch.from_numpy(masks), torch.from_numpy(inten),
+                                  K=16, connectivity=connectivity, hull=False).to_numpy()
+    valid = np.asarray(jr.valid)
+    np.testing.assert_array_equal(np.asarray(jr.label_id), tr.label_id)
+    np.testing.assert_array_equal(valid, tr.valid)
+    for name in EXACT + ("centroid_r", "centroid_c"):
+        np.testing.assert_array_equal(np.asarray(getattr(jr, name))[valid],
+                                      getattr(tr, name)[valid], err_msg=name)
+    for name in PX[:-1] + INTENSITY:
+        np.testing.assert_allclose(getattr(tr, name)[valid], np.asarray(getattr(jr, name))[valid],
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 3 * 4096])
+def test_onehot_sums_of_integers_are_exact(n):
+    """Coordinate-like integer columns whose sums pass 2**24 come out exact
+    (the float32 pixel-order sum does not); slots at or past k add nowhere;
+    the pieces of 4096 pixels join at their edges."""
+    rng = np.random.default_rng(n)
+    slot = torch.from_numpy(rng.integers(0, 6, (2, n)))
+    rows = torch.from_numpy(rng.integers(0, 3000, (2, n, 2))).to(torch.float32)
+    values = torch.cat([rows, rows[..., :1] * rows[..., 1:]], dim=-1)  # products to 9e6
+    got = tstats._onehot_sums(values, slot, 4)
+    want = torch.zeros(2, 4, 3, dtype=torch.float64)
+    for k in range(4):
+        want[:, k] = (values.double() * (slot == k)[..., None]).sum(dim=1)
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 3)
+    assert torch.equal(got, want.to(torch.float32))
+
+
+def test_onehot_sums_match_pixel_order():
+    """Float sums of both orders agree to float32's last bits."""
+    rng = np.random.default_rng(3)
+    slot = torch.from_numpy(rng.integers(0, 9, (3, 5000)))
+    values = torch.from_numpy(rng.random((3, 5000, 4)).astype(np.float32))
+    torch.testing.assert_close(tstats._onehot_sums(values, slot, 8),
+                               tstats.slot_sums(values, slot, 8), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_card_sums_repeat_bit_for_bit(cuda):
+    """Ten calls on the same masks give the same bits in every field, and
+    so do ten radial averages (the card's atomics would not)."""
+    masks, inten = _inputs(11, b=64, h=134, w=134)
+    m, i = torch.from_numpy(masks).to(cuda), torch.from_numpy(inten).to(cuda)
+    first = tlabel.regionprops_batch(m, i, K=24, connectivity=1)
+    for _ in range(10):
+        again = tlabel.regionprops_batch(m, i, K=24, connectivity=1)
+        for name, a, b in zip(first._fields, first, again):
+            assert torch.equal(a, b), name
+    nps = torch.from_numpy(np.random.default_rng(4).random((101, 101)).astype(np.float32)).to(cuda)
+    ps1d = tstats.radial_average(nps)
+    assert all(torch.equal(tstats.radial_average(nps), ps1d) for _ in range(10))
+    torch.testing.assert_close(ps1d.cpu(), tstats.radial_average(nps.cpu()), rtol=1e-6, atol=0)
