@@ -28,16 +28,19 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   each of its three passes);
 - Winston-Lutz: checks the border-flood kernel (flood and filled-centroid
   entries) bit for bit against its twins on the same mask kinds and shapes
-  plus one frame (1, 1280, 1280) and the bench's (8, 1280, 1280), writes
+  plus the edges of its 128 x 128 px tiles, one frame (1, 1280, 1280) and
+  the bench's (8, 1280, 1280), with ten repeated launches equal, writes
   the bench's 8-frame AS1200 session, runs ``WinstonLutz`` on the card in
   the default mode and under ``PYLINAC_TPU_FLOOD=packed`` and ``xla``, and
   the single-image ``WinstonLutz2D`` on frame 0, holds the CCL and flood
-  kernels against their twins on every mask those runs gave them, checks
+  kernels against their twins on every mask those runs gave them (the
+  flood kernel ten more times each, equal), checks
   the results against the bars of ``tests/models/test_winstonlutz.py`` and
   the card against the CPU, repeats the region sums of the BB scan as for
   CatPhan, then times the batch (every warm run's results equal to the
   first's) and each kernel entry on
-  the masks of the run that counted it;
+  the masks of the run that counted it, and prints the flood kernel's
+  rounds and both entries' times on those masks and on a spiral;
 - 2D gamma: checks the gamma kernel against its twin (NaN masks equal,
   every other value equal) at fifteen shapes and dta values (ragged widths,
   each side of the kernel's shared-memory limits), under
@@ -118,8 +121,10 @@ CCL_REPEATS = 10          # launches on one input that must give the same labels
 
 WL_FRAMES = 8             # the bench's session: gantry 0/90/180/270 x collimator 0/90
 PX_TOL = 1e-3             # selector and single-image centroids against the batch
-# the listed shapes, then the WL path's: one frame and the session
-FLOOD_SHAPES = CCL_SHAPES + [(1, 1280, 1280), (WL_FRAMES, 1280, 1280)]
+# the listed shapes, the flood kernel's tile edges (128 rows x 128 columns),
+# then the WL path's: one frame and the session
+FLOOD_SHAPES = CCL_SHAPES + [(1, 127, 129), (2, 128, 128), (1, 129, 4097), (3, 257, 31),
+                             (1, 1280, 1280), (WL_FRAMES, 1280, 1280)]
 
 # the bench's Gamma2D (bench.py:727-731): 16 pairs of 768x1024 uint16, DTA 9
 # px, 3 % global dose, cap 2, 5 % threshold
@@ -439,10 +444,11 @@ def agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
     return same, float(diff.max()) if diff.numel() else 0.0
 
 
-def check_path_masks(pairs: dict, seen, what: str) -> dict[str, float]:
+def check_path_masks(pairs: dict, seen, what: str, repeated=()) -> dict[str, float]:
     """Each kernel must equal its twin bit for bit on every input that a
-    run of the path gave it; returns the largest |kernel - twin| of each
-    mode (0.0 where they agree)."""
+    run of the path gave it, and the kernels of the ``repeated`` modes must
+    give the same output in REPEATS more launches on each; returns the
+    largest |kernel - twin| of each mode (0.0 where they agree)."""
     worst, shapes = {}, []
     for mode, masks, args, kwargs in seen:
         masks = masks if masks.dim() == 3 else masks[None]
@@ -454,9 +460,14 @@ def check_path_masks(pairs: dict, seen, what: str) -> dict[str, float]:
         if not same:
             raise RuntimeError(f"{mode} differs from its twin on a {what} mask of shape "
                                f"{tuple(masks.shape)}: max |err| {err}")
+        if mode in repeated and not all(torch.equal(kernel(masks, *args, **kwargs), got)
+                                        for _ in range(REPEATS)):
+            raise RuntimeError(f"{mode} changed between launches on a {what} mask of shape "
+                               f"{tuple(masks.shape)}")
         shapes.append(f"{mode} {tuple(masks.shape)}")
     print(f"kernel check on the {what}'s {len(seen)} kernel inputs: bit-equal to twins, "
-          f"max |err| {worst} ({', '.join(shapes)})")
+          f"max |err| {worst} ({', '.join(shapes)})"
+          + (f"; {', '.join(repeated)} equal in {REPEATS} more launches" if repeated else ""))
     return worst
 
 
@@ -894,8 +905,9 @@ def flood_bound(masks: torch.Tensor, entry: str) -> tuple[float, str]:
 
 def check_flood(flood) -> float:
     """Both flood entries must equal their twins bit for bit on the CCL
-    mask kinds at every shape; returns the largest |kernel - twin| (0.0 when
-    they agree)."""
+    mask kinds at every shape, and give the same output in CCL_REPEATS more
+    launches (the kernel's blocks race on their halos); returns the largest
+    |kernel - twin| (0.0 when they agree)."""
     rng = np.random.default_rng(1)
     worst = 0.0
     for shape in FLOOD_SHAPES:
@@ -912,8 +924,10 @@ def check_flood(flood) -> float:
                 if not torch.equal(got, want):
                     raise RuntimeError(f"{name} differs from its twin on {kind} at {shape}: "
                                        f"max |err| {err}")
+                if not all(torch.equal(kernel(masks), got) for _ in range(CCL_REPEATS)):
+                    raise RuntimeError(f"{name} changed between launches on {kind} at {shape}")
         print(f"kernel check flood {shape}: flood and filled centroid bit-equal to twins "
-              f"on {', '.join(CCL_KINDS)}")
+              f"on {', '.join(CCL_KINDS)}; {CCL_REPEATS} repeated launches equal")
     for bad, what in ((torch.zeros(1, 4, 4, device="cuda"), "float32"),
                       (torch.zeros(1, 4, 6, dtype=torch.bool, device="cuda")[:, :, ::2],
                        "non-contiguous")):
@@ -1098,7 +1112,7 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
         torch.cuda.synchronize()
         counts = {mode: counter.launches for mode, counter in counters.items()}
         check_counts(seen, counts, what)
-        return out, counts, seen, check_path_masks(pairs, seen, what)
+        return out, counts, seen, check_path_masks(pairs, seen, what, ("flood", "centroid"))
 
     def analyze(wl, mode: str):
         def run():
@@ -1191,6 +1205,19 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
                           "launches": counts[entry], "max_abs_err": max(synth_err, err[entry]),
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "library_ms": None})
+        spiral = torch.from_numpy(ccl_mask("spiral", (1, 1280, 1280),
+                                           np.random.default_rng(0))).cuda()
+        for where, masks in (
+                ("the xla batch's field masks", largest(selector_runs["xla"][1], "flood")),
+                ("the packed batch's field masks", largest(selector_runs["packed"][1], "centroid")),
+                ("the single image's mask", largest(single_inputs, "flood")),
+                ("a 3-turn spiral", spiral)):
+            out, rounds = flood.flood_rounds(masks)
+            if not torch.equal(out, flood.flood_from_border_reference(masks)):
+                raise RuntimeError(f"flood_rounds differs from the twin on {where}")
+            print(f"[{card}] flood kernel on {where} {tuple(masks.shape)}: {rounds} rounds; "
+                  f"flood entry {time_ms(flood.flood_from_border_batch, masks, 20):.4f} ms, "
+                  f"centroid entry {time_ms(flood.filled_centroid_batch, masks, 20):.4f} ms")
         field_masks = largest(selector_runs["xla"][1], "flood")
         holes_ms = time_ms(ccl.hole_roots_batch, field_masks, 20)
         print(f"[{card}] ccl holes on the same field masks: {holes_ms:.4f} ms")

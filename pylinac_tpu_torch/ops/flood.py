@@ -15,11 +15,16 @@ kernel for a CUDA tensor and take the plain PyTorch twins
 only for a CPU tensor. :func:`flood_from_border` takes one image and calls
 the batch entry with B = 1.
 
+Each entry is one cooperative launch over the whole card: 128 x 128 px
+tiles, closed in grid-wide rounds until a round changes nothing
+(``csrc/flood.cu``). :func:`flood_rounds` reports how many rounds a batch
+took.
+
 Not ported: ``_pack_cols`` (``:604``), ``_choose_bc`` (``:621``),
 ``flood_packed_supported`` (``:665``) and the VMEM budget. The card has no
 VMEM limit, so the kernel serves every frame size; the kernel packs its own
-bits on the card. The only limits are B * H * W < 2**31 and the grid's
-(B <= 65535, ceil(H / 8) <= 65535).
+bits on the card. The only limit is B * H * W < 2**31; the grid is the
+number of blocks the card holds at once, or the number of tiles if fewer.
 """
 
 from __future__ import annotations
@@ -73,28 +78,28 @@ def filled_centroid_reference(masks: torch.Tensor) -> torch.Tensor:
     return torch.stack([sum_y / mass, sum_x / mass], dim=1).to(torch.float32)
 
 
-def _launch(masks: torch.Tensor, entry: str, out: torch.Tensor, counted) -> torch.Tensor:
+def _launch(masks: torch.Tensor, entry: str, out: torch.Tensor, counted) -> torch.Tensor | None:
     """Launch an entry of ``csrc/flood.cu`` into ``out`` and add one to
-    ``counted.launches``; an empty batch launches nothing and counts
-    nothing."""
+    ``counted.launches``; returns the kernel's state buffer (int64: the
+    round stamp, then the centroid entry's 3 sums per image), or None for an
+    empty batch, which launches nothing and counts nothing."""
     b, h, w = masks.shape
-    if b > 65535 or -(-h // 8) > 65535:
-        raise ValueError(f"the flood kernel takes at most 65535 images and 524280 rows, "
-                         f"got {tuple(masks.shape)}")
     if masks.numel() == 0:
-        return out
+        return None
     words = -(-w // 32)
     bg = torch.empty((b, h, words), dtype=torch.int32, device=masks.device)
     reached = torch.empty_like(bg)
+    slots = 1 + (3 * b if entry == "filled_centroid_f32" else 0)
+    state = torch.zeros(slots, dtype=torch.int64, device=masks.device)
     fn = _kernel(entry)
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         err = fn(masks.data_ptr(), out.data_ptr(), bg.data_ptr(), reached.data_ptr(),
-                 b, h, w, stream)
+                 state.data_ptr(), b, h, w, stream)
     if err != 0:
         raise RuntimeError(f"flood kernel launch failed: CUDA error {err}")
     counted.launches += 1
-    return out
+    return state
 
 
 def flood_from_border_batch(masks: torch.Tensor) -> torch.Tensor:
@@ -110,7 +115,8 @@ def flood_from_border_batch(masks: torch.Tensor) -> torch.Tensor:
     if masks.device.type == "cpu":
         return flood_from_border_reference(masks)
     out = torch.empty(masks.shape, dtype=torch.int32, device=masks.device)
-    return _launch(masks, "flood_from_border_i32", out, flood_from_border_batch)
+    _launch(masks, "flood_from_border_i32", out, flood_from_border_batch)
+    return out
 
 
 flood_from_border_batch.launches = 0
@@ -129,7 +135,8 @@ def filled_centroid_batch(masks: torch.Tensor) -> torch.Tensor:
         return filled_centroid_reference(masks)
     # zeros: an image with no pixels launches nothing and has centroid (0, 0)
     out = torch.zeros((masks.shape[0], 2), dtype=torch.float32, device=masks.device)
-    return _launch(masks, "filled_centroid_f32", out, filled_centroid_batch)
+    _launch(masks, "filled_centroid_f32", out, filled_centroid_batch)
+    return out
 
 
 filled_centroid_batch.launches = 0
@@ -142,9 +149,21 @@ def flood_from_border(mask: torch.Tensor) -> torch.Tensor:
     return flood_from_border_batch(mask[None])[0]
 
 
+def flood_rounds(masks: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The flood entry on a (B, H, W) bool CUDA batch, and the number of
+    grid-wide rounds the kernel took, the closing round included. Counts a
+    launch of :func:`flood_from_border_batch`; waits for the card."""
+    _check(masks, "flood_rounds")
+    if masks.device.type != "cuda":
+        raise ValueError(f"flood_rounds measures the kernel and takes a CUDA tensor, got "
+                         f"{masks.device}")
+    out = torch.empty(masks.shape, dtype=torch.int32, device=masks.device)
+    state = _launch(masks, "flood_from_border_i32", out, flood_from_border_batch)
+    return out, 0 if state is None else int(state[0]) + 1
+
+
 def _kernel(entry: str):
     fn = getattr(_build.load(KERNEL), entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

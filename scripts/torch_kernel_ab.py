@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's 3x3-median and gamma CUDA kernels against another
-version of the same sources on one card, in turns (old, new, new, old).
+"""Time the port's 3x3-median, gamma and border-flood CUDA kernels against
+another version of the same sources on one card, in turns (old, new, new,
+old).
 
     python3 scripts/torch_kernel_ab.py OLD_ROOT [--out DIR]
 
 ``OLD_ROOT`` is the root of another checkout of this repository (for
 example a ``git archive`` of the parent commit, unpacked). Its
-``pylinac_tpu_torch/csrc/{median3x3,gamma2d}.cu`` are built with the same
-``nvcc`` flags as this checkout's, and both versions run on the same inputs
-at the picket fence and gamma paths' shapes: the median on (64, 1254, 1254)
-integer-valued float32 frames, gamma on the bench's 16 pairs of 768 x 1024
-(and pair 0 alone) at DTA 9, 3 % global dose, normalised and edge-padded as
-``gamma_2d`` does. Each kernel's outputs must be equal between the versions
+``pylinac_tpu_torch/csrc/{median3x3,gamma2d,flood}.cu`` are built with the
+same ``nvcc`` flags as this checkout's, and both versions run on the same
+inputs at the picket fence, gamma and Winston-Lutz paths' shapes: the
+median on (64, 1254, 1254) integer-valued float32 frames, gamma on the
+bench's 16 pairs of 768 x 1024 (and pair 0 alone) at DTA 9, 3 % global
+dose, normalised and edge-padded as ``gamma_2d`` does, and both flood
+entries on the field masks that the bench's 8-frame WL session hands the
+flood kernel under ``PYLINAC_TPU_FLOOD=xla`` (8, 1280, 1280) and in
+``WinstonLutz2D`` on frame 0 (1, 1280, 1280), and on a 3-turn spiral at
+(1, 1280, 1280). Each kernel's outputs must be equal between the versions
 (NaN where NaN) before any time counts. Times are the mean ms per launch
-over 50 (median) or 20 (gamma) launches between CUDA events, after a
-warm-up. Prints one line per measurement, the card's name and power limit,
+over 50 (median) or 20 (gamma, flood) launches between CUDA events, after
+a warm-up. Prints one line per measurement, the card's name and power limit,
 and one JSON object last; with ``--out`` it also writes the JSON and each
 library's SASS (``cuobjdump -sass``) with its instruction counts by opcode
 into ``DIR``. Needs one CUDA device and ``nvcc``; imports nothing of JAX.
@@ -41,8 +46,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (GAMMA_CAP, GAMMA_DOSE_TA, GAMMA_DTA, GAMMA_THRESH,  # noqa: E402
-                        card_line, gamma_pairs)
-from pylinac_tpu_torch.ops import _build, gamma2d, median  # noqa: E402
+                        card_line, ccl_mask, flood_entries, gamma_pairs, recording_inputs,
+                        write_session)
+from pylinac_tpu_torch.ops import _build, flood, gamma2d, median  # noqa: E402
 
 
 def build(source: Path, out_dir: Path) -> Path:
@@ -99,6 +105,54 @@ def gamma_fn(lib: Path, source: Path):
             raise RuntimeError(f"gamma launch failed: {err}")
         return out
     return run
+
+
+def flood_fn(lib: Path, source: Path, entry: str):
+    """A launcher of an entry of either C interface of ``flood.cu``: with a
+    zeroed state buffer (one cooperative launch) or without one (the
+    earlier pack, flood and expand launches)."""
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    has_state = "void* state" in source.read_text()
+    fn.argtypes = ([ctypes.c_void_p] * (5 if has_state else 4) + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    centroid = entry == "filled_centroid_f32"
+
+    def run(masks: torch.Tensor) -> torch.Tensor:
+        b, h, w = masks.shape
+        bg = torch.empty((b, h, -(-w // 32)), dtype=torch.int32, device=masks.device)
+        scratch = [bg, torch.empty_like(bg)]
+        if has_state:
+            scratch.append(torch.zeros(1 + (3 * b if centroid else 0), dtype=torch.int64,
+                                       device=masks.device))
+        out = (torch.zeros((b, 2), dtype=torch.float32, device=masks.device) if centroid
+               else torch.empty(masks.shape, dtype=torch.int32, device=masks.device))
+        err = fn(masks.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in scratch), b, h, w,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"flood launch failed: {err}")
+        return out
+    return run
+
+
+def wl_field_masks() -> dict[str, torch.Tensor]:
+    """The field masks that the bench's WL session hands the flood kernel:
+    the batch under ``PYLINAC_TPU_FLOOD=xla`` and ``WinstonLutz2D`` on
+    frame 0 (the port's kernels build and run them)."""
+    from pylinac_tpu_torch import WinstonLutz, WinstonLutz2D
+    from pylinac_tpu_torch.winston_lutz import flood_selector
+
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = WinstonLutz(write_session(f"{tmp}/wl"))
+        with flood_selector("xla"), recording_inputs(flood_entries()) as seen:
+            batch.analyze(device="cuda")
+        with flood_selector(""), recording_inputs(flood_entries()) as single:
+            WinstonLutz2D(str(batch.images[0].path)).analyze(device="cuda")
+    out = {}
+    for what, records in (("xla batch", seen), ("WinstonLutz2D", single)):
+        masks = max((m for mode, m, *_ in records if mode == "flood"), key=torch.Tensor.numel)
+        out[what] = masks if masks.dim() == 3 else masks[None]
+    return out
 
 
 def time_ms(fn, n: int) -> float:
@@ -165,7 +219,7 @@ def main() -> int:
         return 1
     sources = {(ver, name): root / "pylinac_tpu_torch" / "csrc" / f"{name}.cu"
                for ver, root in (("old", args.old_root), ("new", ROOT))
-               for name in ("median3x3", "gamma2d")}
+               for name in ("median3x3", "gamma2d", "flood")}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {key: build(src, Path(tmp) / key[0]) for key, src in sources.items()}
         results = []
@@ -197,6 +251,18 @@ def main() -> int:
             if not same(gam["new"](ref_n, eval_p, *kw),
                         gamma2d.gamma2d_reference(ref_n, eval_p, *kw)):
                 raise RuntimeError("the new gamma differs from its twin")
+        cases = wl_field_masks()
+        cases["spiral"] = torch.from_numpy(ccl_mask("spiral", (1, 1280, 1280),
+                                                    np.random.default_rng(0))).cuda()
+        for entry, twin in (("flood_from_border_i32", flood.flood_from_border_reference),
+                            ("filled_centroid_f32", flood.filled_centroid_reference)):
+            fl = {ver: flood_fn(libs[(ver, "flood")], sources[(ver, "flood")], entry)
+                  for ver in ("old", "new")}
+            for what, masks in cases.items():
+                results.append(ab(f"flood {entry} on the {what} masks {tuple(masks.shape)}",
+                                  lambda: fl["old"](masks), lambda: fl["new"](masks), 20))
+                if not torch.equal(fl["new"](masks), twin(masks)):
+                    raise RuntimeError(f"the new flood {entry} differs from its twin")
         report = {"card": card, "device": torch.cuda.get_device_name(0), "results": results}
         if args.out:
             args.out.mkdir(parents=True, exist_ok=True)

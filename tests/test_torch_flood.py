@@ -197,6 +197,14 @@ def test_rejects_bad_inputs(fn):
         flood.flood_from_border(torch.zeros(1, 4, 4, dtype=torch.bool))
 
 
+def test_flood_rounds_takes_a_cuda_tensor():
+    """The round count measures the kernel, which a CPU tensor never runs."""
+    with pytest.raises(ValueError):
+        flood.flood_rounds(torch.from_numpy(MASKS["ring+noise"][None]))
+    with pytest.raises(TypeError):
+        flood.flood_rounds(torch.zeros(1, 4, 4))
+
+
 def test_cpu_takes_the_twin_and_counts_no_launch():
     before = (flood.flood_from_border_batch.launches, flood.filled_centroid_batch.launches)
     masks = torch.from_numpy(MASKS["ring+noise"][None])
@@ -208,9 +216,166 @@ def test_cpu_takes_the_twin_and_counts_no_launch():
             flood.filled_centroid_batch.launches) == before
 
 
+_U32 = np.uint32(0xFFFFFFFF)
+
+
+def _fill_east(gen: np.ndarray, prop: np.ndarray) -> np.ndarray:
+    """``csrc/flood.cu:fill_east`` on uint32 arrays."""
+    for s in (1, 2, 4, 8, 16):
+        gen = gen | (prop & (gen << np.uint32(s)))
+        prop = prop & (prop << np.uint32(s))
+    return gen
+
+
+def _fill_west(gen: np.ndarray, prop: np.ndarray) -> np.ndarray:
+    for s in (1, 2, 4, 8, 16):
+        gen = gen | (prop & (gen >> np.uint32(s)))
+        prop = prop & (prop >> np.uint32(s))
+    return gen
+
+
+def _halo(plane, y0, k0, nr, nw):
+    """The bits that flow into the tile at (y0, k0) of nr rows and nw words:
+    bit 31 of the word left of each row, bit 0 of the word right of it, the
+    words above and below each word column; 0 where the image ends."""
+    h, words = plane.shape
+    rows, cols = slice(y0, y0 + nr), slice(k0, k0 + nw)
+    zero_rows, zero_cols = np.zeros(nr, np.uint32), np.zeros(nw, np.uint32)
+    return (plane[rows, k0 - 1] >> np.uint32(31) if k0 > 0 else zero_rows,
+            plane[rows, k0 + nw] & np.uint32(1) if k0 + nw < words else zero_rows,
+            plane[y0 - 1, cols] if y0 > 0 else zero_cols,
+            plane[y0 + nr, cols] if y0 + nr < h else zero_cols)
+
+
+def _close_tile(bg, reached, halo_from, y0, k0, tile_rows, tile_words):
+    """One round's work on a tile, as ``csrc/flood.cu:close_tile`` does it:
+    take the halo from ``halo_from``, alternate a row pass and a column pass
+    on the tile until a pass changes nothing, write the tile back into
+    ``reached``; while the halo read again from ``halo_from`` has grown,
+    close and write back again. Returns whether a word changed."""
+    rows, cols = slice(y0, y0 + tile_rows), slice(k0, k0 + tile_words)
+    b, r = bg[rows, cols], reached[rows, cols].copy()
+    nr, nw = b.shape
+    first = r.copy()
+    halo = _halo(halo_from, y0, k0, nr, nw)
+    while True:
+        west, east, top, bottom = halo
+        for n in range(10**6):
+            before = r.copy()
+            if n % 2 == 0:  # row pass: east from the west bit, then west from the east bit
+                carry = west
+                for k in range(nw):
+                    r[:, k] = _fill_east(r[:, k] | (carry & b[:, k]), b[:, k])
+                    carry = r[:, k] >> np.uint32(31)
+                carry = east
+                for k in reversed(range(nw)):
+                    r[:, k] = _fill_west(r[:, k] | ((carry << np.uint32(31)) & b[:, k]), b[:, k])
+                    carry = r[:, k] & np.uint32(1)
+            else:  # column pass: down from the top word, then up from the bottom one
+                c = top
+                for y in range(nr):
+                    r[y] |= b[y] & c
+                    c = r[y]
+                c = bottom
+                for y in reversed(range(nr)):
+                    r[y] |= b[y] & c
+                    c = r[y]
+            if n > 0 and np.array_equal(r, before):
+                break
+        reached[rows, cols] = r
+        fresh = _halo(halo_from, y0, k0, nr, nw)
+        if all(np.array_equal(a, f) for a, f in zip(halo, fresh)):
+            return not np.array_equal(r, first)
+        halo = fresh
+
+
+def _tiled_rounds(mask: np.ndarray, rng, live: bool, tile_rows: int = 128,
+                  tile_words: int = 4) -> tuple[np.ndarray, int]:
+    """numpy model of ``csrc/flood.cu``'s fixpoint: bit planes (bit i of
+    word k = column 32k + i), word-aligned tiles of tile_rows x tile_words
+    words, reached seeded with the border background, then rounds in which
+    every tile is closed given its halo, until a round changes no word. The
+    tiles are visited in a random order each round, as the card's blocks
+    race; the halo is read ``live`` (every write of the round so far seen,
+    and the tile closed again while its halo grows, as the kernel does) or
+    from the round's start (every write of the round missed), the two ends
+    of what a block can see. Returns the int32 flood and the number of
+    rounds, the closing one included."""
+    h, w = mask.shape
+    words = -(-w // 32)
+    padded = np.zeros((h, words * 32), bool)
+    padded[:, :w] = ~mask
+    bits = padded.reshape(h, words, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)
+    bg = bits.sum(axis=-1).astype(np.uint32)
+    seed = np.zeros_like(bg)
+    seed[[0, h - 1]] = _U32
+    seed[:, 0] |= np.uint32(1)
+    seed[:, words - 1] |= np.uint32(1 << ((w - 1) % 32))
+    reached = bg & seed
+    tiles = [(y0, k0) for y0 in range(0, h, tile_rows) for k0 in range(0, words, tile_words)]
+    for rounds in range(1, 10**6):
+        halo_from = reached if live else reached.copy()
+        changed = False
+        for i in rng.permutation(len(tiles)):
+            changed |= _close_tile(bg, reached, halo_from, *tiles[i], tile_rows, tile_words)
+        if not changed:
+            break
+    out = (reached[..., None] >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    return out.reshape(h, words * 32)[:, :w].astype(np.int32), rounds
+
+
+_PALLAS_FLOODS: dict[str, np.ndarray] = {}
+
+
+def _ragged_masks() -> dict[str, np.ndarray]:
+    """Speckle at heights on each side of the kernel's 128-row tile and
+    widths on each side of a word and of the 4-word tile, and single rows
+    and columns."""
+    rng = np.random.default_rng(3)
+    shapes = [(h, w) for h in (127, 129) for w in (31, 33, 129)] + [(1, 33), (1, 129), (127, 1),
+                                                                    (129, 1)]
+    return {f"{h}x{w}": rng.random((h, w)) > 0.6 for h, w in shapes}
+
+
+MODEL_MASKS = {**MASKS, "spiral 200x256, 8 turns": _spiral(200, 256, 8.0), **_ragged_masks()}
+
+
+@pytest.mark.parametrize("tile", [(128, 4), (8, 1)], ids=["kernel tile", "8x32 tile"])
+@pytest.mark.parametrize("live", [True, False], ids=["live halo", "round-start halo"])
+@pytest.mark.parametrize("name", list(MODEL_MASKS))
+def test_tiled_rounds_reach_the_fixpoint(jref, name, live, tile):
+    """The kernel's termination rule (stop after the first round that
+    changes no word, whatever halos the blocks read) gives the twin's flood
+    and the interpret-mode Pallas kernel's, in any visiting order. The 8 x
+    32 tile gives the small masks many tiles."""
+    mask = MODEL_MASKS[name]
+    rng = np.random.default_rng(abs(hash((name, live, tile))) % 2**32)
+    got, rounds = _tiled_rounds(mask, rng, live, *tile)
+    want = flood.flood_from_border_reference(torch.from_numpy(mask[None]))[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    if name not in _PALLAS_FLOODS:
+        _PALLAS_FLOODS[name] = _pallas_flood(jref, mask)
+    np.testing.assert_array_equal(got, _PALLAS_FLOODS[name])
+    assert rounds >= 1
+
+
+def test_tiled_rounds_cross_tiles_on_the_spiral():
+    """The spiral's background winds through many tiles, so it takes more
+    than the one round per tile ring that a convex field needs: the model
+    counts them."""
+    mask = _spiral(200, 256, 8.0)
+    _, rounds = _tiled_rounds(mask, np.random.default_rng(0), False, 8, 1)
+    _, kernel_tile_rounds = _tiled_rounds(mask, np.random.default_rng(0), False)
+    field = np.zeros((256, 256), bool)
+    field[100:150, 100:150] = True
+    _, convex_rounds = _tiled_rounds(field, np.random.default_rng(0), False, 8, 1)
+    assert rounds > convex_rounds > 1 and kernel_tile_rounds >= 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 2, 3), (3, 37, 129), (2, 64, 128),
-                                   (1, 1280, 1280), (2, 134, 134)])
+                                   (1, 1280, 1280), (2, 134, 134), (1, 127, 129), (2, 128, 128),
+                                   (1, 129, 4097), (3, 257, 31)])
 def test_kernel_matches_twin_on_card(cuda, shape):
     rng = np.random.default_rng(2)
     b, h, w = shape
@@ -224,9 +389,14 @@ def test_kernel_matches_twin_on_card(cuda, shape):
         torch.cuda.synchronize()
         assert flood.flood_from_border_batch.launches == before + 1
         assert torch.equal(got, flood.flood_from_border_reference(masks))
+        # the kernel's blocks race on their halos; the output must not
+        assert all(torch.equal(flood.flood_from_border_batch(masks), got) for _ in range(10))
+        out, rounds = flood.flood_rounds(masks)
+        assert torch.equal(out, got) and rounds >= 1
         got = flood.filled_centroid_batch(masks)
         torch.cuda.synchronize()
         assert torch.equal(got, flood.filled_centroid_reference(masks))
+        assert all(torch.equal(flood.filled_centroid_batch(masks), got) for _ in range(10))
 
 
 @pytest.mark.cuda
