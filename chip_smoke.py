@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once) and runs the four ported paths:
+``nvcc`` per source, all at once) and runs the five ported paths:
 
 - picket fence: checks the 3x3-median kernel bit for bit against its plain
   PyTorch twin (the path's shape and ragged ones), runs
@@ -51,7 +51,20 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   maps against a float32 numpy oracle (the bench's) and the CPU run, then
   times the batch with and without the fetch, profiles it, times its
   stages between CUDA events, and times the kernel against its twin on
-  both of the run's inputs.
+  both of the run's inputs;
+- FieldAnalysis: writes the bench's four AS1000 open fields, runs
+  ``FieldAnalysisBatch`` on the 64 frames made of them on the card under
+  the FWHM, inflection-derivative and Hill edges and the VARIAN, ELEKTA and
+  SIEMENS protocols, each held to the CPU run of the four files, frames
+  0-3 to a copy of the bench's numpy/scipy oracle and to the drawn field
+  sizes; reruns the batch with ``filter=3`` (the median kernel counted,
+  held bit-equal to its twin on the stack it was given, and timed there);
+  holds the single-image ``FieldAnalysis`` (frame 0 through the filter, an
+  asymmetric frame, an FFF frame under every edge) to the batch, and the
+  full-frame ``field_analysis_batch`` to the strip route; then times each
+  edge and the full-frame entry (every warm run's results equal to the
+  first's), profiles the derivative and Hill batches and splits a
+  derivative run's host time with cProfile.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
@@ -181,16 +194,20 @@ def check_kernel(median) -> float:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for shape in KERNEL_SHAPES:
-        # integer-valued floats: many ties, as in uint16 frames
-        x = torch.randint(0, 4096, shape, generator=gen, device="cuda").to(torch.float32)
-        got = median.median3x3(x)
-        want = median.median3x3_reference(x)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        if not torch.equal(got, want):
-            raise RuntimeError(f"median3x3 differs from its twin at {shape}: max |err| {err}")
-        print(f"kernel check {shape}: bit-equal to twin")
+        # integer-valued floats: many ties, as in uint16 frames; and int32
+        # over its whole range, past where float32 is exact
+        for x in (torch.randint(0, 4096, shape, generator=gen, device="cuda").to(torch.float32),
+                  torch.randint(-2**31, 2**31, shape, generator=gen, device="cuda",
+                                dtype=torch.int64).to(torch.int32)):
+            got = median.median3x3(x)
+            want = median.median3x3_reference(x)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"median3x3 differs from its twin at {shape} {x.dtype}: "
+                                   f"max |err| {err}")
+        print(f"kernel check {shape}: float32 and int32 bit-equal to twin")
     for bad, what in ((torch.zeros(4, 4, dtype=torch.float64, device="cuda"), "float64"),
                       (torch.zeros(4, 6, device="cuda")[:, ::2], "non-contiguous")):
         try:
@@ -1025,7 +1042,9 @@ def device_profile(card: str, what: str, run, default_ms: float, top: int = 20) 
     busy = sum(ms for ms, _ in tables["kernel"].values())
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    print(f"[{card}] {what} profile: profiled run wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+    n_kernels = sum(n for _, n in tables["kernel"].values())
+    print(f"[{card}] {what} profile: {n_kernels} kernel launches, "
+          f"profiled run wall {wall:.3f} ms, device busy {busy:.3f} ms, "
           f"idle share {100 * (1 - busy / wall):.1f} % of the profiled wall and "
           f"{100 * (1 - busy / default_ms):.1f} % of the unprofiled median {default_ms:.3f} ms")
     for kind, rows in tables.items():
@@ -1537,6 +1556,430 @@ def gamma_phase(card: str, gamma2d) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+# the bench's FieldAnalysis (bench.py:214-240): 64 AS1000 frames at SID 1000
+# from 4 files, field (100 + 5 i) x 100 mm with flattening-filter horns,
+# blurred by sigma 1 mm, analysed with inflection-derivative edges
+FA_FRAMES, FA_FILES = 64, 4
+FA_EDGES = ("Inflection Derivative", "FWHM", "Inflection Hill")
+FA_PROTOCOLS = ("VARIAN", "ELEKTA", "SIEMENS")
+FA_TRUTH_TOL = 0.5        # mm, against the simulated field (test_field_analysis_batch.py:111)
+# the single image against the batch's frame 0: the bars of
+# tests/models/test_field_analysis_batch.py:60-100
+FA_SINGLE_MM, FA_SINGLE_TOP_MM, FA_SINGLE_BC_PX = 0.01, 2.0, 0.05
+FA_SINGLE_SLOPE, FA_SINGLE_ROI_REL = 0.02, 1e-4
+# a mirror-symmetric field's point-difference symmetry is a tie between two
+# mirror points of opposite sign (|value| about 6e-4 % on the bench's
+# frames), so its sign is asserted only above this magnitude; the
+# asymmetric frame's symmetries are far above it
+FA_SYM_TIE = 0.01
+# the full-frame entry against the strip route: the card-vs-CPU bars, and
+# central-ROI statistics within 1e-6 of the host's float64 ones (relative;
+# absolute for a zero std). Measured on the CPU at the bench's frames: 0.
+FA_ROI_REL = 1e-6
+
+
+def make_fields(tmp: str) -> list[str]:
+    """The bench's four AS1000 open-field DICOMs (bench.py:223-231)."""
+    from pylinac_tpu_torch.imggen.layers import FilteredFieldLayer, GaussianFilterLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1000Image
+
+    paths = []
+    for i in range(FA_FILES):
+        path = f"{tmp}/f{i}.dcm"
+        sim = AS1000Image(sid=1000)
+        sim.add_layer(FilteredFieldLayer(field_size_mm=(100 + 5 * i, 100)))
+        sim.add_layer(GaussianFilterLayer(sigma_mm=1))
+        sim.generate_dicom(path)
+        paths.append(path)
+    return paths
+
+
+def _scipy_fwxm_ips(v: np.ndarray, rel_height: float = 0.5):
+    """The most prominent peak's interpolated crossings (scipy peak_widths);
+    a copy of ``bench.py:57``."""
+    import scipy.signal as sps
+
+    peaks, props = sps.find_peaks(v, prominence=0.0)
+    if len(peaks) == 0:
+        return np.nan, np.nan
+    best = int(np.argmax(props["prominences"]))
+    w = sps.peak_widths(v, peaks[best:best + 1], rel_height=rel_height)
+    return float(w[2][0]), float(w[3][0])
+
+
+def _resample_linear_np(v: np.ndarray, samples: int):
+    """The BMF half-pixel linear resample; a copy of ``bench.py:67``."""
+    n = len(v)
+    f = samples / n
+    offset = 0.5 - 1.0 / (2.0 * f)
+    new_x = np.linspace(-offset, n - 1 + offset, samples)
+    inner = np.interp(new_x, np.arange(n), v)
+    inner[new_x < 0] = v[0] + (new_x[new_x < 0]) * (v[1] - v[0])
+    over = new_x > n - 1
+    inner[over] = v[-1] + (new_x[over] - (n - 1)) * (v[-1] - v[-2])
+    return inner, new_x
+
+
+def fa_oracle(arr: np.ndarray, dpmm: float) -> dict:
+    """The bench's numpy/scipy FieldAnalysis oracle (``bench.py:245-305``,
+    inflection-derivative edges): field sizes, flatness and symmetry of
+    one frame."""
+    import scipy.ndimage as ndi
+    import scipy.signal as sps
+
+    H, W = arr.shape
+
+    def beam_center_ratio(sums):
+        v, _ = _resample_linear_np(sums, int(round(len(sums) * 10)))
+        v = v - v.min()
+        lo, hi = _scipy_fwxm_ips(v, 0.5)
+        n = len(sums)
+        f = len(v) / n
+        off = 0.5 - 1 / (2 * f)
+        dx = (n - 1 + 2 * off) / (len(v) - 1)
+        return (-off + dx * (lo + hi) / 2) / n
+
+    vp = beam_center_ratio(arr.sum(axis=0))
+    hp = beam_center_ratio(arr.sum(axis=1))
+    lv = max(int(round(W * vp)), 0)
+    uh = max(int(round(H * hp)), 0)
+    out = {}
+    for name, vals in (("v", arr[:, lv:lv + 1].mean(axis=1)), ("h", arr[uh:uh + 1, :].mean(axis=0))):
+        samples = int(round(len(vals) / (dpmm * 0.1)))
+        v, new_x = _resample_linear_np(vals, samples)
+        v = v - v.min()
+        d1 = np.gradient(ndi.gaussian_filter1d(v, 0.003 * samples))
+        sep = max(int(0.05 * samples), 1)
+        pk_l, _ = sps.find_peaks(d1, height=d1.min() + 0.8 * np.ptp(d1), distance=sep)
+        pk_r, _ = sps.find_peaks(-d1, height=(-d1).min() + 0.8 * np.ptp(-d1), distance=sep)
+        left, right = new_x[pk_l[0]], new_x[pk_r[-1]]
+        center = (left + right) / 2
+        v = v / np.interp(round(center), new_x, v)
+        width = right - left
+        m = (new_x >= center - 0.8 * width / 2) & (new_x <= center + 0.8 * width / 2)
+        fv = v[m]
+        out[f"{name}_flat"] = 100 * abs(fv.max() - fv.min()) / (fv.max() + fv.min())
+        sym = 100 * (fv - fv[::-1]) / np.interp(round(center), new_x, v)
+        out[f"{name}_sym"] = sym[int(np.argmax(np.abs(sym)))]
+        out[f"{name}_size"] = width / dpmm
+    return out
+
+
+def fa_texts(results) -> list[dict]:
+    """FieldResults as JSON-loaded dicts (pairs as lists)."""
+    return [json.loads(r.model_dump_json()) for r in results]
+
+
+def fa_tol(path: str, a: float) -> float:
+    """FieldAnalysis's bars: percentages (protocol results, slopes and
+    penumbra gradients) within PCT_TOL, indices within PX_TOL px, mm within
+    MM_TOL; the central ROI is host statistics and must be equal."""
+    if "central_roi" in path:
+        return 0.0
+    if "protocol_results" in path or "percent" in path:
+        return PCT_TOL
+    if "index" in path:
+        return PX_TOL
+    return MM_TOL
+
+
+def check_fa_bench(results, batch, what: str, oracle: dict) -> None:
+    """Frames 0-3 against the bench's oracle (field sizes within MM_TOL) and
+    the simulated fields (within FA_TRUTH_TOL of the field the simulator
+    drew: its size rounded to an even number of pixels). ``oracle`` keeps
+    the oracle's answers by frame content."""
+    from pylinac_tpu_torch.imggen.layers import even_round
+    from pylinac_tpu_torch.imggen.simulators import AS1000Image
+
+    px = AS1000Image.pixel_size
+    dpmm = float(batch.images[0].dpmm)
+    worst = 0.0
+    for i in range(FA_FILES):
+        arr = np.asarray(batch.images[i].array, np.float32)
+        key = arr.tobytes()
+        if key not in oracle:
+            oracle[key] = fa_oracle(arr, dpmm)
+        base = oracle[key]
+        r = results[i]
+        for got, want, truth, name in (
+                (r.field_size_vertical_mm, base["v_size"], even_round((100 + 5 * i) / px) * px,
+                 "vertical"),
+                (r.field_size_horizontal_mm, base["h_size"], even_round(100 / px) * px,
+                 "horizontal")):
+            worst = max(worst, abs(got - want))
+            if abs(got - want) > MM_TOL:
+                raise RuntimeError(f"{what} frame {i}: {name} field size {got} mm, bench "
+                                   f"oracle {want} mm")
+            if abs(got - truth) > FA_TRUTH_TOL:
+                raise RuntimeError(f"{what} frame {i}: {name} field size {got} mm, field {truth}")
+    print(f"{what}: frames 0-{FA_FILES - 1} field sizes within {worst:.2e} mm of the bench's "
+          f"oracle and within {FA_TRUTH_TOL} mm of the simulated fields")
+
+
+def check_fa_single(single, frame, what: str) -> None:
+    """A single-image result against the batch's frame at the bars of
+    ``tests/models/test_field_analysis_batch.py``, with the sign of each
+    symmetry equal where it is not a mirror tie (FA_SYM_TIE)."""
+    mm_fields = [
+        "top_penumbra_mm", "bottom_penumbra_mm", "left_penumbra_mm", "right_penumbra_mm",
+        "field_size_vertical_mm", "field_size_horizontal_mm", "beam_center_to_top_mm",
+        "beam_center_to_bottom_mm", "beam_center_to_left_mm", "beam_center_to_right_mm",
+        "cax_to_top_mm", "cax_to_bottom_mm", "cax_to_left_mm", "cax_to_right_mm"]
+    checks = [(f, FA_SINGLE_MM) for f in mm_fields]
+    checks += [(f, FA_SINGLE_TOP_MM) for f in ("top_vertical_distance_from_cax_mm",
+                                               "top_horizontal_distance_from_cax_mm")]
+    checks += [(f, FA_SINGLE_SLOPE) for f in ("left_slope_percent_mm", "top_slope_percent_mm")]
+    for name, tol in checks:
+        a, b = getattr(single, name), getattr(frame, name)
+        if abs(a - b) > tol:
+            raise RuntimeError(f"{what}: {name} {a} vs the batch's {b} (bar {tol})")
+    for name, tol in (("beam_center_index_x_y", FA_SINGLE_BC_PX),
+                      ("geometric_center_index_x_y", PX_TOL)):
+        if max(abs(x - y) for x, y in zip(getattr(single, name), getattr(frame, name))) > tol:
+            raise RuntimeError(f"{what}: {name} {getattr(single, name)} vs "
+                               f"{getattr(frame, name)}")
+    for key, a in single.protocol_results.items():
+        b = frame.protocol_results[key]
+        tie = max(abs(a), abs(b)) <= FA_SYM_TIE
+        if abs(a - b) > PCT_TOL or (key.startswith("symmetry") and not tie
+                                    and np.sign(a) != np.sign(b)):
+            raise RuntimeError(f"{what}: {key} {a} vs the batch's {b}")
+    if abs(single.central_roi_mean / frame.central_roi_mean - 1) > FA_SINGLE_ROI_REL:
+        raise RuntimeError(f"{what}: central ROI mean {single.central_roi_mean} vs "
+                           f"{frame.central_roi_mean}")
+
+
+def compare_full_frame(full: dict, strips: dict) -> float:
+    """The full-frame entry's fetched outputs against the strip route's:
+    each profile scalar within the card-vs-CPU bars by its unit, the central
+    ROI statistics within FA_ROI_REL. Returns the largest mm difference."""
+    worst = 0.0
+    for side in ("vert", "horiz"):
+        for key, want in strips[side].items():
+            got = full[side][key]
+            tol = (PX_TOL if key.endswith("_idx") else
+                   PCT_TOL if key in ("flatness", "symmetry") or "pct" in key else MM_TOL)
+            diff = float(np.abs(got - want).max())
+            if diff > tol:
+                raise RuntimeError(f"full-frame entry: {side} {key} differs from the strip "
+                                   f"route by {diff} (bar {tol})")
+            if key.endswith("_mm"):
+                worst = max(worst, diff)
+    for key, want in strips["central_roi"].items():
+        got = full["central_roi"][key]
+        if np.any(np.abs(got - want) > FA_ROI_REL * np.maximum(np.abs(want), 1.0)):
+            raise RuntimeError(f"full-frame entry: central ROI {key} {got} vs {want}")
+    return worst
+
+
+def fa_phase(card: str, median) -> tuple[int, float]:
+    """The FieldAnalysis path: the bench's 64 frames through
+    ``FieldAnalysisBatch`` on the card under each edge method and protocol
+    (the bench's oracle, the simulated fields, the CPU run), the filter
+    route with the median kernel counted and held to its twin on the stack
+    it was given, the full-frame entry against the strip route, the
+    single-image classes, repeated runs equal, then frames/s, a profile and
+    a cProfile split. Returns the filter route's median3x3 launches and the
+    kernel's largest error against its twin there."""
+    from pylinac_tpu_torch import FieldAnalysis, FieldAnalysisBatch, Protocol
+    from pylinac_tpu_torch.core.array_utils import median3x3_array
+    from pylinac_tpu_torch.field_analysis import _fetch
+    from pylinac_tpu_torch.imggen.layers import (FilteredFieldLayer, FilterFreeFieldLayer,
+                                                 GaussianFilterLayer, SlopeLayer)
+    from pylinac_tpu_torch.imggen.simulators import AS1000Image
+    from pylinac_tpu_torch.ops import field_pipeline
+    from pylinac_tpu_torch.ops import filters as tfilters
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fa_")
+    try:
+        t0 = time.perf_counter()
+        paths = make_fields(tmp)
+        frames = [paths[i % FA_FILES] for i in range(FA_FRAMES)]
+        batch = FieldAnalysisBatch(frames, device="cuda")
+        print(f"inputs: {FA_FRAMES} FA frames {batch.images[0].shape} "
+              f"{batch.images[0].array.dtype}, dpmm {batch.images[0].dpmm:.4f}, in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # every edge method under every protocol on the card, each held to
+        # the CPU run of the four files (frame i is file i % 4; the batch's
+        # rows are independent, so the CPU's four rows are its 64)
+        cpu = FieldAnalysisBatch(paths, device="cpu")
+        oracle = {}
+        for edge in FA_EDGES:
+            for name in FA_PROTOCOLS:
+                kw = dict(protocol=getattr(Protocol, name), edge_detection_method=edge)
+                batch.analyze(device="cuda", **kw)
+                results = batch.results_data()
+                cpu.analyze(device="cpu", **kw)
+                want = fa_texts(cpu.results_data())
+                worst = compare_tree([want[i % FA_FILES] for i in range(FA_FRAMES)],
+                                     fa_texts(results), f"FA {edge} {name} CPU vs card", fa_tol)
+                print(f"FA {edge}, {name}: card vs CPU on {FA_FRAMES} frames agree (max "
+                      f"difference {worst:.2e})")
+                if edge == "Inflection Derivative":
+                    check_fa_bench(results, batch, f"FA {edge} {name}", oracle)
+
+        # the filter route: one median3x3 launch on the stacked frames
+        median.median3x3.launches = 0
+        with recording_inputs([(tfilters, "median3x3", "median")]) as seen:
+            filtered = FieldAnalysisBatch(frames, filter=3, device="cuda")
+            filtered.analyze(edge_detection_method="Inflection Derivative")
+            filtered_results = filtered.results_data()
+        torch.cuda.synchronize()
+        launches = median.median3x3.launches
+        if launches < 1:
+            raise RuntimeError("the FA filter route launched no median3x3 kernel")
+        check_counts(seen, {"median": launches}, "FA filter run")
+        err = check_path_masks({"median": (median.median3x3, median.median3x3_reference)},
+                               seen, "FA filter run")["median"]
+        check_fa_bench(filtered_results, filtered, "FA filter=3", oracle)
+        stack = seen[0][1]
+        print(f"FA filter route: median3x3.launches = {launches} on {tuple(stack.shape)}")
+        ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference, stack, 50, 5)
+        bound_ms, bound_by = bound(8 * stack.numel(), 21 * stack.numel(), F32_INSTR_PER_S)
+        print(f"[{card}] median3x3 at {tuple(stack.shape)}: kernel {ms:.4f} ms, plain twin "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+        # an int32 image (frame 0 times 30000, past where float32 is exact)
+        # takes the kernel too, in int32
+        wide = np.asarray(batch.images[0].array).astype(np.int32) * 30000
+        before = median.median3x3.launches
+        got = median3x3_array(wide, "cuda")
+        if median.median3x3.launches != before + 1:
+            raise RuntimeError("the int32 filter route launched no median3x3 kernel")
+        if not np.array_equal(got, median3x3_array(wide, "cpu")):
+            raise RuntimeError("the int32 filter route differs on the card and the CPU")
+        print(f"FA filter route, int32 image {wide.shape}: one median3x3 launch, equal to the CPU")
+
+        # the single-image classes: frame 0 through the filter route, an
+        # asymmetric frame, and an FFF frame under every edge method
+        single = FieldAnalysis(paths[0], filter=3, device="cuda")
+        single.analyze(edge_detection_method="Inflection Derivative")
+        check_fa_single(single.results_data(), filtered_results[0],
+                        "FieldAnalysis(filter=3) on frame 0")
+        extra = {"asymmetric": [FilteredFieldLayer(field_size_mm=(110, 90), cax_offset_mm=(3, -2)),
+                                GaussianFilterLayer(sigma_mm=1), SlopeLayer(0.05, -0.03)],
+                 "fff": [FilterFreeFieldLayer(field_size_mm=(100, 100)),
+                         GaussianFilterLayer(sigma_mm=1)]}
+        for name, layers in extra.items():
+            sim = AS1000Image(sid=1000)
+            for layer in layers:
+                sim.add_layer(layer)
+            sim.generate_dicom(f"{tmp}/{name}.dcm")
+        asym = f"{tmp}/asymmetric.dcm"
+        one = FieldAnalysis(asym)
+        one.analyze(edge_detection_method="Inflection Derivative")
+        r = one.results_data()
+        asym_batch = FieldAnalysisBatch([asym], device="cuda")
+        asym_batch.analyze(edge_detection_method="Inflection Derivative")
+        check_fa_single(r, asym_batch.results_data()[0], "the asymmetric frame")
+        if min(abs(v) for k, v in r.protocol_results.items() if k.startswith("symmetry")) \
+                <= FA_SYM_TIE:
+            raise RuntimeError(f"the asymmetric frame is symmetric: {r.protocol_results}")
+        fff = f"{tmp}/fff.dcm"
+        for edge in FA_EDGES:
+            one = FieldAnalysis(fff)
+            one.analyze(is_FFF=True, edge_detection_method=edge)
+            r = one.results_data()
+            fff_batch = FieldAnalysisBatch([fff], device="cuda")
+            fff_batch.analyze(is_FFF=True, edge_detection_method=edge)
+            b = fff_batch.results_data()[0]
+            check_fa_single(r, b, f"FFF frame, {edge}")
+            for got in (r, b):
+                if (abs(got.field_size_vertical_mm - 100) > 1.0
+                        or abs(got.top_vertical_distance_from_cax_mm) > 1.0
+                        or abs(got.top_horizontal_distance_from_cax_mm) > 1.0):
+                    raise RuntimeError(f"FFF frame, {edge}: field {got.field_size_vertical_mm} "
+                                       f"mm, top {got.top_position_index_x_y}")
+            for name in ("top_vertical_distance_from_cax_mm",
+                         "top_horizontal_distance_from_cax_mm"):
+                if abs(getattr(r, name) - getattr(b, name)) > MM_TOL:
+                    raise RuntimeError(f"FFF frame, {edge}: single {name} {getattr(r, name)} "
+                                       f"vs batch {getattr(b, name)}")
+        print(f"FA single images inside the batch bars: FieldAnalysis(filter=3) on frame 0 "
+              f"(symmetries {single.results_data().protocol_results}, mirror ties below "
+              f"{FA_SYM_TIE} %), the asymmetric frame (symmetry signs equal), the FFF frame "
+              f"under {', '.join(FA_EDGES)} (field within 1 mm of 100, top within 1 mm of the "
+              f"CAX, single and batch tops within {MM_TOL} mm)")
+
+        # the full-frame entry against the strip route, on the card
+        dpmm = float(batch.images[0].dpmm)
+        H, W = batch.images[0].shape
+        stack_u16 = np.stack([np.asarray(im.array) for im in batch.images])
+        params = field_pipeline.FAParams.from_vector(
+            [dpmm, 0.8, 0.2, 20, 80, 0.5, 0.5, 0, 0], "cuda")
+        static = dict(samples_v=int(round(H / (dpmm * 0.1))),
+                      samples_h=int(round(W / (dpmm * 0.1))), centering="Beam center",
+                      normalization="Beam center", flatness="difference",
+                      symmetry="point difference")
+
+        def full_frame(edge: str) -> dict:
+            out = field_pipeline.field_analysis_batch(stack_u16, params, edge=edge,
+                                                      device="cuda", **static)
+            fetched = _fetch({k: out[k] for k in ("vert", "horiz", "central_roi")})
+            torch.cuda.synchronize()
+            return fetched
+
+        for edge in FA_EDGES:
+            batch.analyze(edge_detection_method=edge, device="cuda")
+            worst = compare_full_frame(full_frame(edge), batch._out)
+            print(f"FA full-frame entry, {edge}: {FA_FRAMES} frames within {worst:.2e} mm of "
+                  f"the strip route (bars {MM_TOL} mm, {PCT_TOL} %, {PX_TOL} px, ROI "
+                  f"{FA_ROI_REL} relative)")
+
+        # frames/s, every warm run's results equal to the first's
+        walls = {}
+        for edge in FA_EDGES:
+            texts, times = [], []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                batch.analyze(edge_detection_method=edge, device="cuda")
+                results = batch.results_data()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                texts.append(results_text(results))
+            check_same_texts(texts, f"FA {edge} warm runs")
+            walls[edge] = statistics.median(times[1:])
+            print(f"[{card}] warm FieldAnalysisBatch {edge} analyze + results_data of "
+                  f"{FA_FRAMES} frames: median {walls[edge]:.3f} ms of 5 runs = "
+                  f"{FA_FRAMES / walls[edge] * 1e3:.1f} frames/s (runs ms: "
+                  f"{', '.join(f'{t:.3f}' for t in times[1:])})")
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            full_frame("Inflection Derivative")
+            times.append((time.perf_counter() - t0) * 1e3)
+        full_ms = statistics.median(times[1:])
+        print(f"[{card}] warm field_analysis_batch (full frames, uint16 from the host) of "
+              f"{FA_FRAMES} frames, Inflection Derivative: median {full_ms:.3f} ms of 5 runs = "
+              f"{FA_FRAMES / full_ms * 1e3:.1f} frames/s (runs ms: "
+              f"{', '.join(f'{t:.3f}' for t in times[1:])})")
+
+        def derivative_run():
+            batch.analyze(edge_detection_method="Inflection Derivative", device="cuda")
+            batch.results_data()
+            torch.cuda.synchronize()
+
+        for edge in ("Inflection Derivative", "Inflection Hill"):
+            device_profile(card, f"FA {edge}", lambda e=edge: (
+                batch.analyze(edge_detection_method=e, device="cuda"), batch.results_data(),
+                torch.cuda.synchronize()), walls[edge], top=12)
+        pr = cProfile.Profile()
+        pr.enable()
+        t0 = time.perf_counter()
+        derivative_run()
+        wall = (time.perf_counter() - t0) * 1e3
+        pr.disable()
+        out = io.StringIO()
+        pstats.Stats(pr, stream=out).sort_stats("tottime").print_stats(15)
+        print(f"[{card}] FA Inflection Derivative cProfile run wall {wall:.3f} ms "
+              f"(by own time)")
+        print(out.getvalue())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -1560,7 +2003,12 @@ def main() -> int:
     print(f"Winston-Lutz phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels.append(gamma_phase(card, gamma2d))
-    print(f"gamma phase: {time.perf_counter() - t0:.1f} s; whole run "
+    print(f"gamma phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fa_launches, fa_err = fa_phase(card, median)
+    kernels[0]["launches"] += fa_launches
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], fa_err)
+    print(f"FieldAnalysis phase: {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 Port of the part of ``pylinac_tpu/core/image.py`` that the batched picket
 fence, the CatPhan and the Winston-Lutz analyses use: ``load`` (``:89``),
-``BaseImage`` (``:201``: ``center``, ``crop`` with ``edges``, ``invert``,
+``BaseImage`` (``:201``: ``center``, ``filter`` (``:270``), ``crop`` with
+``edges``, ``invert``,
 ``ground``, ``normalize``, ``check_inversion_by_histogram``, ``compute``,
 ``shape``, indexing and the numpy array protocol, and ``gamma``, the Bakai
 approximation, ``:377-402``), ``DicomImage`` (``:522``: load,
@@ -26,8 +27,10 @@ from pathlib import Path
 import numpy as np
 
 from . import dcm
+from .array_utils import filter as _filter_array
 from .array_utils import ground, invert, normalize
 from .geometry import Point
+from .utilities import resolve_device
 
 MM_PER_INCH = 25.4
 
@@ -61,6 +64,12 @@ class BaseImage:
     @property
     def center(self) -> Point:
         return Point((self.shape[1] / 2) - 0.5, (self.shape[0] / 2) - 0.5)
+
+    def filter(self, size: float | int = 0.05, kind: str = "median", device=None) -> None:
+        """Median or Gaussian filter of the array on ``device`` (``None``
+        means CUDA; a 3x3 median launches ``csrc/median3x3.cu`` there)."""
+        device = resolve_device(device, "BaseImage.filter")
+        self.array = _filter_array(self.array, size=size, kind=kind, device=device)
 
     def crop(self, pixels: int = 15,
              edges: tuple[str, ...] = ("top", "bottom", "left", "right")) -> None:

@@ -83,6 +83,17 @@ class DataModel:
         as Python numbers."""
         return json.dumps(self.model_dump(), default=_json_default)
 
+    def output(self, as_dict: bool = False, as_json: bool = False):
+        """What ``results_data(as_dict, as_json)`` returns: the model, the
+        JSON-compatible dict the JAX package returns, or JSON."""
+        if as_dict and as_json:
+            raise ValueError("Cannot return as both dict and JSON. Pick one.")
+        if as_dict:
+            return json.loads(self.model_dump_json())
+        if as_json:
+            return self.model_dump_json()
+        return self
+
 
 @dataclasses.dataclass(kw_only=True)
 class ResultBase(DataModel):

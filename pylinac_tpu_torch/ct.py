@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import json
 import os.path as osp
 import textwrap
 import warnings
@@ -1356,14 +1355,7 @@ class CatPhanBase:
     def results_data(self, as_dict: bool = False, as_json: bool = False):
         """The typed :class:`CatphanResult`; ``as_dict`` gives it as the
         JSON-compatible dict the JAX package returns, ``as_json`` as JSON."""
-        if as_dict and as_json:
-            raise ValueError("Cannot return as both dict and JSON. Pick one.")
-        data = self._generate_results_data()
-        if as_dict:
-            return json.loads(data.model_dump_json())
-        if as_json:
-            return data.model_dump_json()
-        return data
+        return self._generate_results_data().output(as_dict, as_json)
 
 
 class CatPhan503(CatPhanBase):

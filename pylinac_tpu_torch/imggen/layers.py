@@ -1,12 +1,15 @@
-"""Synthetic EPID image layers for picket fence and Winston-Lutz images,
-numpy and scipy.
+"""Synthetic EPID image layers for picket fence, Winston-Lutz and open-field
+images, numpy and scipy.
 
 Port of ``pylinac_tpu/imggen/layers.py``: ``Layer`` ``:111``,
 ``PerfectConeLayer`` ``:119``, ``PerfectFieldLayer`` ``:170``,
-``PerfectBBLayer`` ``:242`` with the drawing helpers they use
-(``clip_add`` ``:20``, ``even_round`` ``:30``, ``rotate_point`` ``:43``,
-``_disk_coords`` ``:49``, ``_polygon_coords`` ``:61``,
-``draw_rotated_rectangle`` ``:80``), and ``GaussianFilterLayer`` ``:251``.
+``FilteredFieldLayer`` ``:198``, ``FilterFreeFieldLayer`` ``:221``,
+``PerfectBBLayer`` ``:242``, ``RandomNoiseLayer`` ``:270``, ``SlopeLayer``
+``:295`` with the helpers they use (``clip_add`` ``:20``,
+``clip_multiply`` ``:25``, ``even_round`` ``:30``, ``gaussian2d`` ``:35``,
+``rotate_point`` ``:43``, ``_disk_coords`` ``:49``, ``_polygon_coords``
+``:61``, ``draw_rotated_rectangle`` ``:80``), and ``GaussianFilterLayer``
+``:251``.
 The blur uses ``scipy.ndimage.gaussian_filter`` (same "reflect" edges and
 truncation as the JAX filter, computed in float64 where the JAX one ran in
 float32, so a pixel may differ by one count after the cast back).
@@ -19,15 +22,30 @@ from abc import ABC, abstractmethod
 import numpy as np
 from scipy import ndimage
 
+from ..core.array_utils import geometric_center_idx
+
 
 def clip_add(image1: np.ndarray, image2: np.ndarray, dtype=np.uint16) -> np.ndarray:
     combined = image1.astype(float) + image2.astype(float)
     return np.clip(combined, np.iinfo(dtype).min, np.iinfo(dtype).max).astype(dtype)
 
 
+def clip_multiply(image1: np.ndarray, image2: np.ndarray, dtype=np.uint16) -> np.ndarray:
+    combined = image1.astype(float) * image2.astype(float)
+    return np.clip(combined, np.iinfo(dtype).min, np.iinfo(dtype).max).astype(dtype)
+
+
 def even_round(num: float) -> int:
     num = int(round(num))
     return num + num % 2
+
+
+def gaussian2d(mx, my, height, center_x, center_y, width_x, width_y, constant=0):
+    width_x = float(width_x)
+    width_y = float(width_y)
+    return height * np.exp(
+        -(((center_x - mx) / width_x) ** 2 + ((center_y - my) / width_y) ** 2) / 2
+    ) + constant
 
 
 def rotate_point(x: float, y: float, angle: float) -> tuple[float, float]:
@@ -124,7 +142,7 @@ class PerfectFieldLayer(Layer):
         self.alpha = alpha
         self.rotation = rotation
 
-    def apply(self, image, pixel_size, mag_factor):
+    def _create_perfect_field(self, image, pixel_size, mag_factor):
         field_size_pix = [even_round(f * mag_factor / pixel_size)
                           for f in self.field_size_mm]
         cax_offset_pix = [v * mag_factor / pixel_size for v in self.cax_offset_mm]
@@ -134,7 +152,55 @@ class PerfectFieldLayer(Layer):
                                         extent=field_size_pix, angle=self.rotation)
         temp = np.zeros(image.shape)
         temp[rr, cc] = int(np.iinfo(image.dtype).max * self.alpha)
-        return clip_add(image, temp)
+        return clip_add(image, temp), rr, cc
+
+    def apply(self, image, pixel_size, mag_factor):
+        image, _, _ = self._create_perfect_field(image, pixel_size, mag_factor)
+        return image
+
+
+class FilteredFieldLayer(PerfectFieldLayer):
+    """A square field with flattening-filter 'horn' effects."""
+
+    def __init__(self, field_size_mm=(10, 10), cax_offset_mm=(0, 0),
+                 alpha: float = 1.0, gaussian_height: float = 0.03,
+                 gaussian_sigma_mm: float = 32, rotation: float = 0):
+        super().__init__(field_size_mm=field_size_mm, cax_offset_mm=cax_offset_mm,
+                         alpha=alpha, rotation=rotation)
+        self.gaussian_height = gaussian_height
+        self.gaussian_sigma_mm = gaussian_sigma_mm
+
+    def apply(self, image, pixel_size, mag_factor):
+        image, rr, cc = self._create_perfect_field(image, pixel_size, mag_factor)
+        height = -self.gaussian_height * np.iinfo(image.dtype).max
+        width = self.gaussian_sigma_mm / pixel_size
+        center_x = geometric_center_idx(image[:, 0])
+        center_y = geometric_center_idx(image[0, :])
+        horns = gaussian2d(rr, cc, height=height, center_x=center_x,
+                           center_y=center_y, width_x=width, width_y=width)
+        image[rr, cc] += horns.astype(image.dtype)
+        return image
+
+
+class FilterFreeFieldLayer(FilteredFieldLayer):
+    """A square field with FFF (central peak) effects."""
+
+    def __init__(self, field_size_mm=(10, 10), cax_offset_mm=(0, 0),
+                 alpha: float = 1.0, gaussian_height: float = 0.4,
+                 gaussian_sigma_mm: float = 80, rotation: float = 0):
+        super().__init__(field_size_mm, cax_offset_mm, alpha, gaussian_height,
+                         gaussian_sigma_mm, rotation=rotation)
+
+    def apply(self, image, pixel_size, mag_factor):
+        image, rr, cc = self._create_perfect_field(image, pixel_size, mag_factor)
+        center_x = geometric_center_idx(image[:, 0])
+        center_y = geometric_center_idx(image[0, :])
+        n = gaussian2d(rr, cc, self.gaussian_height * np.iinfo(image.dtype).max,
+                       center_x, center_y, self.gaussian_sigma_mm / pixel_size,
+                       self.gaussian_sigma_mm / pixel_size,
+                       constant=-self.gaussian_height * np.iinfo(image.dtype).max)
+        image[rr, cc] += n.astype(image.dtype)
+        return image
 
 
 class PerfectBBLayer(PerfectConeLayer):
@@ -156,3 +222,32 @@ class GaussianFilterLayer(Layer):
         sigma_pix = self.sigma_mm / pixel_size
         out = ndimage.gaussian_filter(np.asarray(image, np.float32), sigma_pix)
         return out.astype(image.dtype)
+
+
+class RandomNoiseLayer(Layer):
+    """Gaussian (dark-current-like) noise, from ``seed`` when one is given."""
+
+    def __init__(self, mean: float = 0.0, sigma: float = 0.001, seed: int | None = None):
+        self.mean = mean
+        self.sigma = sigma
+        self.seed = seed
+
+    def apply(self, image, pixel_size, mag_factor):
+        normalized_sigma = self.sigma * np.iinfo(image.dtype).max
+        rng = np.random.default_rng(self.seed)
+        noise = rng.normal(self.mean, normalized_sigma, size=image.shape)
+        return clip_add(image, noise, dtype=image.dtype)
+
+
+class SlopeLayer(Layer):
+    """Multiplicative X/Y slope (simulates asymmetry)."""
+
+    def __init__(self, slope_x: float, slope_y: float):
+        self.slope_x = slope_x
+        self.slope_y = slope_y
+
+    def apply(self, image, pixel_size, mag_factor):
+        nrows, ncols = image.shape
+        y_scaling = (1 + self.slope_y * np.arange(nrows) / nrows).reshape(-1, 1)
+        x_scaling = (1 + self.slope_x * np.arange(ncols) / ncols).reshape(1, -1)
+        return clip_multiply(clip_multiply(image, y_scaling), x_scaling)

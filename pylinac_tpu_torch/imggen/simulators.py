@@ -1,7 +1,7 @@
-"""EPID simulators: AS500/AS1200 detector geometries, numpy only.
+"""EPID simulators: AS500/AS1000/AS1200 detector geometries, numpy only.
 
 Port of ``pylinac_tpu/imggen/simulators.py`` (``Simulator`` ``:15``,
-``AS500Image`` ``:54``, ``AS1200Image`` ``:68``).
+``AS500Image`` ``:54``, ``AS1000Image`` ``:61``, ``AS1200Image`` ``:68``).
 """
 
 from __future__ import annotations
@@ -49,6 +49,13 @@ class AS500Image(Simulator):
 
     pixel_size = 0.78125
     shape = (384, 512)
+
+
+class AS1000Image(Simulator):
+    """AS1000 EPID: 0.390625 mm pixels, 768×1024."""
+
+    pixel_size = 0.390625
+    shape = (768, 1024)
 
 
 class AS1200Image(Simulator):

@@ -2,7 +2,8 @@
 
 Port of ``pylinac_tpu/ops/pallas_median.py`` (``median3x3`` ``:70``, kernel
 ``_median9_kernel`` ``:27``). The kernel is ``csrc/median3x3.cu``; it takes a
-(B, H, W) float32 batch where the Pallas kernel took one (H, W) image.
+(B, H, W) float32 or int32 batch where the Pallas kernel took one (H, W)
+image of any dtype.
 
 :func:`median3x3` launches the kernel for a CUDA tensor and takes the plain
 PyTorch twin :func:`median3x3_reference` only for a CPU tensor. Both compute
@@ -19,6 +20,8 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL = "median3x3"
+# the kernel's C entry for each dtype it takes
+ENTRIES = {torch.float32: "median3x3_f32", torch.int32: "median3x3_i32"}
 
 
 def median3x3_reference(x: torch.Tensor) -> torch.Tensor:
@@ -37,13 +40,14 @@ def median3x3_reference(x: torch.Tensor) -> torch.Tensor:
 
 
 def median3x3(x: torch.Tensor) -> torch.Tensor:
-    """3x3 median filter of a contiguous (H, W) or (B, H, W) float32 tensor.
+    """3x3 median filter of a contiguous (H, W) or (B, H, W) float32 or int32
+    tensor.
 
     A CUDA tensor launches ``csrc/median3x3.cu`` on the current stream; a CPU
     tensor takes :func:`median3x3_reference`. Raises on any other dtype,
     device, rank or layout. ``median3x3.launches`` counts kernel launches."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"median3x3 takes float32, got {x.dtype}")
+    if x.dtype not in ENTRIES:
+        raise TypeError(f"median3x3 takes float32 or int32, got {x.dtype}")
     if x.dim() not in (2, 3):
         raise ValueError(f"median3x3 takes (H, W) or (B, H, W), got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -59,7 +63,7 @@ def median3x3(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = _kernel()
+    fn = _kernel(ENTRIES[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), b, h, w, stream)
@@ -72,8 +76,8 @@ def median3x3(x: torch.Tensor) -> torch.Tensor:
 median3x3.launches = 0
 
 
-def _kernel():
-    fn = _build.load(KERNEL).median3x3_f32
+def _kernel(entry: str):
+    fn = getattr(_build.load(KERNEL), entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -66,17 +66,23 @@ def _local_maxima(v: torch.Tensor) -> torch.Tensor:
 def _distance_filter(pos: torch.Tensor, val: torch.Tensor, valid: torch.Tensor,
                      distance: torch.Tensor, K: int) -> torch.Tensor:
     """scipy _select_by_peak_distance: visit peaks by descending height,
-    removing not-yet-removed neighbours closer than ``distance``."""
+    removing not-yet-removed neighbours closer than ``distance``.
+
+    The slots are permuted into visiting order once, with the (B, K, K)
+    table of which slots lie within ``distance`` of which, so that each of
+    the K sequential visits is four elementwise launches."""
     # stable ascending sort on height with invalid slots at -inf, so they
     # come first and never remove anything; then visit from the end
     order = torch.argsort(torch.where(valid, val, float("-inf")), dim=1, stable=True)
-    slots = torch.arange(K, device=pos.device)
-    keep = torch.ones_like(valid)
-    for k in range(K):
-        j = order[:, K - 1 - k, None]                                  # (B, 1)
-        cond = valid.gather(1, j) & keep.gather(1, j)
-        within = ((pos - pos.gather(1, j)).abs() < distance) & (slots != j)
-        keep = keep & ~(cond & within)
+    pos_o = pos.gather(1, order)
+    valid_o = valid.gather(1, order)
+    ranks = torch.arange(K, device=pos.device)
+    near = ((pos_o[:, :, None] - pos_o[:, None, :]).abs() < distance) & (ranks[:, None] != ranks)
+    keep_o = torch.ones_like(valid_o)
+    for r in range(K - 1, -1, -1):
+        cond = valid_o[:, r:r + 1] & keep_o[:, r:r + 1]
+        keep_o = keep_o & ~(cond & near[:, r])
+    keep = torch.empty_like(keep_o).scatter_(1, order, keep_o)
     return valid & keep
 
 

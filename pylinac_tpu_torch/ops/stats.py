@@ -16,7 +16,8 @@ differs from XLA's in the last bits.
 :func:`slot_sums` is the port's own: the float sums by slot of the region
 properties (``ops/label.py``) and of :func:`radial_average`, added in one
 fixed order on each device (no atomics), so that every run of the same
-input gives the same bits.
+input gives the same bits. So is :func:`wide_sum`, the float32 sums of the
+field-analysis fits (``ops/field_pipeline.py``, ``ops/optimize.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +66,15 @@ def noise_power_spectrum_2d(rois: torch.Tensor, pixel_size: float) -> torch.Tens
 _ONEHOT_ELEMENTS = 2**25
 # pixels per partial product: enough products in flight to fill the card
 _SPLIT = 4096
+
+
+def wide_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of float32 ``x`` along ``dim``, added in float64 and rounded to
+    float32 once. The float64 sums that the CPU's and the card's reduction
+    orders give differ by far less than a float32 ulp, so the two devices
+    return the same float32 bits except where the sum falls within that gap
+    of a rounding boundary. The JAX package added these in float32."""
+    return x.to(torch.float64).sum(dim=dim).to(torch.float32)
 
 
 def slot_sums(values: torch.Tensor, slot: torch.Tensor, k: int) -> torch.Tensor:

@@ -52,7 +52,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import enum
-import json
 import math
 import os
 import os.path as osp
@@ -289,16 +288,6 @@ class WinstonLutzResult(ResultBase):
     bb_shift_vector: dict
     image_details: list[WinstonLutz2DResult]
     keyed_image_details: dict[str, WinstonLutz2DResult]
-
-
-def _results_data(data: DataModel, as_dict: bool, as_json: bool):
-    if as_dict and as_json:
-        raise ValueError("Cannot return as both dict and JSON. Pick one.")
-    if as_dict:
-        return json.loads(data.model_dump_json())
-    if as_json:
-        return data.model_dump_json()
-    return data
 
 
 # --------------------------------------------------------------------------
@@ -701,7 +690,7 @@ class WinstonLutz2D(WLBaseImage):
     def results_data(self, as_dict: bool = False, as_json: bool = False):
         """The typed :class:`WinstonLutz2DResult`; ``as_dict`` gives the
         JSON-compatible dict the JAX package returns, ``as_json`` JSON."""
-        return _results_data(self._generate_results_data(), as_dict, as_json)
+        return self._generate_results_data().output(as_dict, as_json)
 
 
 class WinstonLutz:
@@ -1143,4 +1132,4 @@ class WinstonLutz:
     def results_data(self, as_dict: bool = False, as_json: bool = False):
         """The typed :class:`WinstonLutzResult`; ``as_dict`` gives the
         JSON-compatible dict the JAX package returns, ``as_json`` JSON."""
-        return _results_data(self._generate_results_data(), as_dict, as_json)
+        return self._generate_results_data().output(as_dict, as_json)

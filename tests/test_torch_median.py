@@ -21,6 +21,7 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
+from pylinac_tpu_torch.core import array_utils as tau
 from pylinac_tpu_torch.ops import filters as tfilters
 from pylinac_tpu_torch.ops.median import median3x3, median3x3_reference
 
@@ -42,13 +43,16 @@ def _few_threads():
 
 @pytest.fixture(scope="module")
 def jref():
-    """The JAX reference: jnp, ``ops.pallas_median`` and ``ops.filters``."""
+    """The JAX reference: jnp, ``ops.pallas_median``, ``ops.filters`` and
+    ``core.array_utils``."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
+    from pylinac_tpu.core import array_utils
     from pylinac_tpu.ops import filters, pallas_median
 
-    return SimpleNamespace(jnp=jnp, pallas_median=pallas_median, filters=filters)
+    return SimpleNamespace(jnp=jnp, pallas_median=pallas_median, filters=filters,
+                           array_utils=array_utils)
 
 
 @pytest.fixture
@@ -117,6 +121,64 @@ def test_median3x3_rejects_rank(shape):
         median3x3(torch.zeros(shape))
 
 
+# image dtypes and the dtype the kernel computes them in
+FILTER_DTYPES = [(np.uint8, torch.float32), (np.int16, torch.float32),
+                 (np.uint16, torch.float32), (np.float32, torch.float32),
+                 (np.float64, torch.float32), (np.int32, torch.int32),
+                 (np.uint32, torch.int32)]
+
+
+def _typed_image(shape, dtype, seed):
+    """Integers over the dtype's whole range, or floats around 100."""
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, size=shape, dtype=dtype, endpoint=True)
+    return rng.normal(100.0, 20.0, size=shape).astype(dtype)
+
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """The dtype of every tensor ``ops.filters`` hands to ``median3x3``."""
+    calls = []
+
+    def spy(x):
+        calls.append(x.dtype)
+        return median3x3(x)
+
+    monkeypatch.setattr(tfilters, "median3x3", spy)
+    return calls
+
+
+@pytest.mark.parametrize("dtype, work", FILTER_DTYPES)
+def test_filter_median_matches_jax_in_every_dtype(jref, kernel_calls, dtype, work):
+    x = _typed_image((37, 45), dtype, seed=5)
+    got = tau.filter(x, 3, device="cpu")
+    assert got.dtype == x.dtype
+    assert kernel_calls == [work]
+    np.testing.assert_array_equal(got, jref.array_utils.filter(x, 3))
+    if dtype is not np.float64:
+        np.testing.assert_array_equal(got, ndi.median_filter(x, size=3, mode="reflect"))
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32, np.uint32, np.int64])
+def test_median3x3_array_stack_is_per_image(kernel_calls, dtype):
+    x = _typed_image((3, 19, 23), dtype, seed=9)
+    got = tau.median3x3_array(x)
+    assert got.dtype == x.dtype
+    assert len(kernel_calls) == (0 if dtype is np.int64 else 1)
+    # rank 4 of each edge-replicated window, sorted in the dtype itself
+    # (scipy goes through float64 for int64)
+    windows = np.lib.stride_tricks.sliding_window_view(
+        np.pad(x, [(0, 0), (1, 1), (1, 1)], mode="edge"), (3, 3), axis=(1, 2))
+    np.testing.assert_array_equal(got, np.sort(windows.reshape(*x.shape, 9), axis=-1)[..., 4])
+
+
+def test_median3x3_array_rejects_wide_dtypes_off_the_cpu():
+    with pytest.raises(TypeError, match="float32 or int32"):
+        tau.median3x3_array(np.zeros((4, 4), np.int64), device="meta")
+
+
 def _kernel_median9(p: np.ndarray) -> np.ndarray:
     """Median of (..., 3, 3) windows (rows, columns) by the kernel's network,
     min/max for min/max: sort each column (6), then med3(max of the lows,
@@ -161,3 +223,16 @@ def test_kernel_matches_twin_on_card(cuda, shape):
     torch.cuda.synchronize()
     assert median3x3.launches == before + 1
     assert torch.equal(got.cpu(), median3x3_reference(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.uint16, np.float64])
+def test_filter_median_launches_kernel_in_every_dtype(cuda, dtype):
+    x = _typed_image((3, 70, 131), dtype, seed=17)
+    before = median3x3.launches
+    got = tau.median3x3_array(x, cuda)
+    assert median3x3.launches == before + 1
+    np.testing.assert_array_equal(got, tau.median3x3_array(x, "cpu"))
+    image = tau.filter(x[0], 3, device=cuda)
+    assert median3x3.launches == before + 2
+    np.testing.assert_array_equal(image, got[0])

@@ -6,9 +6,10 @@ A child interpreter installs a meta-path finder that refuses ``jax``,
 own image generator and analyses it on the CPU, finds the regions of a
 small ring image with the CT region finder, analyses a small generated
 Winston-Lutz set (four AS500 frames) with ``pylinac_tpu_torch.winston_lutz``
-on the CPU, and takes the 2D gamma of a 32x32 pair with
-``pylinac_tpu_torch.ops.gamma``. The machine with the card has neither
-package.
+on the CPU, takes the 2D gamma of a 32x32 pair with
+``pylinac_tpu_torch.ops.gamma``, and analyses a small AS500 open field
+with ``FieldAnalysisBatch`` and ``FieldAnalysis`` on the CPU. The machine
+with the card has neither package.
 """
 
 import json
@@ -64,7 +65,21 @@ CHILD = textwrap.dedent("""
     dose = (np.random.default_rng(0).random((32, 32)) * 100 + 10).astype(np.float32)
     g = gamma_2d(dose, dose * np.float32(1.01), dose_to_agreement=2.0,
                  distance_to_agreement=2, device="cpu").numpy()
+    from pylinac_tpu_torch import FieldAnalysis, FieldAnalysisBatch
+    from pylinac_tpu_torch.imggen.layers import FilteredFieldLayer
+    fa_path = tempfile.mkdtemp() + "/fa.dcm"
+    sim = AS500Image(sid=1000)
+    sim.add_layer(FilteredFieldLayer(field_size_mm=(100, 100)))
+    sim.add_layer(GaussianFilterLayer(sigma_mm=1))
+    sim.generate_dicom(fa_path)
+    fa_batch = FieldAnalysisBatch([fa_path, fa_path], device="cpu")
+    fa_batch.analyze(device="cpu")
+    fa_data = fa_batch.results_data()
+    fa_single = FieldAnalysis(fa_path)
+    fa_single.analyze(edge_detection_method="FWHM")
     print(json.dumps({
+        "fa_sizes": [fa_data[0].field_size_vertical_mm, fa_data[1].field_size_horizontal_mm,
+                     fa_single.results_data().field_size_horizontal_mm],
         "gamma_shape": list(g.shape), "gamma_finite": int(np.isfinite(g).sum()),
         "gamma_max": float(np.nanmax(g)),
         "wl_images": wl_data.num_total_images, "wl_shift_x": wl_data.bb_shift_vector["x"],
@@ -92,3 +107,4 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["gamma_shape"] == [32, 32]
     assert out["gamma_finite"] == 32 * 32  # every pixel is above the 5 % threshold
     assert out["gamma_max"] < 0.6  # a 1 % dose difference against a 2 % criterion
+    assert all(abs(size - 100) < 1.0 for size in out["fa_sizes"])  # a 100 mm field

@@ -108,6 +108,38 @@ def test_select_top_sorts_peak_heights_on_values():
                                   tpk.select_top(t, 2, "values").valid.numpy())
 
 
+def _select_by_distance(pos, val, valid, distance):
+    """scipy's ``_select_by_peak_distance`` on one row's valid slots, in
+    plain Python: visit by descending height (ties by slot, last first),
+    dropping the kept peak's neighbours closer than ``distance``."""
+    keep = list(valid)
+    order = sorted(range(len(pos)), key=lambda i: (val[i] if valid[i] else -np.inf, i))
+    for j in reversed(order):
+        if valid[j] and keep[j]:
+            for i in range(len(pos)):
+                if i != j and abs(pos[i] - pos[j]) < distance:
+                    keep[i] = False
+    return [v and k for v, k in zip(valid, keep)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_distance_filter_matches_a_plain_loop(seed):
+    """Slots with tied heights, invalid slots and every spacing against
+    distances of 1-29: the batched filter equals the plain loop row by row."""
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(40):
+        b, k = 5, int(torch.randint(1, 40, (1,), generator=g))
+        valid = torch.rand(b, k, generator=g) > 0.3
+        pos = torch.where(valid, torch.sort(torch.randint(0, 200, (b, k), generator=g), 1).values,
+                          -1)
+        val = torch.randint(0, 5, (b, k), generator=g).to(torch.float32)
+        distance = float(torch.randint(1, 30, (1,), generator=g))
+        got = tpk._distance_filter(pos, val, valid, torch.tensor(distance), k)
+        want = [_select_by_distance(p, v, m, distance)
+                for p, v, m in zip(pos.tolist(), val.tolist(), valid.tolist())]
+        assert got.tolist() == want
+
+
 @pytest.mark.parametrize("flat_top", [None, 0.8])
 @pytest.mark.parametrize("seed", [6, 7])
 def test_main_peak_and_ips_match_jax(seed, flat_top):
