@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once) and runs the five ported paths:
+``nvcc`` per source, all at once) and runs the ported paths:
 
 - picket fence: checks the 3x3-median kernel bit for bit against its plain
   PyTorch twin (the path's shape and ragged ones), runs
@@ -64,7 +64,21 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   full-frame ``field_analysis_batch`` to the strip route; then times each
   edge and the full-frame entry (every warm run's results equal to the
   first's), profiles the derivative and Hill batches and splits a
-  derivative run's host time with cProfile.
+  derivative run's host time with cProfile;
+- Starshot: writes the bench's 16 stars (1000x1040 uint16, 5 spokes), runs
+  ``StarshotBatch`` on the card against the bench's bars
+  (``bench.py:341-352``) and the CPU run, a wobbly, a ladder-climbing and
+  a film-like star on the card against the CPU, times the batch (every
+  warm run's results equal to the first's), profiles it, times its
+  batched Nelder-Mead on the card and on CPU tensors and the whole batch
+  with its fits in each place, and holds the single-image ``Starshot`` to
+  the batch and the drawn centre; this path runs no kernel of the port;
+- single-image picket fence: two uncropped spiked AS1200 frames through
+  ``PicketFence`` on the card, the de-spike's ``median3x3`` launches
+  counted and each of their inputs held bit-equal to the twin (the kernel
+  timed there), the results against the CPU run, ``PicketFenceBatch`` on
+  the same frames and the drawn pickets; timed. Its launches join the
+  median's entry of the kernels line.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
@@ -1980,6 +1994,404 @@ def fa_phase(card: str, median) -> tuple[int, float]:
     return launches, err
 
 
+# the bench's Starshot (bench.py:314-352): 16 stars of 1000 x 1040 uint16,
+# dpi 100, SID 1000, 5 spokes through (500, 520), offsets 10 + i degrees
+STAR_IMAGES, STAR_CENTRE = 16, (500.0, 520.0)
+STAR_DIAM_MM = 0.01       # bench.py:349: the wobble of a perfect star
+STAR_DEG = 1e-3           # card against CPU, degrees
+STAR_SINGLE = dict(mm=0.05, px=1.0, deg=1.0)   # tests/models/test_starshot_batch.py:41-55
+STAR_SINGLE_TRUTH_PX = 0.1
+# the single PicketFence against PicketFenceBatch on one frame, at
+# tests/models/test_picketfence_batch.py:27-46's bars; the offsets are held
+# to the batch's plus the shift the single class's kiss windows predict
+# (pf_window_shift_mm), which
+# tests/test_torch_picketfence_single.py::test_single_offsets_sit_half_a_pixel_from_the_batch
+# pins in the JAX package and the port on these same frames
+PF_SINGLE_TOL = 1e-3
+PF_SINGLE_OFFSET_MM = 2e-3
+
+
+def make_stars(tmp: str) -> list[str]:
+    """The bench's 16 stars, then a wobbly one (3 px shifts), one whose
+    half spoke fails the first combos of the retry ladder, and a film-like
+    one (dark spokes) that trips the inversion check, all of the bench's
+    size."""
+    from pylinac_tpu_torch.imggen.utils import make_starshot
+
+    specs = [dict(angles_offset=10.0 + i) for i in range(STAR_IMAGES)]
+    specs += [dict(wobble_shift_px=3.0), dict(angles_offset=12.0, half_spoke=0.5),
+              dict(angles_offset=14.0, invert=True, noise=20.0)]
+    return [make_starshot(tmp, n_spokes=5, name=f"star{i}.dcm", **spec)
+            for i, spec in enumerate(specs)]
+
+
+def star_tol(path: str, a: float) -> float:
+    if path.endswith("_mm"):
+        return MM_TOL
+    return STAR_DEG if path.startswith("/angles") else PX_TOL
+
+
+def check_star_bench(results, dpmm: float, out: dict) -> None:
+    """bench.py:341-352: every centre within 0.01 * dpmm px of the drawn
+    one, every diameter below 0.01 mm; 5 lines and found."""
+    worst_c = max(max(abs(r.circle_center_x_y[0] - STAR_CENTRE[0]),
+                      abs(r.circle_center_x_y[1] - STAR_CENTRE[1])) for r in results)
+    worst_d = max(r.circle_diameter_mm for r in results)
+    if worst_c >= 0.01 * dpmm or worst_d >= STAR_DIAM_MM:
+        raise RuntimeError(f"starshot bench bars: centre off by up to {worst_c} px "
+                           f"(bar {0.01 * dpmm}), diameter up to {worst_d} mm")
+    if not out["found"].all() or (out["n_lines"] != 5).any() or (out["combos_tried"] != 1).any():
+        raise RuntimeError(f"starshot: found {out['found']}, lines {out['n_lines']}, "
+                           f"combos {out['combos_tried']}")
+    print(f"starshot bench bars: {len(results)} stars, centre within {worst_c:.6f} px "
+          f"(bar {0.01 * dpmm:.4f}), diameter up to {worst_d:.6f} mm (bar {STAR_DIAM_MM}), "
+          f"5 lines and one combo each")
+
+
+def compare_star_outputs(a: dict, b: dict, what: str) -> float:
+    """The pipeline's outputs on two devices: integers and flags exact, the
+    px fields finite in the same places and within PX_TOL where they are;
+    returns the largest px difference."""
+    worst = 0.0
+    for key, x in a.items():
+        y = b[key]
+        if x.dtype.kind in "biu" or key == "start_point":
+            if not np.array_equal(x, y):
+                raise RuntimeError(f"{what}: {key} differs: {x} against {y}")
+            continue
+        finite = np.isfinite(x)
+        if not np.array_equal(finite, np.isfinite(y)):
+            raise RuntimeError(f"{what}: {key} is finite in other places: {x} against {y}")
+        d = float(np.max(np.abs(x[finite] - y[finite]), initial=0.0))
+        if not d <= PX_TOL:
+            raise RuntimeError(f"{what}: {key} differs by {d} px")
+        worst = max(worst, d)
+    return worst
+
+
+def time_nm(card: str, out: dict) -> None:
+    """The batched Nelder-Mead of the run's lines on the card and on CPU
+    tensors, timed alike (median of 5 after a warm-up), and their results
+    compared."""
+    from pylinac_tpu_torch.ops.optimize import nelder_mead_batch
+    from pylinac_tpu_torch.ops.star_pipeline import _max_distance
+
+    results = {}
+    for where in ("cuda", "cpu"):
+        p1 = torch.from_numpy(out["line_p1"]).to(where)
+        p2 = torch.from_numpy(out["line_p2"]).to(where)
+        valid = torch.from_numpy(out["line_valid"]).to(where)
+        x0 = torch.from_numpy(out["start_point"]).to(where)
+        d = p2 - p1
+        d = d / torch.clamp(torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]),
+                            min=1e-9)[..., None]
+        f = _max_distance(p1, d, valid)
+        times = []
+        for _ in range(6):
+            synchronize(where)
+            t0 = time.perf_counter()
+            x, fx = nelder_mead_batch(f, x0, fatol=0.001, xatol=1e-4, max_iter=400)
+            synchronize(where)
+            times.append((time.perf_counter() - t0) * 1e3)
+        results[where] = (x.cpu(), fx.cpu(), statistics.median(times[1:]))
+    same = (torch.equal(results["cuda"][0], results["cpu"][0])
+            and torch.equal(results["cuda"][1], results["cpu"][1]))
+    print(f"[{card}] starshot Nelder-Mead of {x0.shape[0]} problems: on the card "
+          f"{results['cuda'][2]:.3f} ms, on CPU tensors {results['cpu'][2]:.3f} ms (median of 5); "
+          f"results {'bit-equal' if same else 'differ'}")
+
+
+def time_fits_on_card(card: str, batch) -> None:
+    """The warm batch end to end with its minimax fits on the card in place
+    of CPU tensors (``ops/star_pipeline.FIT_DEVICE`` set to ``cuda``),
+    against the shipped placement, in turns (host, card, card, host; median
+    of 3 runs each); the results must be the same."""
+    from pylinac_tpu_torch.ops import star_pipeline
+
+    shipped = star_pipeline.FIT_DEVICE
+    walls = {"host": [], "card": []}
+    texts = {}
+    for where in ("host", "card", "card", "host"):
+        star_pipeline.FIT_DEVICE = shipped if where == "host" else "cuda"
+        try:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                batch.analyze(device="cuda")
+                texts[where] = results_text(batch.results_data())
+                torch.cuda.synchronize()
+                walls[where].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            star_pipeline.FIT_DEVICE = shipped
+    if texts["host"] != texts["card"]:
+        raise RuntimeError("the starshot results differ with the fits on the card")
+    print(f"[{card}] warm StarshotBatch with its minimax fits on CPU tensors (shipped) "
+          f"{statistics.median(walls['host']):.3f} ms, on the card "
+          f"{statistics.median(walls['card']):.3f} ms (median of 6 runs each, in turns); "
+          f"results equal")
+
+
+def synchronize(where: str) -> None:
+    if torch.device(where).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def starshot_phase(card: str) -> None:
+    """The Starshot path: the bench's 16 stars through ``StarshotBatch`` on
+    the card against the bench's bars and the CPU run; a wobbly, a
+    ladder-climbing and a film-like star on the card against the CPU; every
+    warm run equal to the first; images/s, a profile, the Nelder-Mead on
+    the card and on CPU tensors; the single-image ``Starshot`` against the
+    batch and the drawn centre. No kernel of the port runs on this path."""
+    from pylinac_tpu_torch import Starshot, StarshotBatch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_star_")
+    try:
+        t0 = time.perf_counter()
+        paths = make_stars(tmp)
+        bench, extra = paths[:STAR_IMAGES], paths[STAR_IMAGES:]
+        batch = StarshotBatch(bench)
+        dpmm = float(batch.images[0].dpmm)
+        print(f"inputs: {len(paths)} stars {batch.images[0].shape} "
+              f"{batch.images[0].array.dtype}, dpmm {dpmm:.4f}, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        batch.analyze(device="cuda")
+        results = batch.results_data()
+        torch.cuda.synchronize()
+        print(f"starshot batch, first run (staging included): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        check_star_bench(results, dpmm, batch._out)
+
+        cpu = StarshotBatch(bench)
+        cpu.analyze(device="cpu")
+        px = compare_star_outputs(batch._out, cpu._out, "starshot card vs CPU")
+        tree = compare_tree(json.loads(results_text(results[0])),
+                            json.loads(results_text(cpu.results_data()[0])), "star", star_tol)
+        for r, c in zip(results[1:], cpu.results_data()[1:]):
+            tree = max(tree, compare_tree(json.loads(results_text(r)),
+                                          json.loads(results_text(c)), "star", star_tol))
+        print(f"starshot card vs CPU, {STAR_IMAGES} stars: outputs within {px:.2e} px, "
+              f"results_data within {tree:.2e} (mm {MM_TOL}, px {PX_TOL}, degrees {STAR_DEG})")
+
+        more = StarshotBatch(extra)
+        more.analyze(device="cuda")
+        more_cpu = StarshotBatch(extra)
+        more_cpu.analyze(device="cpu")
+        px = compare_star_outputs(more._out, more_cpu._out, "starshot extra stars card vs CPU")
+        wob, ladder, film = more.results_data()
+        tried = more._out["combos_tried"].tolist()
+        if not 0.2 < wob.circle_diameter_mm < 2.0:
+            raise RuntimeError(f"wobbly star: diameter {wob.circle_diameter_mm} mm")
+        if tried[1] <= 1:
+            raise RuntimeError(f"the ladder star took {tried[1]} combos on the card")
+        arr = np.asarray(more.images[2].array, np.float64)
+        p4, p50, p96 = np.percentile(arr, [4, 50, 96])
+        if not abs(p50 - p4) > abs(p50 - p96):
+            raise RuntimeError("the film-like star does not trip the inversion check")
+        for r, name in ((ladder, "ladder"), (film, "film-like")):
+            off = max(abs(r.circle_center_x_y[0] - STAR_CENTRE[0]),
+                      abs(r.circle_center_x_y[1] - STAR_CENTRE[1]))
+            if off > 0.1 or r.circle_diameter_mm > 0.05:
+                raise RuntimeError(f"{name} star: centre off by {off} px, "
+                                   f"diameter {r.circle_diameter_mm} mm")
+        print(f"starshot extra stars on the card, equal to the CPU within {px:.2e} px: wobbly "
+              f"{wob.circle_diameter_mm:.4f} mm, ladder {tried[1]} combos, film-like inverted, "
+              f"combos {tried}")
+
+        times, texts = [], []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            batch.analyze(device="cuda")
+            texts.append(results_text(batch.results_data()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        warm = statistics.median(times[1:])
+        check_same_texts(texts, "StarshotBatch")
+        print(f"[{card}] warm StarshotBatch analyze + results_data of {STAR_IMAGES} stars: "
+              f"median {warm * 1e3:.3f} ms of 5 runs = {STAR_IMAGES / warm:.1f} images/s "
+              f"(runs ms: {', '.join(f'{t * 1e3:.3f}' for t in times[1:])})")
+        device_profile(card, "StarshotBatch", lambda: (
+            batch.analyze(device="cuda"), batch.results_data(), torch.cuda.synchronize()),
+            warm * 1e3, top=12)
+        time_nm(card, batch._out)
+        time_fits_on_card(card, batch)
+        pr = cProfile.Profile()
+        pr.enable()
+        t0 = time.perf_counter()
+        batch.analyze(device="cuda")
+        batch.results_data()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        pr.disable()
+        out = io.StringIO()
+        pstats.Stats(pr, stream=out).sort_stats("cumulative").print_stats(12)
+        print(f"[{card}] StarshotBatch cProfile run wall {wall:.3f} ms (by cumulative time)")
+        print(out.getvalue())
+
+        t0 = time.perf_counter()
+        single = Starshot(bench[0])
+        single.analyze()
+        sr = single.results_data()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        br = results[0]
+        if (abs(sr.circle_diameter_mm - br.circle_diameter_mm) > STAR_SINGLE["mm"]
+                or max(abs(a - b) for a, b in zip(sr.circle_center_x_y, br.circle_center_x_y))
+                > STAR_SINGLE["px"] or len(sr.angles) != len(br.angles)
+                or not np.allclose(sorted(sr.angles), sorted(br.angles), atol=STAR_SINGLE["deg"])):
+            raise RuntimeError(f"single Starshot {sr} against the batch's {br}")
+        off = max(abs(sr.circle_center_x_y[0] - STAR_CENTRE[0]),
+                  abs(sr.circle_center_x_y[1] - STAR_CENTRE[1]))
+        if off > STAR_SINGLE_TRUTH_PX:
+            raise RuntimeError(f"single Starshot centre {sr.circle_center_x_y} off the drawn "
+                               f"{STAR_CENTRE} by {off} px")
+        print(f"[{card}] single Starshot on star 0 (host numpy, Nelder-Mead on CPU tensors): "
+              f"{single_ms:.1f} ms; centre ({sr.circle_center_x_y[0]:.4f}, "
+              f"{sr.circle_center_x_y[1]:.4f}), {off:.4f} px from the drawn; diameter "
+              f"{sr.circle_diameter_mm:.5f} mm; against the batch within the bars {STAR_SINGLE}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def make_pf_singles(tmp: str) -> list[str]:
+    """Two uncropped AS1200 picket fence frames (the smoke's generator,
+    the second with picket 3 moved by 0.4 mm) through the smoke's EPID
+    recipe, written as DICOM: they trip the single image's de-spike."""
+    from pylinac_tpu_torch.core import image as timage
+    from pylinac_tpu_torch.imggen.layers import GaussianFilterLayer, PerfectFieldLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.imggen.utils import generate_picketfence
+
+    paths = []
+    rng = np.random.default_rng(11)
+    for i, offset in enumerate((0.0, OFFSET_MM)):
+        err = [0.0] * 10
+        err[2] = offset
+        raw = f"{tmp}/raw{i}.dcm"
+        generate_picketfence(
+            simulator=AS1200Image(sid=1500), field_layer=PerfectFieldLayer, file_out=raw,
+            final_layers=[GaussianFilterLayer(sigma_mm=1)], pickets=10,
+            picket_spacing_mm=20, picket_width_mm=3, picket_offset_error=err)
+        img = timage.DicomImage(raw)
+        a = img.array
+        noisy = a.astype(np.float64) * 0.5 + 1000 + rng.normal(0, 2, a.shape).round()
+        noisy = np.clip(noisy, 0, 65535)
+        noisy.flat[rng.choice(a.size, a.size // 10000, replace=False)] = 65535
+        img.array = noisy.astype(np.uint16)
+        paths.append(img.save(f"{tmp}/spiked{i}.dcm"))
+    return paths
+
+
+def pf_window_shift_mm(pf) -> np.ndarray:
+    """Each picket's offset from the CAX less the batch's, as the single
+    class's kiss windows predict it (a reference quirk kept for parity):
+    they start at ``int(v)`` for ``v = idx - spacing / 2`` (clamped at 0)
+    but add ``v`` to the crossings, so the picket sits ``frac(v)`` px
+    further from the image's start and its ``dist2cax`` (centre minus
+    picket) ``frac(v) / dpmm`` lower."""
+    out = []
+    for pk in pf.pickets:
+        v = max(pk.mlc_meas[0]._approximate_idx - pk.mlc_meas[0]._spacing / 2, 0)
+        out.append(-(v - int(v)) / pf.image.dpmm)
+    return np.asarray(out)
+
+
+def pf_single_phase(card: str, median) -> tuple[int, float]:
+    """The single-image ``PicketFence`` on two spiked frames on the card:
+    its de-spike's median3x3 launches counted and each input held bit-equal
+    to the twin, the results against the CPU run, ``PicketFenceBatch`` on
+    the same frames and the drawn geometry; timed. Returns the launches and
+    the kernel's largest error against its twin."""
+    from pylinac_tpu_torch import PicketFence, PicketFenceBatch
+    from pylinac_tpu_torch.ops import filters as tfilters
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pf1_")
+    try:
+        paths = make_pf_singles(tmp)
+        median.median3x3.launches = 0
+        with recording_inputs([(tfilters, "median3x3", "median")]) as seen:
+            t0 = time.perf_counter()
+            singles, shifts = [], []
+            for path in paths:
+                pf = PicketFence(path, device="cuda")
+                pf.analyze(tolerance=0.5)
+                singles.append(pf.results_data())
+                shifts.append(pf_window_shift_mm(pf))
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = median.median3x3.launches
+        if launches < 1:
+            raise RuntimeError("the single PicketFence launched no median3x3 kernel")
+        check_counts(seen, {"median": launches}, "single PicketFence")
+        worst = check_path_masks({"median": (median.median3x3, median.median3x3_reference)},
+                                 seen, "single PicketFence")["median"]
+        frame = seen[0][1].to(torch.float32)
+        kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference,
+                                        frame, 50, 5)
+        bound_ms, bound_by = bound(8 * frame.numel(), 21 * frame.numel(), F32_INSTR_PER_S)
+        print(f"[{card}] median3x3 at {tuple(frame.shape)}, the single frame's de-spike: "
+              f"kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        print(f"single PicketFence on {len(paths)} spiked frames: median3x3.launches = "
+              f"{launches} (de-spike inputs {[tuple(x.shape) for _, x, *_ in seen]}), "
+              f"{first_ms:.1f} ms")
+
+        cpu = []
+        for path in paths:
+            pf = PicketFence(path, device="cpu")
+            pf.analyze(tolerance=0.5)
+            cpu.append(pf.results_data())
+        mm = compare(singles, cpu)
+        print(f"single PicketFence card vs CPU: agree (max mm difference {mm:.2e})")
+
+        batch = PicketFenceBatch(paths)
+        batch.analyze(tolerance=0.5, device="cuda")
+        worst_b = 0.0
+        for i, (s, b) in enumerate(zip(singles, batch.results_data())):
+            if s.number_of_pickets != b.number_of_pickets or s.failed_leaves != b.failed_leaves \
+                    or sorted(s.mlc_errors_by_leaf) != sorted(b.mlc_errors_by_leaf):
+                raise RuntimeError(f"frame {i}: single and batch differ in pickets or leaves")
+            if abs(s.percent_leaves_passing - b.percent_leaves_passing) > 1e-9:
+                raise RuntimeError(f"frame {i}: percent passing differs from the batch")
+            for name in ("max_error_mm", "absolute_median_error_mm", "mean_picket_spacing_mm",
+                         "mlc_skew"):
+                d = abs(getattr(s, name) - getattr(b, name))
+                worst_b = max(worst_b, d)
+                if d > PF_SINGLE_TOL:
+                    raise RuntimeError(f"frame {i}: {name} differs from the batch by {d}")
+            gap = np.subtract(s.offsets_from_cax_mm, b.offsets_from_cax_mm)
+            d = float(np.max(np.abs(gap - shifts[i])))
+            if not d <= PF_SINGLE_OFFSET_MM:
+                raise RuntimeError(f"frame {i}: offsets differ from the batch's by {gap} mm, "
+                                   f"{d} mm off the window shift {shifts[i]}")
+            print(f"single PicketFence frame {i} against PicketFenceBatch: fields within "
+                  f"{worst_b:.2e}, offsets {gap.min():.6f} to {gap.max():.6f} mm from the "
+                  f"batch's, within {d:.2e} mm of the window shift "
+                  f"({shifts[i].min():.6f} to {shifts[i].max():.6f} mm)")
+        shift = abs(singles[1].offsets_from_cax_mm[2] - singles[0].offsets_from_cax_mm[2])
+        if any(s.number_of_pickets != 10 for s in singles) or abs(shift - OFFSET_MM) > 0.05:
+            raise RuntimeError(f"single PicketFence: pickets "
+                               f"{[s.number_of_pickets for s in singles]}, picket 3 shift {shift}")
+        if not (singles[0].passed and singles[0].max_error_mm < 0.1):
+            raise RuntimeError(f"perfect frame: max error {singles[0].max_error_mm} mm")
+        print(f"single PicketFence drawn geometry: 10 pickets, picket 3 moved {shift:.4f} mm "
+              f"(drawn {OFFSET_MM}), perfect frame max error {singles[0].max_error_mm:.6f} mm")
+
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            pf = PicketFence(paths[0], device="cuda")
+            pf.analyze(tolerance=0.5)
+            pf.results_data()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"[{card}] single PicketFence (load, de-spike, analyze, results_data) of one "
+              f"frame: median {statistics.median(times[1:]):.1f} ms of 5 runs "
+              f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, worst
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -2008,7 +2420,15 @@ def main() -> int:
     fa_launches, fa_err = fa_phase(card, median)
     kernels[0]["launches"] += fa_launches
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], fa_err)
-    print(f"FieldAnalysis phase: {time.perf_counter() - t0:.1f} s; whole run "
+    print(f"FieldAnalysis phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    starshot_phase(card)
+    print(f"Starshot phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pf_launches, pf_err = pf_single_phase(card, median)
+    kernels[0]["launches"] += pf_launches
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], pf_err)
+    print(f"single PicketFence phase: {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,16 +3,16 @@
 Port of ``geometric_center_idx`` (``pylinac_tpu/core/array_utils.py:15``),
 ``geometric_center_value`` (``:20``), ``normalize`` (``:28``), ``invert``
 (``:33``), ``ground`` (``:49``), ``filter`` (``:53``), ``stretch``
-(``:73``), ``get_dtype_info`` (``:85``), ``array_to_dicom`` (``:143``) and
+(``:73``), ``get_dtype_info`` (``:85``), ``convert_to_dtype`` (``:92``),
+``array_to_dicom`` (``:143``) and
 ``_rt_image_position`` (``:136``), and ``median3x3_array``, the 3x3
 median of an image or a stack through the kernel. The port's simulators make integer arrays only, so the JAX
 ``array_to_dicom``'s float-to-uint16 rescale is not carried over: a float
-array is rejected by ``Dataset.set_pixel_data``. ``filter`` runs the port's
-filters on the device it is given: the CPU by default, where the profiles
-live (the JAX function kept arrays of up to ``2**18`` elements on its
-in-process CPU backend), and the card for an image
-(:meth:`pylinac_tpu_torch.core.image.BaseImage.filter`), where a 3x3
-median launches ``csrc/median3x3.cu``.
+array is rejected by ``Dataset.set_pixel_data``. ``filter`` and
+``median3x3_array`` run on the device they are given, CUDA when it is
+``None`` (a 3x3 median launches ``csrc/median3x3.cu`` there), as the JAX
+function put a full image on the default device. The profiles pass
+``device="cpu"`` (:meth:`pylinac_tpu_torch.core.profile.ProfileMixin.filter`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import dcm
+from .utilities import resolve_device
 
 
 def geometric_center_idx(array: np.ndarray) -> float:
@@ -70,6 +71,19 @@ def stretch(array: np.ndarray, min: float = 0, max: float = 1) -> np.ndarray:
     return ground(normalize(ground(array)) * (max - min), value=min)
 
 
+def convert_to_dtype(array: np.ndarray, dtype) -> np.ndarray:
+    """Range-preserving dtype conversion (value 100 of uint8 becomes about
+    25,690 of uint16)."""
+    old_info = get_dtype_info(array.dtype)
+    if isinstance(old_info, np.finfo):
+        relative_values = stretch(array, min=0, max=1)
+    else:
+        relative_values = array.astype(float) / old_info.max
+    new_info = get_dtype_info(dtype)
+    new_range = new_info.max - new_info.min
+    return np.array(relative_values * new_range - new_info.max - 1, dtype=dtype)
+
+
 # the 3x3 median kernel computes in float32 or int32: the dtype each image
 # dtype goes to there. The way there and back is exact, uint32 with its top
 # bit flipped, which keeps its order in int32; float64 rounds to float32, as
@@ -82,15 +96,16 @@ _MEDIAN3X3_DTYPES = {np.uint8: torch.float32, np.int8: torch.float32,
 _TOP_BIT = np.uint32(0x80000000)
 
 
-def median3x3_array(array: np.ndarray, device="cpu") -> np.ndarray:
+def median3x3_array(array: np.ndarray, device=None) -> np.ndarray:
     """3x3 median (scipy "reflect" edges) of an (H, W) image, or of each
     image of a (B, H, W) stack, in the array's dtype: one
-    :func:`pylinac_tpu_torch.ops.median.median3x3` call on ``device``. Other
-    dtypes (int64, uint64, bool) take the plain sort on the CPU and raise a
-    TypeError on the card."""
+    :func:`pylinac_tpu_torch.ops.median.median3x3` call on ``device``
+    (``None`` means CUDA, and raises without it). Other dtypes (int64,
+    uint64, bool) take the plain sort on the CPU and raise a TypeError on
+    the card."""
     from ..ops import filters
 
-    device = torch.device(device)
+    device = resolve_device(device, "median3x3_array")
     work = _MEDIAN3X3_DTYPES.get(array.dtype.type)
     if work is None:
         if device.type != "cpu":
@@ -109,8 +124,9 @@ def median3x3_array(array: np.ndarray, device="cpu") -> np.ndarray:
 
 
 def filter(array: np.ndarray, size: float | int = 0.05, kind: str = "median",
-           device="cpu") -> np.ndarray:
-    """Median or Gaussian filter on ``device``; a float ``size`` in (0, 1) is
+           device=None) -> np.ndarray:
+    """Median or Gaussian filter on ``device`` (``None`` means CUDA, and
+    raises without it); a float ``size`` in (0, 1) is
     a fraction of the array's length. The median keeps the array's dtype; a
     3x3 median of a 2D array is :func:`median3x3_array`. The Gaussian
     returns float32."""
@@ -121,7 +137,7 @@ def filter(array: np.ndarray, size: float | int = 0.05, kind: str = "median",
             size = max(int(round(len(array) * size)), 1)
         else:
             raise ValueError("Float was passed but was not between 0 and 1")
-    device = torch.device(device)
+    device = resolve_device(device, "filter")
     if kind == "median":
         size = int(size)
         if size == 3 and array.ndim == 2:

@@ -1,16 +1,18 @@
 """Host image model: DICOM images, arrays and CT stacks as numpy arrays.
 
-Port of the part of ``pylinac_tpu/core/image.py`` that the batched picket
-fence, the CatPhan and the Winston-Lutz analyses use: ``load`` (``:89``),
-``BaseImage`` (``:201``: ``center``, ``filter`` (``:270``), ``crop`` with
-``edges``, ``invert``,
-``ground``, ``normalize``, ``check_inversion_by_histogram``, ``compute``,
+Port of the part of ``pylinac_tpu/core/image.py`` that the picket fence,
+CatPhan, Winston-Lutz, field and starshot analyses use: ``load``
+(``:89``), ``load_multiples`` (``:113``), ``BaseImage`` (``:201``:
+``center``, ``filter`` (``:270``), ``crop`` with ``edges``, ``roll``,
+``invert``, ``dist2edge_min`` (``:336``), ``ground``, ``normalize``,
+``check_inversion`` (``:352``), ``check_inversion_by_histogram``, ``compute``,
 ``shape``, indexing and the numpy array protocol, and ``gamma``, the Bakai
 approximation, ``:377-402``), ``DicomImage`` (``:522``: load,
 ``z_position``, ``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``,
 ``cax``), ``LinacDicomImage`` (``:635-694``: axis angles from tags, file
 names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid`` and
-``dpmm``), ``z_position`` (``:775``),
+``dpmm``), ``DicomImage.save`` (``:548``) with ``_unscale_dicom_values``,
+``z_position`` (``:775``),
 ``DicomImageStack`` (``:796-879``: UID filter, z-sort, ``slice_spacing``,
 ``metadata``) and ``_rescale_dicom_values`` (``:142``). Pixels stay on the
 host as numpy; the analyses stage them on the card. The lazy and zip
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import os.path as osp
 import re
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -28,7 +31,8 @@ import numpy as np
 
 from . import dcm
 from .array_utils import filter as _filter_array
-from .array_utils import ground, invert, normalize
+from .array_utils import convert_to_dtype, get_dtype_info, ground, invert, normalize
+from .array_utils import stretch as stretcharray
 from .geometry import Point
 from .utilities import resolve_device
 
@@ -48,6 +52,22 @@ def _rescale_dicom_values(unscaled, metadata, raw_pixels, invert_pixels):
     if invert_pixels or (invert_pixels is None and sign == -1):
         scaled = scaled.max() - scaled + scaled.min()
     return scaled
+
+
+def _unscale_dicom_values(scaled, metadata, raw_pixels, invert_pixels):
+    """Undo :func:`_rescale_dicom_values`."""
+    if raw_pixels:
+        return scaled
+    sign = metadata.get("PixelIntensityRelationshipSign")
+    if invert_pixels or (invert_pixels is None and sign == -1):
+        unscaled = scaled.max() + scaled.min() - scaled
+    else:
+        unscaled = scaled
+    slope = metadata.get("RescaleSlope")
+    intercept = metadata.get("RescaleIntercept")
+    if slope is not None and intercept is not None:
+        unscaled = (unscaled - intercept) / slope
+    return unscaled
 
 
 class BaseImage:
@@ -90,6 +110,31 @@ class BaseImage:
 
     def invert(self) -> None:
         self.array = invert(self.array)
+
+    def roll(self, direction: str = "x", amount: int = 1) -> None:
+        axis = 1 if direction == "x" else 0
+        self.array = np.roll(self.array, amount, axis=axis)
+
+    def dist2edge_min(self, point: Point | tuple) -> float:
+        """The distance from ``point`` to the nearest image edge."""
+        if isinstance(point, tuple):
+            point = Point(point)
+        rows, cols = self.shape[0], self.shape[1]
+        return min(rows - point.y, cols - point.x, point.y, point.x)
+
+    def check_inversion(self, box_size: int = 20,
+                        position: tuple[float, float] = (0.0, 0.0)) -> None:
+        """Invert when the mean of the four corner boxes is above the image
+        mean."""
+        row_pos = max(int(position[0] * self.array.shape[0]), 1)
+        col_pos = max(int(position[1] * self.array.shape[1]), 1)
+        lt_upper = self.array[row_pos: row_pos + box_size, col_pos: col_pos + box_size]
+        rt_upper = self.array[row_pos: row_pos + box_size, -col_pos - box_size: -col_pos]
+        lt_lower = self.array[-row_pos - box_size: -row_pos, col_pos: col_pos + box_size]
+        rt_lower = self.array[-row_pos - box_size: -row_pos, -col_pos - box_size: -col_pos]
+        avg = np.mean((lt_upper, lt_lower, rt_upper, rt_lower))
+        if avg > np.mean(self.array.flatten()):
+            self.invert()
 
     def ground(self) -> float:
         min_val = self.array.min()
@@ -194,6 +239,32 @@ def load(path, **kwargs) -> BaseImage:
         f"The argument `{path}` was not found to be a valid DICOM file or array")
 
 
+def load_multiples(image_file_list, method: str = "mean", stretch_each: bool = True,
+                   loader=load, **kwargs) -> BaseImage:
+    """Combine several same-shape images into the first one by ``method``
+    ("mean", "max" or "sum"), each stretched to [0, 1] first when
+    ``stretch_each``."""
+    img_list = [loader(path, **kwargs) for path in image_file_list]
+    first_img = img_list[0]
+    for img in img_list:
+        if img.shape != first_img.shape:
+            raise ValueError("Images were not the same shape")
+        if stretch_each:
+            img.array = stretcharray(img.array)
+    new_array = np.stack([img.array for img in img_list], axis=-1)
+    if method == "mean":
+        combined = np.mean(new_array, axis=-1)
+    elif method == "max":
+        combined = np.max(new_array, axis=-1)
+    elif method == "sum":
+        combined = np.sum(new_array, axis=-1)
+    else:
+        raise ValueError(f"Unknown combination method {method}")
+    first_img.array = combined
+    first_img._raw_pixels = True
+    return first_img
+
+
 class ArrayImage(BaseImage):
     """An image made directly from a numpy array, with an optional DPI at
     the detector and SID (the DPI scales to isocentre by SID / 1000)."""
@@ -229,11 +300,30 @@ class DicomImage(BaseImage):
         self._sad = sad
         self.metadata = dcm.dcmread(
             path if isinstance(path, (str, Path, bytes)) else path.read())
+        self._original_dtype = self.metadata.pixel_array.dtype
+        self._raw_pixels = raw_pixels
+        self._invert_pixels = invert_pixels
         arr = self.metadata.pixel_array
         self.array = arr.astype(dtype) if dtype is not None else arr.copy()
         self.array = _rescale_dicom_values(
             self.array, self.metadata, raw_pixels=raw_pixels,
             invert_pixels=invert_pixels)
+
+    def save(self, filename):
+        """Write the image back out as DICOM, its values unscaled to the
+        stored dtype (stretched to fit when they do not)."""
+        unscaled = _unscale_dicom_values(
+            self.array, self.metadata, self._raw_pixels, self._invert_pixels)
+        info = get_dtype_info(self._original_dtype)
+        if unscaled.max() > info.max or unscaled.min() < info.min:
+            warnings.warn("Pixel values outside original dtype range; normalizing to fit.")
+            unscaled = convert_to_dtype(unscaled, self._original_dtype)
+        if self._raw_pixels:
+            unscaled = convert_to_dtype(unscaled, self._original_dtype)
+        self.metadata.set_pixel_data(
+            np.ascontiguousarray(unscaled.astype(self._original_dtype)))
+        dcm.dcmwrite(filename, self.metadata)
+        return filename
 
     @property
     def z_position(self) -> float:

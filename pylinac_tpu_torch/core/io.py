@@ -1,14 +1,28 @@
-"""The SNC Profiler's ``.prs`` text export, numpy only.
+"""The SNC Profiler's ``.prs`` text export, numpy only, and zip archives.
 
-Port of ``SNCProfiler`` (``pylinac_tpu/core/io.py:82``). The demo and URL
-retrieval of that module are not carried over: the port reads local files.
+Port of ``TemporaryZipDirectory`` (``pylinac_tpu/core/io.py:21``) and
+``SNCProfiler`` (``:82``). The demo and URL retrieval of that module are
+not carried over: the port reads local files.
 """
 
 from __future__ import annotations
 
 import math
+import tempfile
+import zipfile
+from pathlib import Path
+from typing import BinaryIO
 
 import numpy as np
+
+
+class TemporaryZipDirectory(tempfile.TemporaryDirectory):
+    """A zip archive extracted to a temporary directory; context-managed."""
+
+    def __init__(self, zfile: str | Path | BinaryIO):
+        super().__init__()
+        with zipfile.ZipFile(zfile) as zf:
+            zf.extractall(self.name)
 
 
 class SNCProfiler:

@@ -8,9 +8,9 @@ Port of part of ``pylinac_tpu/core/profile.py``: ``_interp1d`` (``:51``),
 ``SingleProfile`` (``:519-963``: resampling with the half-pixel offset,
 normalisation, the memo cache, ``fwxm_data``, ``field_data``,
 ``inflection_data`` by derivative and by Hill fits, ``penumbra``,
-``field_calculation``), ``MultiProfile.find_peaks`` and ``.find_valleys``
-(``:994-1026``), ``CircleProfile`` and ``CollapsedCircleProfile``
-(``:1043-1200``), without plots. Peaks come from
+``field_calculation``), ``MultiProfile.find_peaks``, ``.find_valleys`` and
+``.find_fwxm_peaks`` (``:994-1040``), ``CircleProfile`` with ``roll``
+and ``CollapsedCircleProfile`` (``:1043-1200``), without plots. Peaks come from
 :mod:`pylinac_tpu_torch.ops.peaks`, the smoothing from
 :mod:`pylinac_tpu_torch.ops.filters` and the spline from
 :mod:`pylinac_tpu_torch.ops.interp`, all on the CPU, where the profiles
@@ -74,8 +74,15 @@ class ProfileMixin:
         self.values = utils.ground(self.values)
         return min_val
 
+    def normalize(self, norm_val: str | float | None = None) -> None:
+        if norm_val == "max":
+            norm_val = None
+        self.values = utils.normalize(self.values, value=norm_val)
+
     def filter(self, size: float = 0.05, kind: str = "median") -> None:
-        self.values = utils.filter(self.values, size=size, kind=kind)
+        # 1D profiles stay on the CPU, where the JAX package kept arrays of
+        # up to 2**18 elements (pylinac_tpu/ops/route.py:22)
+        self.values = utils.filter(self.values, size=size, kind=kind, device="cpu")
 
 
 class Interpolation(enum.Enum):
@@ -135,6 +142,12 @@ class ProfileBase(ProfileMixin):
         left = self.field_edge_idx(side=LEFT)
         right = self.field_edge_idx(side=RIGHT)
         return max(right, left) - min(right, left)
+
+    @cached_property
+    def center_idx(self) -> float:
+        left = self.field_edge_idx(side=LEFT)
+        right = self.field_edge_idx(side=RIGHT)
+        return abs(right - left) / 2 + left
 
 
 class FWXMProfile(ProfileBase):
@@ -605,6 +618,22 @@ class MultiProfile(ProfileMixin):
         self.valleys = [Point(value=self.values[i], idx=i) for i in valley_idxs]
         return valley_idxs, self.values[valley_idxs]
 
+    def find_fwxm_peaks(self, threshold: float = 0.3, min_distance: float = 0.05,
+                        max_number: int | None = None, search_region=(0.0, 1.0),
+                        peak_sort: str = "prominences",
+                        required_prominence=None) -> tuple[np.ndarray, np.ndarray]:
+        """Peaks placed at the centres of their full widths at half maximum,
+        rounded to the nearest sample."""
+        _, props = find_peaks(
+            self.values, threshold=threshold, peak_separation=min_distance,
+            max_number=max_number, search_region=search_region, peak_sort=peak_sort,
+            required_prominence=required_prominence)
+        fwxm_idxs = [int(round(lt + (rt - lt) / 2))
+                     for lt, rt in zip(props["left_ips"], props["right_ips"])]
+        fwxm_vals = [self.values[i] for i in fwxm_idxs]
+        self.peaks = [Point(value=v, idx=i) for i, v in zip(fwxm_idxs, fwxm_vals)]
+        return np.array(fwxm_idxs), np.array(fwxm_vals)
+
 
 class CircleProfile(MultiProfile, Circle):
     """A profile sampled around a circle, nearest pixel (scipy
@@ -619,6 +648,8 @@ class CircleProfile(MultiProfile, Circle):
         self.start_angle = start_angle
         self.ccw = ccw
         self.sampling_ratio = sampling_ratio
+        self._x_locations = None
+        self._y_locations = None
         MultiProfile.__init__(self, self._profile)
 
     @property
@@ -634,11 +665,23 @@ class CircleProfile(MultiProfile, Circle):
 
     @property
     def x_locations(self) -> np.ndarray:
-        return np.cos(self._radians) * self.radius + self.center.x
+        if self._x_locations is None:
+            return np.cos(self._radians) * self.radius + self.center.x
+        return self._x_locations
+
+    @x_locations.setter
+    def x_locations(self, arr):
+        self._x_locations = arr
 
     @property
     def y_locations(self) -> np.ndarray:
-        return np.sin(self._radians) * self.radius + self.center.y
+        if self._y_locations is None:
+            return np.sin(self._radians) * self.radius + self.center.y
+        return self._y_locations
+
+    @y_locations.setter
+    def y_locations(self, arr):
+        self._y_locations = arr
 
     @property
     def _profile(self) -> np.ndarray:
@@ -659,6 +702,19 @@ class CircleProfile(MultiProfile, Circle):
                                                         max_number, search_region)
         self._map_peaks()
         return valley_idxs, valley_vals
+
+    def find_fwxm_peaks(self, threshold: float = 0.3, min_distance: float = 0.05,
+                        max_number: int | None = None, search_region=(0.0, 1.0)):
+        peak_idxs, peak_vals = super().find_fwxm_peaks(threshold, min_distance,
+                                                       max_number, search_region=search_region)
+        self._map_peaks()
+        return peak_idxs, peak_vals
+
+    def roll(self, amount: int) -> None:
+        """Roll the profile and its sample locations ``amount`` samples back."""
+        self.values = np.roll(self.values, -amount)
+        self.x_locations = np.roll(self.x_locations, -amount)
+        self.y_locations = np.roll(self.y_locations, -amount)
 
     def _map_peaks(self) -> None:
         x_locations, y_locations = self.x_locations, self.y_locations

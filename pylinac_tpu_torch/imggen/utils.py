@@ -1,8 +1,10 @@
-"""Scenario builders for synthetic QA images: the picket fence and the
-Winston-Lutz set.
+"""Scenario builders for synthetic QA images: the picket fence, the
+Winston-Lutz set and the starshot.
 
 Port of ``generate_picketfence`` (``pylinac_tpu/imggen/utils.py:28``) and
-``generate_winstonlutz`` (``:67-131``).
+``generate_winstonlutz`` (``:67-131``), and a copy of the starshot test
+image ``make_starshot`` (``tests/models/test_starshot.py:10``), which
+draws the bench's stars (``bench.py:314-331``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,10 @@ import os.path as osp
 import shutil
 from typing import Sequence
 
+import numpy as np
+
+from ..core import dcm
+from ..core.array_utils import array_to_dicom
 from ..core.geometry import cos as deg_cos, sin as deg_sin
 from ..core.scale import MachineScale, convert
 from .layers import Layer, PerfectBBLayer
@@ -118,3 +124,45 @@ def generate_winstonlutz(
                                   table_angle=couch, tags=tags)
         file_names.append(file_name)
     return file_names
+
+
+def make_starshot(out_dir, center=(500, 520), n_spokes=5, angles_offset=10.0,
+                  size=(1000, 1040), spoke_sigma_px=4.0, dpi=100.0, noise=0.0,
+                  wobble_shift_px=0.0, name: str = "star.dcm", seed: int = 42,
+                  half_spoke: float = 0.0, invert: bool = False):
+    """A synthetic starshot DICOM in ``out_dir``: ``n_spokes`` Gaussian lines
+    through ``center`` (x, y px), every other one shifted by
+    ``wobble_shift_px`` across itself to make a wobble, scaled to a peak of
+    3000 as uint16 at SID 1000, with Gaussian noise of sigma ``noise`` from
+    ``seed``. The defaults draw the test image; the port adds
+    ``half_spoke``, the relative height of one more spoke drawn on one side
+    of the centre only (an odd peak that fails the first combos of the
+    retry ladder), and ``invert``, which stores 3000 minus the image (dark
+    spokes, as on film). Returns the file's path."""
+    h, w = size
+    cy, cx = center[1], center[0]
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    img = np.zeros((h, w))
+    rng = np.random.default_rng(seed)
+    for i in range(n_spokes):
+        theta = np.deg2rad(angles_offset + i * 180.0 / n_spokes)
+        off = wobble_shift_px * (1 if i % 2 else -1)
+        dx, dy = np.cos(theta), np.sin(theta)
+        d = np.abs(-(yy - cy - off * dx) * dx + (xx - cx + off * dy) * dy)
+        img += np.exp(-0.5 * (d / spoke_sigma_px) ** 2)
+    if half_spoke:
+        theta = np.deg2rad(angles_offset + 90.0 / n_spokes)
+        dx, dy = np.cos(theta), np.sin(theta)
+        d = np.abs(-(yy - cy) * dx + (xx - cx) * dy)
+        ahead = (xx - cx) * dx + (yy - cy) * dy > 0
+        img += half_spoke * ahead * np.exp(-0.5 * (d / spoke_sigma_px) ** 2)
+    img = img / img.max() * 3000
+    if noise:
+        img += rng.normal(0, noise, img.shape)
+    if invert:
+        img = 3000 - img
+    arr = np.clip(img, 0, 65535).astype(np.uint16)
+    ds = array_to_dicom(arr, sid=1000.0, gantry=0, coll=0, couch=0, dpi=dpi)
+    path = osp.join(str(out_dir), name)
+    dcm.dcmwrite(path, ds)
+    return path

@@ -21,10 +21,10 @@ The arithmetic follows the JAX functions op for op in float32: the grid
 is rounded as they round it (``x0`` and ``dx`` in float64, then float32),
 Python scalars are taken as float32 as JAX takes weak-typed scalars, the
 grid, ``to_orig`` and the linear interpolations round once as XLA's fused
-multiply-adds do on the CPU (:func:`_fma`), and divisions by a scalar that
-is not a power of two are true divisions (the card would multiply by a
-reciprocal). Two changes keep the CPU and the card in step: the sums of
-the fits and of the projections go through
+multiply-adds do on the CPU (:func:`pylinac_tpu_torch.ops.stats.fma_f32`),
+and divisions by a scalar that is not a power of two are true divisions
+(the card would multiply by a reciprocal). Two changes keep the CPU and
+the card in step: the sums of the fits and of the projections go through
 :func:`pylinac_tpu_torch.ops.stats.wide_sum` (float64, rounded once), and
 the 3x3 normal equations are solved in float64, where JAX added and solved
 in float32. A parabola that opens upward puts the "top" at the higher
@@ -42,7 +42,7 @@ from .filters import gaussian_filter1d
 from .optimize import (hill_func, hill_gradient, hill_inflection, hill_params, hill_x_at_y,
                        levenberg_marquardt)
 from .peaks import MainPeak, _distance_filter, _local_maxima, main_peak, main_peak_ips
-from .stats import wide_sum
+from .stats import fma_f32 as _fma, wide_sum
 
 # slots for the above-threshold extrema of the smoothed derivative (the 0.8
 # relative threshold keeps only the field edges, so a few slots suffice)
@@ -89,14 +89,6 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
 
 def _fl(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
-
-
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``a * b + c`` of float32 values rounded once, as XLA's fused
-    multiply-add gives it: the product is exact in float64. (Rounding the
-    float64 sum to float32 rounds twice, which can differ from one rounding
-    only when the sum lies within 2**-53 of a float32 rounding midpoint.)"""
-    return _fl(a.to(torch.float64) * b + c)
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,28 @@
 Port of ``nelder_mead`` (``pylinac_tpu/ops/optimize.py:26-108``), step for
 step in float32: scipy's initial simplex, the reflect / expand / contract /
 shrink decisions, a stable sort of the simplex each iteration, and the
-``xatol`` and ``fatol`` termination. The JAX function ran as a
+``xatol`` and ``fatol`` termination. The expansion and contraction points
+round once, as XLA's fused multiply-adds give them on the CPU
+(:func:`pylinac_tpu_torch.ops.stats.fma_f32`); with the starshot's
+distance written the same way, ``nelder_mead_batch`` gives
+``jax.vmap(nelder_mead)``'s bits on the star lines. The JAX function ran as a
 ``lax.while_loop`` inside a jitted pipeline; here it is a Python loop.
 
-Callers run it on CPU tensors. Its one user, the Winston-Lutz isocentre
-fit, is a 3-parameter minimax over a dozen rays: on the card each
-iteration's dozen launches and the host sync of its termination test would
-cost more than the whole fit. That is host placement, not a fallback: the
-image work (fills, BB scan) stays on the card.
+Callers run it on CPU tensors. Its users, the Winston-Lutz isocentre fit
+(a 3-parameter minimax over a dozen rays) and the single-image starshot's
+wobble, are tiny: on the card each iteration's dozen launches and the host
+sync of its termination test would cost more than the whole fit. That is
+host placement, not a fallback: the image work stays on the card.
+
+``nelder_mead_batch`` is the same method over a leading problem dim, as
+``jax.vmap(nelder_mead)`` ran it in the starshot pipeline
+(``pylinac_tpu/ops/star_pipeline.py:163``): a problem that meets its
+tolerances freezes while the others go on, as a batched
+``lax.while_loop`` freezes it, so each problem takes the same steps, bit
+for bit, as :func:`nelder_mead` on its own. The host reads the all-done
+flag only every ``_SYNC_EVERY`` = 16 iterations; frozen problems do not
+move, so that number changes no result. The starshot pipeline runs
+it on CPU tensors too (``ops/star_pipeline.py``, measured there).
 
 ``levenberg_marquardt`` (``:110-143``), ``hill_func`` (``:146``),
 ``hill_fit`` (``:151``), ``hill_inflection`` (``:171``), ``hill_gradient``
@@ -32,7 +46,7 @@ from typing import Callable
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from .stats import wide_sum
+from .stats import fma_f32, wide_sum
 
 
 def nelder_mead(
@@ -76,9 +90,10 @@ def nelder_mead(
         xbar = torch.mean(sim[:-1], dim=0)
         xr = (1 + rho) * xbar - rho * sim[-1]
         fxr = f(xr)
-        xe = (1 + rho * chi) * xbar - rho * chi * sim[-1]
+        # XLA fuses these two into multiply-adds on the CPU
+        xe = fma_f32(xbar, 1 + rho * chi, -(rho * chi * sim[-1]))
         fxe = f(xe)
-        xc = (1 + psi * rho) * xbar - psi * rho * sim[-1]
+        xc = fma_f32(xbar, 1 + psi * rho, -(psi * rho * sim[-1]))
         fxc = f(xc)
         xcc = (1 - psi) * xbar + psi * sim[-1]
         fxcc = f(xcc)
@@ -106,6 +121,84 @@ def nelder_mead(
             fsim = torch.stack([f(p) for p in sim])
         sim, fsim = sort_simplex(sim, fsim)
     return sim[0], fsim[0]
+
+
+# iterations of nelder_mead_batch between reads of its all-done flag
+_SYNC_EVERY = 16
+
+
+def nelder_mead_batch(
+    f: Callable[[torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    xatol: float = 1e-4,
+    fatol: float = 1e-4,
+    max_iter: int = 200,
+    nonzdelt: float = 0.05,
+    zdelt: float = 0.00025,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Minimise P problems from their (P, n) starts ``x0``; returns the
+    (P, n) best points and (P,) best values.
+
+    ``f`` maps (P, m, n) float32 points, m of them a problem, to (P, m)
+    values, each problem's row by its own function; it runs on the device
+    of ``x0``. The arithmetic is :func:`nelder_mead`'s."""
+    x0 = x0.to(torch.float32)
+    P, n = x0.shape
+    rho, chi, psi, sigma = 1.0, 2.0, 0.5, 0.5
+    ar = torch.arange(P, device=x0.device)
+
+    # scipy's initial simplex
+    sim = x0[:, None, :].repeat(1, n + 1, 1)
+    for k in range(n):
+        sim[:, k + 1, k] = torch.where(x0[:, k] != 0, x0[:, k] * (1 + nonzdelt),
+                                       torch.tensor(zdelt, dtype=torch.float32, device=x0.device))
+    fsim = f(sim)                                              # (P, n + 1)
+
+    def sort_simplex(sim, fsim):
+        order = torch.argsort(fsim, dim=1, stable=True)
+        return sim[ar[:, None], order], fsim.gather(1, order)
+
+    sim, fsim = sort_simplex(sim, fsim)
+    done = torch.zeros(P, dtype=torch.bool, device=x0.device)
+    for i in range(max_iter):
+        xtol_ok = torch.abs(sim[:, 1:] - sim[:, :1]).amax(dim=(1, 2)) <= xatol
+        ftol_ok = torch.abs(fsim[:, :1] - fsim[:, 1:]).amax(dim=1) <= fatol
+        done = done | (xtol_ok & ftol_ok)
+        if i % _SYNC_EVERY == 0 and bool(done.all()):
+            break
+        xbar = torch.mean(sim[:, :-1], dim=1)                  # (P, n)
+        worst = sim[:, -1]
+        xr = (1 + rho) * xbar - rho * worst
+        xe = fma_f32(xbar, 1 + rho * chi, -(rho * chi * worst))
+        xc = fma_f32(xbar, 1 + psi * rho, -(psi * rho * worst))
+        xcc = (1 - psi) * xbar + psi * worst
+        fxr, fxe, fxc, fxcc = f(torch.stack([xr, xe, xc, xcc], dim=1)).unbind(1)
+
+        # scipy's decision tree, as the JAX function's masks
+        best, second, last = fsim[:, 0], fsim[:, -2], fsim[:, -1]
+        use_expand = (fxr < best) & (fxe < fxr)
+        use_reflect = ((fxr < best) & (fxe >= fxr)) | ((fxr >= best) & (fxr < second))
+        use_contract_out = (fxr >= second) & (fxr < last) & (fxc <= fxr)
+        use_contract_in = (fxr >= second) & (fxr >= last) & (fxcc < last)
+        did_replace = use_expand | use_reflect | use_contract_out | use_contract_in
+
+        def pick(e, r, c, cc):
+            return torch.where(use_expand[:, None], e, torch.where(
+                use_reflect[:, None], r, torch.where(use_contract_out[:, None], c, cc)))
+
+        new_pt = pick(xe, xr, xc, xcc)
+        new_f = pick(fxe[:, None], fxr[:, None], fxc[:, None], fxcc[:, None])
+        sim_replaced = torch.cat([sim[:, :-1], new_pt[:, None]], dim=1)
+        fsim_replaced = torch.cat([fsim[:, :-1], new_f], dim=1)
+        # shrink toward the best vertex when no acceptable point was found
+        sim_shrunk = sim[:, :1] + sigma * (sim - sim[:, :1])
+        fsim_shrunk = f(sim_shrunk)
+        sim_next = torch.where(did_replace[:, None, None], sim_replaced, sim_shrunk)
+        fsim_next = torch.where(did_replace[:, None], fsim_replaced, fsim_shrunk)
+        sim_next, fsim_next = sort_simplex(sim_next, fsim_next)
+        sim = torch.where(done[:, None, None], sim, sim_next)
+        fsim = torch.where(done[:, None], fsim, fsim_next)
+    return sim[:, 0], fsim[:, 0]
 
 
 def _jacobian(residual_fn: Callable, p: torch.Tensor, args_n: list[torch.Tensor],

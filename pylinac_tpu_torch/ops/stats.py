@@ -18,6 +18,12 @@ properties (``ops/label.py``) and of :func:`radial_average`, added in one
 fixed order on each device (no atomics), so that every run of the same
 input gives the same bits. So is :func:`wide_sum`, the float32 sums of the
 field-analysis fits (``ops/field_pipeline.py``, ``ops/optimize.py``).
+
+:func:`percentile_f32` and :func:`linspace_f32` are ``jnp.percentile`` and
+``jnp.linspace`` (with float32 ends) step for step in float32, where the
+starshot pipeline (``pylinac_tpu/ops/star_pipeline.py:77``, ``:96``,
+``:109``) calls them: their ranks, weights and sums round where JAX's do,
+so they give JAX's bits, which numpy's float64 formula does not.
 """
 
 from __future__ import annotations
@@ -50,6 +56,62 @@ def percentile_exact(values: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
     lo, hi = stats[:, 0::2], stats[:, 1::2]
     w = torch.tensor(mix, dtype=torch.float32, device=values.device)
     return lo + w * (hi - lo)
+
+
+def percentile_f32(values: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
+    """``jnp.percentile(item, qs)`` for each item of a (B, ...) batch, as
+    float32 of shape (B, len(qs)): q / 100 and the rank q * (n - 1) in
+    float32, then ``lo * (1 - w) + hi * w`` in float32
+    (jax ``_src/numpy/reductions.py``, ``_quantile``)."""
+    n = int(np.prod(values.shape[1:]))
+    q = np.asarray(qs, np.float32) / np.float32(100)
+    rank = q * (np.float32(n) - np.float32(1))
+    low, high = np.floor(rank), np.ceil(rank)
+    hw = rank - low
+    lw = np.float32(1) - hw
+    ranks = np.stack([np.clip(low, 0, n - 1), np.clip(high, 0, n - 1)], axis=1).astype(np.int64)
+    stats = order_statistics(values, ranks.reshape(-1).tolist())
+    lo, hi = stats[:, 0::2], stats[:, 1::2]
+    return (lo * torch.from_numpy(lw).to(values.device)
+            + hi * torch.from_numpy(hw).to(values.device))
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` of float32 values rounded once, as XLA's fused
+    multiply-add gives it on the CPU: the product is exact in float64.
+    (Rounding the float64 sum to float32 rounds twice, which can differ
+    from one rounding only when the sum lies within 2**-53 of a float32
+    rounding midpoint.)"""
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+# XLA unrolls linspace's loop up to this many points and then fuses its
+# second point the other way (see linspace_f32)
+_LINSPACE_UNROLLED = 33
+
+
+def linspace_f32(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` of float32 ends of shape (...),
+    as (..., num) float32, as XLA compiles it on the CPU: ``s = iota * c``
+    with ``c`` the float32 reciprocal of ``num - 1``, ``stop * s`` as
+    ``iota * (stop * c)``, added to ``start * (1 - s)`` in one fused
+    multiply-add, and the last point ``stop`` exactly (jax
+    ``_src/numpy/array_creation.py``, ``_linspace``). Where XLA unrolls the
+    loop (up to 33 points) the multiply by 1 of the second point folds
+    away, and the product ``start * (1 - s)`` fuses there instead."""
+    start = start.to(torch.float32)[..., None]
+    stop = stop.to(torch.float32)[..., None]
+    if num == 1:
+        return start
+    div = num - 1
+    c = np.float32(1) / np.float32(div)
+    it = torch.arange(div, dtype=torch.float32, device=start.device)
+    one_minus = 1 - it * c
+    stop_c = stop * c
+    out = fma_f32(it, stop_c, start * one_minus)
+    if 1 < div <= _LINSPACE_UNROLLED:
+        out[..., 1:2] = fma_f32(start, one_minus[1:2], stop_c)
+    return torch.cat([out, stop], dim=-1)
 
 
 def noise_power_spectrum_2d(rois: torch.Tensor, pixel_size: float) -> torch.Tensor:

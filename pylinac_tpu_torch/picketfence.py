@@ -1,25 +1,45 @@
-"""Batched picket fence (MLC positional QA) analysis on the card.
+"""Picket fence (MLC positional QA) analysis, single image and batched.
 
-Port of the batched session API of ``pylinac_tpu/picketfence.py``:
-``Orientation`` ``:39``, ``MLCArrangement`` ``:46``, ``MLC`` ``:68``,
-``PFResult`` ``:80``, ``PicketFenceBatch`` ``:909-1292`` (without its
-``mesh`` option) and ``analyze_batch`` ``:1295``. The host loads and orients
-the frames and builds the results with numpy, as the JAX class does; the
-analysis runs in :func:`pylinac_tpu_torch.ops.picket_pipeline.picket_fence_batch`
-on the device given to :meth:`PicketFenceBatch.analyze`.
+Port of ``pylinac_tpu/picketfence.py``: ``Orientation`` ``:39``,
+``MLCArrangement`` ``:46``, ``MLC`` ``:68``, ``PFResult`` ``:80``, the
+single-image ``PFDicomImage`` ``:102-143``, ``_batched_fwxm`` ``:145-156``,
+``MLCValue`` ``:159-309``, ``Picket`` ``:311-390`` and ``PicketFence``
+``:391-790``, the batched ``PicketFenceBatch`` ``:909-1292`` (without its
+``mesh`` option) and ``analyze_batch`` ``:1295``.
+
+``PicketFence`` and ``PFDicomImage`` take a ``device`` (``None`` means
+CUDA, and raises without it): the image's de-spike, a 3x3 median repeated
+while the frame still has outliers, and the optional ``filter`` run there
+(``csrc/median3x3.cu`` on the card), and so does ``_batched_fwxm``, one
+peak analysis over every kiss profile. The rest is numpy on the host, as
+in the JAX class. Left out: ``log=`` (it needs the log analyzer, not yet
+ported; passing it raises ``NotImplementedError``), the plots,
+``plotly_analyzed_images``, ``publish_pdf``, the QuAAC datapoints,
+``from_url``, ``from_demo_image`` and ``run_demo``.
+
+The batch's host loads and orients the frames and builds the results with
+numpy, as the JAX class does; its analysis runs in
+:func:`pylinac_tpu_torch.ops.picket_pipeline.picket_fence_batch` on the
+device given to :meth:`PicketFenceBatch.analyze`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import statistics
 import warnings
+from functools import cached_property
+from io import BytesIO
+from itertools import groupby
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from .core import image
+from .core.geometry import Line, Point
+from .core.profile import MultiProfile
 from .core.utilities import ResultBase, convert_to_enum, resolve_device
 from .ops import peaks
 from .ops.picket_pipeline import PFLeafConfig, PFParams, picket_fence_batch
@@ -104,6 +124,596 @@ class PFResult(ResultBase):
     mlc_positions_by_leaf: dict[str, list[float]]
     mlc_errors_by_leaf: dict[str, list[float]]
     cax: dict
+
+
+class PFDicomImage(image.LinacDicomImage):
+    """A picket fence image: edges cropped, noise de-spiked on ``device``
+    (``None`` means CUDA), inversion checked by the corners."""
+
+    def __init__(self, path, device=None, **kwargs):
+        crop_mm = kwargs.pop("crop_mm", 3)
+        self._central_axis = kwargs.pop("central_axis", None)
+        super().__init__(path, **kwargs)
+        self.device = resolve_device(device, "PFDicomImage")
+        crop_pixels = int(round(crop_mm * self.dpmm))
+        self.crop(pixels=crop_pixels)
+        self._check_for_noise()
+        self.check_inversion(box_size=10, position=(0.01, 0.01))
+
+    def _check_for_noise(self) -> None:
+        safety_stop = 5
+        while self._has_noise() and safety_stop > 0:
+            self.filter(size=3, device=self.device)
+            safety_stop -= 1
+
+    def _has_noise(self) -> bool:
+        vmin = self.array.min()
+        vmax = self.array.max()
+        near_min, near_max = np.percentile(self.array, [0.5, 99.5])
+        max_is_extreme = vmax > near_max * 1.25
+        min_is_extreme = (vmin < near_min * 0.75) and (
+            abs(vmin - near_min) > 0.1 * (near_max - near_min))
+        return max_is_extreme or min_is_extreme
+
+    def adjust_for_sag(self, sag: int, orientation) -> None:
+        orient = convert_to_enum(orientation, Orientation)
+        direction = "y" if orient == Orientation.UP_DOWN else "x"
+        self.roll(direction, sag)
+
+    @property
+    def center(self) -> Point:
+        if self._central_axis is not None:
+            cax_shift = Point(x=self._central_axis.x * self.dpmm,
+                              y=self._central_axis.y * self.dpmm)
+            cax = super().center + cax_shift
+            cax.y = 2 * (self.shape[0] // 2) - cax.y
+            return Point(cax.x, cax.y)
+        return super().center
+
+
+def _batched_fwxm(profiles: np.ndarray, fwxm_height: float,
+                  device) -> tuple[np.ndarray, np.ndarray]:
+    """(N, W) grounded, normalised kiss profiles to the (left_ips,
+    right_ips) of each profile's most prominent peak: one peak analysis of
+    all of them on ``device``."""
+    res = peaks.peak_analysis(torch.from_numpy(profiles).to(device), K=8,
+                              rel_height=1 - fwxm_height)
+    best = torch.argmax(torch.where(res.valid, res.prominences, float("-inf")), dim=1)
+    lefts = res.left_ips.gather(1, best[:, None])[:, 0]
+    rights = res.right_ips.gather(1, best[:, None])[:, 0]
+    return lefts.cpu().numpy().astype(np.float64), rights.cpu().numpy().astype(np.float64)
+
+
+class MLCValue:
+    """One MLC kiss (or leaf-pair tips) measurement."""
+
+    def __init__(self, picket_num, approx_idx, leaf_width, leaf_center,
+                 picket_spacing, orientation, leaf_analysis_width_ratio, tolerance,
+                 action_tolerance, leaf_num, approx_peak_val, image_window, image,
+                 fwxm, separate_leaves, nominal_gap_mm):
+        self._approximate_idx = approx_idx
+        self.picket_num = picket_num
+        self._approximate_peak_vale = approx_peak_val
+        self.leaf_width_px = leaf_width * image.dpmm
+        self._leaf_center = leaf_center
+        self.leaf_center_px = leaf_center * image.dpmm + (
+            image.shape[0] / 2 if orientation == Orientation.UP_DOWN else image.shape[1] / 2)
+        self.leaf_num = leaf_num
+        self._image_window = image_window
+        self._image = image
+        self._fwxm = fwxm
+        self._analysis_ratio = leaf_analysis_width_ratio
+        self._spacing = picket_spacing
+        self._orientation = orientation
+        self._tolerance = tolerance
+        self._action_tolerance = action_tolerance
+        self._separate_leaves = separate_leaves
+        self._nominal_gap_mm = nominal_gap_mm
+        self._fit = None
+        self.position: Sequence[float] = ()
+        self._field_width_px: float = 0.0
+
+    @property
+    def kiss_profile_values(self) -> np.ndarray:
+        """The grounded, max-normalised median profile across the window."""
+        if self._orientation == Orientation.UP_DOWN:
+            pix_vals = np.median(self._image_window, axis=0)
+        else:
+            pix_vals = np.median(self._image_window, axis=1)
+        pix_vals = pix_vals - pix_vals.min()
+        vmax = pix_vals.max()
+        return pix_vals / vmax if vmax > 0 else pix_vals
+
+    def set_positions(self, left_ip: float, right_ip: float) -> None:
+        """Install the batched FWXM results (crossings relative to the
+        window)."""
+        offset = max(self._approximate_idx - self._spacing / 2, 0)
+        self._field_width_px = right_ip - left_ip
+        if self._separate_leaves:
+            self.position = (left_ip + offset, right_ip + offset)
+        else:
+            self.position = ((left_ip + right_ip) / 2 + offset,)
+
+    @property
+    def field_width_mm(self) -> float:
+        return self._field_width_px / self._image.dpmm
+
+    def __repr__(self) -> str:
+        return f"Leaf: {self.leaf_num}, Picket: {self.picket_num}"
+
+    @property
+    def full_leaf_nums(self) -> Sequence[str | int]:
+        if not self._separate_leaves:
+            return [self.leaf_num]
+        return [f"{LEFT_MLC_PREFIX}{self.leaf_num}", f"{RIGHT_MLC_PREFIX}{self.leaf_num}"]
+
+    @property
+    def position_mm(self) -> Sequence[float]:
+        return [pos / self._image.dpmm for pos in self.position]
+
+    @property
+    def passed(self) -> Sequence[bool]:
+        return [abs(error) < self._tolerance for error in self.error]
+
+    @property
+    def passed_action(self) -> Sequence[bool] | None:
+        return ([abs(error) < self._action_tolerance for error in self.error]
+                if self._action_tolerance is not None else [True, True])
+
+    @property
+    def picket_positions(self) -> Sequence[float]:
+        picket_pos = []
+        for line, sign in zip(self.marker_lines, (-1, 1)):
+            if self._orientation == Orientation.UP_DOWN:
+                picket = self._fit(line.center.y)
+            else:
+                picket = self._fit(line.center.x)
+            if self._separate_leaves:
+                mag_factor = self._image.sid / 1000
+                picket += sign * self._nominal_gap_mm * mag_factor / 2 * self._image.dpmm
+            picket_pos.append(picket / self._image.dpmm)
+        return picket_pos
+
+    @property
+    def error(self) -> Sequence[float]:
+        errors = []
+        for line, sign in zip(self.marker_lines, (-1, 1)):
+            if self._orientation == Orientation.UP_DOWN:
+                picket_pos = self._fit(line.center.y)
+                mlc_pos = line.center.x
+            else:
+                picket_pos = self._fit(line.center.x)
+                mlc_pos = line.center.y
+            if self._separate_leaves:
+                picket_pos += sign * self._nominal_gap_mm / 2 * self._image.dpmm
+            errors.append((mlc_pos - picket_pos) / self._image.dpmm)
+        return errors
+
+    @property
+    def max_abs_error(self) -> float:
+        return float(np.max(np.abs(self.error)))
+
+    @property
+    def marker_lines(self) -> list[Line]:
+        upper = self.leaf_center_px - self.leaf_width_px / 2 * self._analysis_ratio
+        lower = self.leaf_center_px + self.leaf_width_px / 2 * self._analysis_ratio
+        lines = []
+        for mlc_position in self.position:
+            if self._orientation == Orientation.UP_DOWN:
+                lines.append(Line((mlc_position, upper), (mlc_position, lower)))
+            else:
+                lines.append(Line((upper, mlc_position), (lower, mlc_position)))
+        return lines
+
+
+class Picket:
+    """One picket: a line fit through its MLC measurements."""
+
+    def __init__(self, mlc_measurements: list[MLCValue], orientation, image, tolerance,
+                 separate_leaves, nominal_gap):
+        self.mlc_meas = mlc_measurements
+        self.tolerance = tolerance
+        self.orientation = orientation
+        self.image = image
+        self._separate_leaves = separate_leaves
+        self._nominal_gap = nominal_gap
+        self.fit = self.get_fit()
+        for m in self.mlc_meas:
+            m._fit = self.fit
+
+    def get_fit(self) -> np.poly1d:
+        x = [line.point1.y for m in self.mlc_meas for line in m.marker_lines]
+        y = [line.point1.x for m in self.mlc_meas for line in m.marker_lines]
+        if self.orientation == Orientation.UP_DOWN:
+            fit = np.polyfit(x, y, 1)
+        else:
+            fit = np.polyfit(y, x, 1)
+        return np.poly1d(fit)
+
+    def skew(self) -> float:
+        return float(np.rad2deg(self.fit.coefficients[0]))
+
+    @property
+    def dist2cax(self) -> float:
+        length = (self.image.shape[0] if self.orientation == Orientation.UP_DOWN
+                  else self.image.shape[1])
+        x_data = np.arange(length)
+        y_data = self.fit(x_data)
+        idx = int(round(len(x_data) / 2))
+        if self.orientation == Orientation.UP_DOWN:
+            axis = "x"
+            p1 = Point(y_data[idx], x_data[idx])
+        else:
+            axis = "y"
+            p1 = Point(x_data[idx], y_data[idx])
+        return (getattr(self.image.center, axis) - getattr(p1, axis)) / self.image.dpmm
+
+    @property
+    def left_guard_separated(self) -> Sequence[np.poly1d]:
+        l_fit = np.copy(self.fit.coefficients)
+        l_fit[-1] += self.tolerance * self.image.dpmm
+        if not self._separate_leaves:
+            return [np.poly1d(l_fit)]
+        other = np.copy(l_fit)
+        l_fit[-1] += self._nominal_gap / 2 * self.image.dpmm
+        other[-1] -= self._nominal_gap / 2 * self.image.dpmm
+        return [np.poly1d(l_fit), np.poly1d(other)]
+
+    @property
+    def right_guard_separated(self) -> Sequence[np.poly1d]:
+        r_fit = np.copy(self.fit.coefficients)
+        r_fit[-1] -= self.tolerance * self.image.dpmm
+        if not self._separate_leaves:
+            return [np.poly1d(r_fit)]
+        other = np.copy(r_fit)
+        r_fit[-1] -= self._nominal_gap / 2 * self.image.dpmm
+        other[-1] += self._nominal_gap / 2 * self.image.dpmm
+        return [np.poly1d(r_fit), np.poly1d(other)]
+
+
+class PicketFence:
+    """MLC picket fence analysis of one image. The de-spike, the optional
+    median ``filter`` and the kiss-profile FWXM run on ``device``
+    (``None`` means CUDA, and raises without it)."""
+
+    def __init__(self, filename, filter: int | None = None, log: str | None = None,
+                 use_filename: bool = False,
+                 mlc: MLC | MLCArrangement | str = MLC.MILLENNIUM,
+                 crop_mm: int = 3, image_kwargs: dict | None = None, device=None):
+        if log is not None:
+            raise NotImplementedError(
+                "log= needs the machine log analyzer (pylinac_tpu/log_analyzer.py), "
+                "which is not ported yet")
+        self.device = resolve_device(device, "PicketFence")
+        if filename is not None:
+            img_kwargs = image_kwargs or {}
+            self.image = PFDicomImage(filename, use_filenames=use_filename,
+                                      crop_mm=crop_mm, device=self.device, **img_kwargs)
+            if isinstance(filter, int):
+                self.image.filter(size=filter, device=self.device)
+            self.image.ground()
+            self.image.normalize()
+        self._is_analyzed = False
+        self.mlc = _get_mlc_arrangement(mlc)
+
+    @classmethod
+    def from_bb_setup(cls, *args, bb_image, bb_diameter: float, **kwargs):
+        """Locate the true CAX from a BB setup image, then analyse the
+        picket fence image relative to that BB position."""
+        device = kwargs.get("device")
+        bb_img = image.load(bb_image)
+
+        def _metric(invert: bool):
+            from .metrics.image import SizedDiskLocator
+
+            return SizedDiskLocator.from_center_physical(
+                expected_position_mm=(0, 0),
+                search_window_mm=(30 + bb_diameter, 30 + bb_diameter),
+                radius_mm=bb_diameter / 2,
+                radius_tolerance_mm=bb_diameter * 0.1 + 1,
+                invert=invert, device=device)
+
+        try:
+            caxs = bb_img.compute(metrics=_metric(invert=True))
+        except ValueError:
+            caxs = bb_img.compute(metrics=_metric(invert=False))
+        cax_shift = caxs[0] - bb_img.center
+        cax_physical_shift = Point(x=cax_shift.x / bb_img.dpmm, y=cax_shift.y / bb_img.dpmm)
+        instance = cls(*args, **kwargs, image_kwargs={"central_axis": cax_physical_shift})
+        instance._from_bb_setup = True
+        instance._bb_image = bb_img
+        return instance
+
+    @classmethod
+    def from_multiple_images(cls, path_list: list, stretch_each: bool = True,
+                             method: str = "mean", mlc=MLC.MILLENNIUM, device=None,
+                             **kwargs):
+        """One picket fence from several images combined by ``method``."""
+        obj = cls(None, mlc=mlc, device=device)
+        with BytesIO() as stream:
+            img = image.load_multiples(path_list, method=method, stretch_each=stretch_each,
+                                       loader=PFDicomImage, device=obj.device, **kwargs)
+            img.save(stream)
+            stream.seek(0)
+            obj.image = PFDicomImage(stream, device=obj.device, **kwargs)
+        obj.image.ground()
+        obj.image.normalize()
+        return obj
+
+    # -- result properties --------------------------------------------------
+    @property
+    def passed(self) -> bool:
+        return all(all(m.passed) for m in self.mlc_meas)
+
+    @property
+    def percent_passing(self) -> float:
+        statuses = [p for m in self.mlc_meas for p in m.passed]
+        return float(100 * sum(statuses) / len(statuses))
+
+    @property
+    def max_error(self) -> float:
+        return float(np.max(np.abs(self._flattened_errors())))
+
+    @property
+    def max_error_picket(self) -> int:
+        return max(self.mlc_meas, key=lambda m: np.max(np.abs(m.error))).picket_num
+
+    def picket_width_stat(self, picket: int, metric: str = "max") -> float:
+        widths = [m.field_width_mm for m in self.mlc_meas if m.picket_num == picket]
+        if metric == "max":
+            return max(widths)
+        if metric == "median":
+            return statistics.median(widths)
+        if metric == "mean":
+            return statistics.mean(widths)
+        if metric == "min":
+            return min(widths)
+        raise ValueError(f"Unknown metric {metric}")
+
+    @property
+    def max_error_leaf(self) -> int | str:
+        max_meas = max(self.mlc_meas, key=lambda m: np.max(np.abs(m.error)))
+        if not self.separate_leaves:
+            return max_meas.full_leaf_nums[0]
+        if abs(max_meas.error[0]) > abs(max_meas.error[1]):
+            return max_meas.full_leaf_nums[0]
+        return max_meas.full_leaf_nums[1]
+
+    def _flattened_errors(self) -> list[float]:
+        return [e for m in self.mlc_meas for e in m.error]
+
+    def failed_leaves(self) -> list[int] | list[str]:
+        if not self._is_analyzed:
+            raise ValueError("The PF image has not been analyzed. Use .analyze() first.")
+        failing = [m for m in self.mlc_meas if not all(m.passed)]
+        if not self.separate_leaves:
+            return list({m.leaf_num for m in failing})
+        out = []
+        for m in failing:
+            for idx, passed in enumerate(m.passed):
+                if not passed:
+                    out.append(m.full_leaf_nums[idx])
+        return list(dict.fromkeys(out))
+
+    @property
+    def abs_median_error(self) -> float:
+        return float(np.median(np.abs(self._flattened_errors())))
+
+    @property
+    def num_pickets(self) -> int:
+        return len(self.pickets)
+
+    @property
+    def mean_picket_spacing(self) -> float:
+        sorted_pickets = sorted(self.pickets, key=lambda x: x.dist2cax)
+        return float(np.mean([
+            abs(sorted_pickets[i].dist2cax - sorted_pickets[i + 1].dist2cax)
+            for i in range(len(sorted_pickets) - 1)]))
+
+    def mlc_skew(self) -> float:
+        return float(np.mean([p.skew() for p in self.pickets]))
+
+    @cached_property
+    def orientation(self) -> Orientation:
+        """The given orientation, or the one the row and column sums' upper
+        percentile spreads show."""
+        if self._orientation is not None:
+            return convert_to_enum(self._orientation, Orientation)
+        return PicketFenceBatch._detect_orientation(self.image.array)
+
+    # -- core analysis ------------------------------------------------------
+    def analyze(self, tolerance: float = 0.5, action_tolerance: float | None = None,
+                num_pickets: int | None = None, sag_adjustment: float = 0,
+                orientation: Orientation | str | None = None, invert: bool = False,
+                leaf_analysis_width_ratio: float = 0.4,
+                picket_spacing: float | None = None, height_threshold: float = 0.5,
+                edge_threshold: float = 1.5, peak_sort: str = "peak_heights",
+                required_prominence: float = 0.2, fwxm: int = 50,
+                separate_leaves: bool = False, nominal_gap_mm: float = 3,
+                central_axis: Point | None = None) -> None:
+        """Analyse the image (arguments as
+        ``pylinac_tpu.picketfence.PicketFence.analyze``); the kiss profiles'
+        FWXM runs on the class's device."""
+        if action_tolerance is not None and tolerance < action_tolerance:
+            raise ValueError("Tolerance cannot be lower than the action tolerance")
+        self.tolerance = tolerance
+        self.action_tolerance = action_tolerance
+        self.leaf_analysis_width = leaf_analysis_width_ratio
+        self.separate_leaves = separate_leaves
+        if central_axis:
+            self.image._central_axis = central_axis
+        if invert:
+            self.image.invert()
+        self._orientation = orientation
+        if sag_adjustment != 0:
+            sag_pixels = int(round(sag_adjustment * self.image.dpmm))
+            self.image.adjust_for_sag(sag_pixels, self.orientation)
+
+        if self.orientation == Orientation.UP_DOWN:
+            leaf_prof = np.mean(self.image, 0)
+        else:
+            leaf_prof = np.mean(self.image, 1)
+        leaf_prof = MultiProfile(leaf_prof)
+        leaf_prof.normalize()
+        peak_idxs, peak_vals = leaf_prof.find_fwxm_peaks(
+            min_distance=0.02, threshold=height_threshold, max_number=num_pickets,
+            peak_sort=peak_sort, required_prominence=required_prominence)
+        if len(peak_idxs) == 0:
+            raise ValueError(
+                "No pickets were found. This can mean either an incorrect orientation "
+                "or incorrect inversion. Try passing the correct orientation; if that "
+                "fails, also set invert=True.")
+        if picket_spacing is None:
+            picket_spacing = np.median(np.diff(np.sort(peak_idxs)))
+
+        self.mlc_meas = []
+        for leaf_num, center, width in self._leaves_in_view(leaf_analysis_width_ratio):
+            for picket_num, (picket_idx, picket_peak_val) in enumerate(zip(peak_idxs, peak_vals)):
+                window = self._get_mlc_window(leaf_center=center, leaf_width=width,
+                                              approx_idx=picket_idx, spacing=picket_spacing)
+                if self._is_mlc_peak_in_window(window, height_threshold,
+                                               edge_threshold, picket_peak_val):
+                    self.mlc_meas.append(MLCValue(
+                        picket_num=picket_num, approx_idx=picket_idx, leaf_width=width,
+                        leaf_center=center, picket_spacing=picket_spacing,
+                        orientation=self.orientation,
+                        leaf_analysis_width_ratio=leaf_analysis_width_ratio,
+                        tolerance=tolerance, action_tolerance=action_tolerance,
+                        leaf_num=leaf_num, approx_peak_val=picket_peak_val,
+                        image_window=window, image=self.image, fwxm=fwxm,
+                        separate_leaves=separate_leaves, nominal_gap_mm=nominal_gap_mm))
+        if not self.mlc_meas:
+            raise ValueError(
+                "No MLC measurements were found. This may be due to an incorrect "
+                "inversion (try invert=True) or an incorrect orientation.")
+
+        # every kiss window's FWXM in one batched call on the device
+        profiles = [m.kiss_profile_values for m in self.mlc_meas]
+        max_w = max(len(p) for p in profiles)
+        batch = np.zeros((len(profiles), max_w), dtype=np.float32)
+        for i, p in enumerate(profiles):
+            batch[i, :len(p)] = p
+        lefts, rights = _batched_fwxm(batch, fwxm / 100, self.device)
+        for m, left, right in zip(self.mlc_meas, lefts, rights):
+            m.set_positions(left, right)
+
+        # drop leaf rows that do not have the median number of kisses
+        counts: dict = {}
+        for m in self.mlc_meas:
+            counts.setdefault(m.leaf_num, []).append(m)
+        median_num = statistics.median(len(v) for v in counts.values())
+        full_leaves = {leaf for leaf, v in counts.items() if len(v) == median_num}
+        if any(m.leaf_num not in full_leaves for m in self.mlc_meas):
+            warnings.warn(
+                "Some leaves were removed from analysis because they were not detected "
+                "for all pickets. If valid leaves are missing try adjusting "
+                "height_threshold or edge_threshold")
+        self.mlc_meas = [m for m in self.mlc_meas if m.leaf_num in full_leaves]
+
+        self.pickets = [
+            Picket([m for m in self.mlc_meas if m.picket_num == picket_num],
+                   orientation=self.orientation, image=self.image, tolerance=tolerance,
+                   nominal_gap=nominal_gap_mm, separate_leaves=separate_leaves)
+            for picket_num in range(len(peak_idxs))]
+        self._is_analyzed = True
+
+    def _is_mlc_peak_in_window(self, window, height_threshold, edge_threshold,
+                               picket_peak_val) -> bool:
+        if self.orientation == Orientation.UP_DOWN:
+            std = np.std(window, axis=1)
+        else:
+            std = np.std(window, axis=0)
+        is_above = np.max(window) > height_threshold * picket_peak_val
+        is_not_at_edge = max(std) < edge_threshold * np.median(std)
+        return is_above and is_not_at_edge
+
+    def _get_mlc_window(self, leaf_center, leaf_width, approx_idx, spacing) -> np.ndarray:
+        leaf_width_px = leaf_width * self.image.dpmm
+        leaf_center_px = leaf_center * self.image.dpmm + (
+            self.image.shape[0] / 2 if self.orientation == Orientation.UP_DOWN
+            else self.image.shape[1] / 2)
+        if self.orientation == Orientation.UP_DOWN:
+            left_edge = max(int(approx_idx - spacing / 2), 0)
+            right_edge = min(int(approx_idx + spacing / 2), self.image.shape[1])
+            top_edge = max(int(leaf_center_px - leaf_width_px / 2), 0)
+            bottom_edge = min(int(leaf_center_px + leaf_width_px / 2), self.image.shape[0])
+            return self.image[top_edge:bottom_edge, left_edge:right_edge]
+        top_edge = max(int(approx_idx - spacing / 2), 0)
+        bottom_edge = min(int(approx_idx + spacing / 2), self.image.shape[0])
+        left_edge = max(int(leaf_center_px - leaf_width_px / 2), 0)
+        right_edge = min(int(leaf_center_px + leaf_width_px / 2), self.image.shape[1])
+        return self.image[top_edge:bottom_edge, left_edge:right_edge]
+
+    def _leaves_in_view(self, analysis_width) -> list[tuple[int, float, float]]:
+        pixel_range = (self.image.shape[0] / 2
+                       if self.orientation == Orientation.UP_DOWN
+                       else self.image.shape[1] / 2)
+        pixel_range -= max(self.mlc.widths[0] * analysis_width,
+                           self.mlc.widths[-1] * analysis_width) * self.image.dpmm
+        return [(leaf_num, center, width)
+                for leaf_num, center, width in zip(self.mlc.leaves, self.mlc.centers,
+                                                   self.mlc.widths)
+                if abs(center) < pixel_range / self.image.dpmm]
+
+    # -- output -------------------------------------------------------------
+    def results(self, as_list: bool = False) -> str | list[str]:
+        offsets = " ".join(f"{pk.dist2cax:.1f}" for pk in self.pickets)
+        results = [
+            "Picket Fence Results:",
+            f"Gantry Angle (\N{DEGREE SIGN}): {self.image.gantry_angle:2.1f}",
+            f"Collimator Angle (\N{DEGREE SIGN}): {self.image.collimator_angle:2.1f}",
+            f"Tolerance (mm): {self.tolerance}",
+            f"Leaves passing (%): {self.percent_passing:2.1f}",
+            f"Absolute median error (mm): {self.abs_median_error:2.3f}mm",
+            f"Mean picket spacing (mm): {self.mean_picket_spacing:2.1f}mm",
+            f"Picket offsets from CAX (mm): {offsets}",
+            f"Max Error: {self.max_error:2.3f}mm on Picket: {self.max_error_picket}, "
+            f"Leaf: {self.max_error_leaf}",
+            f"MLC Skew: {self.mlc_skew():2.3f} degrees",
+        ]
+        if self.failed_leaves():
+            results.append(f"Failing leaves: {self.failed_leaves()}")
+        if not as_list:
+            return "\n".join(results)
+        return results
+
+    def results_data(self, as_dict: bool = False, as_json: bool = False):
+        """The :class:`PFResult`, or its dict or JSON."""
+        picket_widths = {
+            f"picket_{pk}": {key: self.picket_width_stat(pk, key)
+                             for key in ("max", "mean", "median", "min")}
+            for pk in range(len(self.pickets))}
+        errors_by_leaf = {}
+        positions_by_leaf = {}
+        cax_position = (self.image.center.x if self.orientation == Orientation.UP_DOWN
+                        else self.image.center.y)
+        cax_physical = cax_position / self.image.dpmm
+        for _leaf, group_iter in groupby(self.mlc_meas, key=lambda m: m.leaf_num):
+            leaf_items = list(group_iter)
+            leaf_names = leaf_items[0].full_leaf_nums
+            for idx, leaf_name in enumerate(leaf_names):
+                positions_by_leaf[str(leaf_name)] = [
+                    cax_physical - m.position_mm[idx] for m in leaf_items]
+                errors_by_leaf[str(leaf_name)] = [m.error[idx] for m in leaf_items]
+        return PFResult(
+            tolerance_mm=self.tolerance,
+            action_tolerance_mm=self.action_tolerance,
+            percent_leaves_passing=self.percent_passing,
+            number_of_pickets=self.num_pickets,
+            absolute_median_error_mm=self.abs_median_error,
+            max_error_mm=self.max_error,
+            max_error_picket=self.max_error_picket,
+            max_error_leaf=self.max_error_leaf,
+            mean_picket_spacing_mm=self.mean_picket_spacing,
+            offsets_from_cax_mm=[pk.dist2cax for pk in self.pickets],
+            passed=self.passed,
+            failed_leaves=self.failed_leaves(),
+            mlc_skew=self.mlc_skew(),
+            picket_widths=picket_widths,
+            mlc_positions_by_leaf=dict(sorted(positions_by_leaf.items())),
+            mlc_errors_by_leaf=dict(sorted(errors_by_leaf.items())),
+            cax=self.image.center.dict(),
+        ).output(as_dict, as_json)
 
 
 class PicketFenceBatch:

@@ -164,7 +164,7 @@ def test_filter_median_matches_jax_in_every_dtype(jref, kernel_calls, dtype, wor
 @pytest.mark.parametrize("dtype", [np.uint16, np.int32, np.uint32, np.int64])
 def test_median3x3_array_stack_is_per_image(kernel_calls, dtype):
     x = _typed_image((3, 19, 23), dtype, seed=9)
-    got = tau.median3x3_array(x)
+    got = tau.median3x3_array(x, device="cpu")
     assert got.dtype == x.dtype
     assert len(kernel_calls) == (0 if dtype is np.int64 else 1)
     # rank 4 of each edge-replicated window, sorted in the dtype itself
@@ -172,6 +172,16 @@ def test_median3x3_array_stack_is_per_image(kernel_calls, dtype):
     windows = np.lib.stride_tricks.sliding_window_view(
         np.pad(x, [(0, 0), (1, 1), (1, 1)], mode="edge"), (3, 3), axis=(1, 2))
     np.testing.assert_array_equal(got, np.sort(windows.reshape(*x.shape, 9), axis=-1)[..., 4])
+
+
+def test_image_median_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    x = _typed_image((8, 9), np.uint16, seed=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tau.median3x3_array(x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tau.filter(x, 3)
 
 
 def test_median3x3_array_rejects_wide_dtypes_off_the_cpu():

@@ -8,8 +8,10 @@ small ring image with the CT region finder, analyses a small generated
 Winston-Lutz set (four AS500 frames) with ``pylinac_tpu_torch.winston_lutz``
 on the CPU, takes the 2D gamma of a 32x32 pair with
 ``pylinac_tpu_torch.ops.gamma``, and analyses a small AS500 open field
-with ``FieldAnalysisBatch`` and ``FieldAnalysis`` on the CPU. The machine
-with the card has neither package.
+with ``FieldAnalysisBatch`` and ``FieldAnalysis`` on the CPU, two small
+stars with ``StarshotBatch`` and the single-image ``Starshot``, and the
+picket fence with the single-image ``PicketFence``, on the CPU. The
+machine with the card has neither package.
 """
 
 import json
@@ -77,7 +79,24 @@ CHILD = textwrap.dedent("""
     fa_data = fa_batch.results_data()
     fa_single = FieldAnalysis(fa_path)
     fa_single.analyze(edge_detection_method="FWHM")
+    from pylinac_tpu_torch import PicketFence, Starshot, StarshotBatch
+    from pylinac_tpu_torch.imggen.utils import make_starshot
+    star_dir = tempfile.mkdtemp()
+    stars = [make_starshot(star_dir, center=(250, 260), size=(500, 520), name=f"{i}.dcm",
+                           angles_offset=10.0 + i) for i in range(2)]
+    star_batch = StarshotBatch(stars)
+    star_batch.analyze(device="cpu")
+    star = Starshot(stars[0])
+    star.analyze()
+    pf_single = PicketFence(path, device="cpu")
+    pf_single.analyze(tolerance=0.5)
     print(json.dumps({
+        "star_centres": [r.circle_center_x_y for r in star_batch.results_data()]
+                        + [star.results_data().circle_center_x_y],
+        "star_diameters": [r.circle_diameter_mm for r in star_batch.results_data()]
+                          + [star.results_data().circle_diameter_mm],
+        "pf_single": [pf_single.results_data().number_of_pickets,
+                      pf_single.results_data().max_error_mm],
         "fa_sizes": [fa_data[0].field_size_vertical_mm, fa_data[1].field_size_horizontal_mm,
                      fa_single.results_data().field_size_horizontal_mm],
         "gamma_shape": list(g.shape), "gamma_finite": int(np.isfinite(g).sum()),
@@ -108,3 +127,7 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["gamma_finite"] == 32 * 32  # every pixel is above the 5 % threshold
     assert out["gamma_max"] < 0.6  # a 1 % dose difference against a 2 % criterion
     assert all(abs(size - 100) < 1.0 for size in out["fa_sizes"])  # a 100 mm field
+    for x, y in out["star_centres"]:  # every spoke drawn through (250, 260)
+        assert abs(x - 250) < 0.1 and abs(y - 260) < 0.1
+    assert all(d < 0.05 for d in out["star_diameters"])
+    assert out["pf_single"][0] == 8 and out["pf_single"][1] < 0.1
