@@ -78,7 +78,19 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   counted and each of their inputs held bit-equal to the twin (the kernel
   timed there), the results against the CPU run, ``PicketFenceBatch`` on
   the same frames and the drawn pickets; timed. Its launches join the
-  median's entry of the kernels line.
+  median's entry of the kernels line;
+- multi-target Winston-Lutz: writes the SNC MultiMet session (6 BBs in 6
+  fields of 20 mm, 8 AS1200 frames: gantry 0, 45, 135, 180, 225, 315 and
+  gantry 0 at couch 45 and 315) and a copy with every BB 1 mm left, runs
+  ``WinstonLutzMultiTargetMultiField`` on the card with every CCL input
+  recorded: the field locator's whole-frame 8-connected labels and holes,
+  the BB windows' 4-connected ones, each held bit-equal to its twin and
+  the largest whole-frame mask ten more launches equal; checks every BB
+  matched in every frame and the reference's bars, holds 2 frames to the
+  CPU run, times the warm analysis (every run's results equal), profiles
+  it (the hull's device time named) and times each kernel use against
+  its twin. It runs last: its profile of 177,000 launches left the
+  profiler of a phase after it with no device events.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
@@ -113,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -496,6 +509,7 @@ def check_path_masks(pairs: dict, seen, what: str, repeated=()) -> dict[str, flo
             raise RuntimeError(f"{mode} changed between launches on a {what} mask of shape "
                                f"{tuple(masks.shape)}")
         shapes.append(f"{mode} {tuple(masks.shape)}")
+    shapes = [f"{shape} x {n}" if n > 1 else shape for shape, n in Counter(shapes).items()]
     print(f"kernel check on the {what}'s {len(seen)} kernel inputs: bit-equal to twins, "
           f"max |err| {worst} ({', '.join(shapes)})"
           + (f"; {', '.join(repeated)} equal in {REPEATS} more launches" if repeated else ""))
@@ -1035,12 +1049,14 @@ def warm_run(wl, texts: list | None = None) -> float:
     return wall
 
 
-def device_profile(card: str, what: str, run, default_ms: float, top: int = 20) -> None:
+def device_profile(card: str, what: str, run, default_ms: float, top: int = 20,
+                   ranges=()) -> None:
     """One ``run()`` under ``torch.profiler``: the device's busy time (the
     sum of the device kernels' self time) and its idle share against the
     profiled wall and against ``default_ms``, the unprofiled median; the
     device kernels by self time and the host ops by the device time of the
-    kernels they launched."""
+    kernels they launched; and the device time of the kernels launched
+    inside each ``record_function`` range named in ``ranges``."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1049,8 +1065,12 @@ def device_profile(card: str, what: str, run, default_ms: float, top: int = 20) 
         run()
         wall = (time.perf_counter() - t0) * 1e3
     tables = {"kernel": {}, "op": {}}
+    in_range = {}
     for e in prof.key_averages():
-        if e.self_device_time_total > 0:
+        if e.key in ranges:
+            if e.device_type == DeviceType.CPU:   # the host range: its kernels' device time
+                in_range[e.key] = (e.device_time_total / 1e3, e.count)
+        elif e.self_device_time_total > 0:
             kind = "kernel" if e.device_type == DeviceType.CUDA else "op"
             tables[kind][e.key] = (e.self_device_time_total / 1e3, e.count)
     busy = sum(ms for ms, _ in tables["kernel"].values())
@@ -1064,6 +1084,12 @@ def device_profile(card: str, what: str, run, default_ms: float, top: int = 20) 
     for kind, rows in tables.items():
         for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
             print(f"  {kind:6s} {ms:9.3f} ms  {n:5d} x  {key[:100]}")
+    for name in ranges:
+        if name not in in_range:
+            raise RuntimeError(f"torch.profiler recorded no {name} range")
+        ms, n = in_range[name]
+        print(f"  range  {ms:9.3f} ms  {n:5d} x  {name} "
+              f"({100 * ms / busy:.1f} % of the device busy time)")
 
 
 def profile_wl(card: str, wl, default_ms: float, top: int = 20) -> None:
@@ -1273,6 +1299,209 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
                 timed_pair(card, f"ccl {mode} 4-conn on the single image's window",
                            *kernel_twin, largest(single_inputs, mode), ccl_bound)))
         profile_wl(card, batch, warm)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+MTMF_AXES = ((0, 0, 0), (45, 0, 0), (135, 0, 0), (180, 0, 0), (225, 0, 0), (315, 0, 0),
+             (0, 0, 45), (0, 0, 315))   # set C: at gantry 90 two fields merge
+MTMF_CPU_FRAMES = (0, 3)  # the 2 frames held against the CPU: gantry 0 and 45
+
+
+def write_mtmf_session(d: str, bb_left_mm: float = 0.0) -> str:
+    """Write the SNC MultiMet session into ``d``: 6 BBs of 5 mm in 6 fields
+    of 20 mm, AS1200 at SID 1000, 1 mm blur, set C's 8 frames; every BB
+    ``bb_left_mm`` left of its field. Returns ``d``."""
+    import dataclasses
+
+    from pylinac_tpu_torch import BBArrangement
+    from pylinac_tpu_torch.imggen.layers import GaussianFilterLayer, PerfectFieldLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.imggen.utils import generate_winstonlutz_multi_bb_multi_field
+
+    bbs = BBArrangement.SNC_MULTIMET
+    generate_winstonlutz_multi_bb_multi_field(
+        AS1200Image(sid=1000), PerfectFieldLayer, d,
+        field_offsets=[(b.offset_left_mm, b.offset_up_mm, b.offset_in_mm) for b in bbs],
+        bb_offsets=[{**dataclasses.asdict(b), "offset_left_mm": b.offset_left_mm + bb_left_mm}
+                    for b in bbs],
+        image_axes=MTMF_AXES, final_layers=[GaussianFilterLayer(sigma_mm=1)])
+    return d
+
+
+def check_mtmf_results(wl, data: dict, what: str, offset_mm: float) -> None:
+    """Every BB matched in every frame; ``tests/models/test_winstonlutz.py``
+    ``TestMultiTargetMultiField``'s bars: the largest field-BB distance
+    below 0.3 mm and no shift (within 0.1 mm and 0.1 deg) for the perfect
+    set, 1.0 +- 0.3 mm and an x shift of 1.0 +- 0.3 mm for the 1 mm one."""
+    sv = data["bb_shift_vector"]
+    angles = [data["bb_shift_yaw"], data["bb_shift_pitch"], data["bb_shift_roll"]]
+    checks = {"6 BBs in each of 8 frames": len(wl.images) == len(MTMF_AXES) and all(
+        len(img.arrangement_matches) == 6 for img in wl.images) and len(data["bb_maxes"]) == 6}
+    if offset_mm:
+        checks["max 1.0 +- 0.3 mm"] = abs(data["max_2d_field_to_bb_mm"] - offset_mm) < 0.3
+        checks["|shift x| 1.0 +- 0.3 mm"] = abs(abs(sv["x"]) - offset_mm) < 0.3
+    else:
+        checks["max < 0.3 mm"] = data["max_2d_field_to_bb_mm"] < 0.3
+        checks["shift within 0.1 mm"] = all(abs(v) < 0.1 for v in sv.values())
+        checks["rotations within 0.1 deg"] = all(abs(a) < 0.1 for a in angles)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{what} fails {failed}: {data}")
+    print(f"{what}: max field-BB {data['max_2d_field_to_bb_mm']:.4f} mm, shift "
+          f"({sv['x']:.4f}, {sv['y']:.4f}, {sv['z']:.4f}) mm, yaw/pitch/roll "
+          f"{', '.join(f'{a:.4f}' for a in angles)} deg: inside every bar")
+
+
+def mtmf_matches(wl) -> list[dict]:
+    """Each image's matched BB and field points (px) by BB name."""
+    return [{name: [m.field.x, m.field.y, m.bb.x, m.bb.y]
+             for name, m in img.arrangement_matches.items()} for img in wl.images]
+
+
+def mtmf_phase(card: str, ccl) -> list[dict]:
+    """The multi-target Winston-Lutz path: the SNC MultiMet session (set C,
+    8 AS1200 frames) through ``WinstonLutzMultiTargetMultiField`` on the
+    card with every CCL input recorded and held to its twin (the largest
+    whole-frame mask ten more launches, equal), the results against the
+    reference's bars, a 1 mm offset copy, 2 frames against the CPU, the
+    warm wall (every run's results equal) and a profile with the hull's
+    device time. Returns the kernels-line entries: the field locator's
+    8-connected labels and their holes, the BB windows' 4-connected labels
+    and their holes."""
+    from pylinac_tpu_torch import BBArrangement, WinstonLutzMultiTargetMultiField
+    from pylinac_tpu_torch.ops import label as tlabel
+
+    pairs = kernel_pairs(ccl)
+    arrangement = BBArrangement.SNC_MULTIMET
+
+    def analyze(wl, device="cuda"):
+        def run():
+            wl.analyze(arrangement, device=device)
+            return wl.results_data()
+        return run
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mtmf_")
+    try:
+        t0 = time.perf_counter()
+        session = write_mtmf_session(f"{tmp}/setc")
+        offset_session = write_mtmf_session(f"{tmp}/setc_1mm", bb_left_mm=1.0)
+        wl = WinstonLutzMultiTargetMultiField(session)
+        print(f"inputs: 2 x {len(wl.images)} MTMF frames {wl.images[0].shape} "
+              f"{wl.images[0].array.dtype} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+        for counter in (ccl.label_batch, ccl.hole_roots_batch):
+            counter.launches = 0
+        with recording_inputs(ccl_entries()) as seen:
+            result = analyze(wl)()
+        torch.cuda.synchronize()
+        counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches}
+        check_counts(seen, counts, "MTMF run")
+        # split the records into the field locator's whole frames and the BB
+        # windows: a window's holes call follows its 4-connected label call
+        kinds, last = [], None
+        for mode, masks, args, _ in seen:
+            if mode == "label":
+                last = "field" if args[0] == 2 else "window"
+            kinds.append(last)
+        split = {(mode, kind): [r for r, k in zip(seen, kinds) if r[0] == mode and k == kind]
+                 for mode in ("label", "holes") for kind in ("field", "window")}
+        launches = {key: len(records) for key, records in split.items()}
+        if min(launches.values()) < 1:
+            raise RuntimeError(f"the MTMF path launched a CCL mode no time: {launches}")
+        if any(r[1].shape[-2:] != wl.images[0].shape for r in split["label", "field"]):
+            raise RuntimeError("a field-locator mask is not a whole frame")
+        errs = {key: check_path_masks(pairs, records, f"MTMF {key[1]} {key[0]}")[key[0]]
+                for key, records in split.items()}
+        big, big_args, _ = max(((m, a, k) for _, m, a, k in split["label", "field"]),
+                               key=lambda r: int(r[0].sum()))
+        big = big if big.dim() == 3 else big[None]
+        for mode, fn, args in (("label", ccl.label_batch, big_args),
+                               ("holes", ccl.hole_roots_batch, ())):
+            first = fn(big, *args)
+            if not all(torch.equal(fn(big, *args), first) for _ in range(REPEATS)):
+                raise RuntimeError(f"{mode} changed between launches on the largest field mask")
+        print(f"MTMF path: launches {launches}; the largest whole-frame mask "
+              f"({int(big.sum())} px set) gives the same labels and holes in {REPEATS} more "
+              f"launches")
+        data = json.loads(result.model_dump_json())
+        check_mtmf_results(wl, data, "card MTMF, set C", 0.0)
+        print(f"MTMF counted run and its kernel checks: {time.perf_counter() - t0:.1f} s "
+              f"since the session was written")
+
+        offset = WinstonLutzMultiTargetMultiField(offset_session)
+        check_mtmf_results(offset, json.loads(analyze(offset)().model_dump_json()),
+                           "card MTMF, every BB 1 mm left", 1.0)
+
+        files = [str(wl.images[i].path) for i in MTMF_CPU_FRAMES]
+        t0 = time.perf_counter()
+        cpu = WinstonLutzMultiTargetMultiField(files)
+        cpu_data = json.loads(analyze(cpu, "cpu")().model_dump_json())
+        cpu_s = time.perf_counter() - t0
+        card2 = WinstonLutzMultiTargetMultiField(files)
+        worst = compare_tree(json.loads(analyze(card2)().model_dump_json()), cpu_data,
+                             "MTMF CPU vs card, 2 frames", wl_tol)
+        full = mtmf_matches(wl)
+        for got, want in ((mtmf_matches(card2), mtmf_matches(cpu)),
+                          ([full[i] for i in MTMF_CPU_FRAMES], mtmf_matches(cpu))):
+            for a, b in zip(got, want):
+                if list(a) != list(b) or max(abs(x - y) for k in a for x, y in
+                                             zip(a[k], b[k])) > PX_TOL:
+                    raise RuntimeError(f"MTMF matches differ from the CPU: {a} vs {b}")
+        print(f"MTMF card vs CPU on frames {MTMF_CPU_FRAMES} (the CPU run {cpu_s:.1f} s): "
+              f"results agree (max difference {worst:.2e}), every matched field and BB "
+              f"within {PX_TOL} px, in the 2-frame and the 8-frame card runs")
+
+        texts, times = [], []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            texts.append(results_text(analyze(wl)()))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check_same_texts(texts, "MTMF warm runs")
+        t0 = time.perf_counter()
+        warm = statistics.median(times[1:])
+        print(f"[{card}] warm WinstonLutzMultiTargetMultiField analyze + results_data of "
+              f"{len(wl.images)} frames: median {warm:.1f} ms of 5 runs = "
+              f"{len(wl.images) / warm * 1e3:.2f} images/s "
+              f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
+
+        hull = tlabel._hull_area
+
+        def named_hull(*args, **kwargs):
+            with torch.profiler.record_function("hull_area"):
+                return hull(*args, **kwargs)
+
+        tlabel._hull_area = named_hull
+        try:
+            device_profile(card, "MTMF", analyze(wl), warm, top=15,
+                           ranges=("hull_area",))
+        finally:
+            tlabel._hull_area = hull
+        print(f"MTMF profile, with its processing: {time.perf_counter() - t0:.1f} s")
+
+        label8 = (functools.partial(ccl.label_batch, connectivity=2),
+                  functools.partial(ccl.label_reference, connectivity=2))
+        label4 = (functools.partial(ccl.label_batch, connectivity=1),
+                  functools.partial(ccl.label_reference, connectivity=1))
+        holes = (ccl.hole_roots_batch, ccl.hole_roots_reference)
+        lines = []
+        for name, key, kernel_twin, replaces, where in (
+                ("ccl_label8_mtmf_fields", ("label", "field"), label8,
+                 "pylinac_tpu/ops/pallas_label.py:69", "8-conn on the largest field mask"),
+                ("ccl_holes_mtmf_fields", ("holes", "field"), holes,
+                 "pylinac_tpu/ops/pallas_label.py:232", "on the largest field mask"),
+                ("ccl_label4_mtmf_bb_windows", ("label", "window"), label4,
+                 "pylinac_tpu/ops/pallas_label.py:69", "4-conn on the largest BB window"),
+                ("ccl_holes_mtmf_bb_windows", ("holes", "window"), holes,
+                 "pylinac_tpu/ops/pallas_label.py:232", "on the largest BB window")):
+            masks = max((m for _, m, *_ in split[key]), key=lambda m: int(m.sum()))
+            masks = masks if masks.dim() == 3 else masks[None]
+            lines.append(ccl_line(name, replaces, launches[key], errs[key],
+                                  timed_pair(card, f"MTMF ccl {key[0]} {where}", *kernel_twin,
+                                             masks, ccl_bound)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lines
@@ -2428,7 +2657,12 @@ def main() -> int:
     pf_launches, pf_err = pf_single_phase(card, median)
     kernels[0]["launches"] += pf_launches
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], pf_err)
-    print(f"single PicketFence phase: {time.perf_counter() - t0:.1f} s; whole run "
+    print(f"single PicketFence phase: {time.perf_counter() - t0:.1f} s")
+    # last: its profile of 177,000 launches left the next phase's profiler
+    # with no device events
+    t0 = time.perf_counter()
+    kernels += mtmf_phase(card, ccl)
+    print(f"multi-target Winston-Lutz phase: {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

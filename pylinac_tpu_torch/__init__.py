@@ -8,7 +8,7 @@ Ported so far: the picket fence, single image and batched
 (``PicketFence``, ``PicketFenceBatch``, ``analyze_batch``), the CatPhan
 503/504/600/604 analyses, single scan and batched (``CatPhan504``,
 ``CatPhanBatch``), the Winston-Lutz analyses (``WinstonLutz``,
-``WinstonLutz2D``), the gamma index (``gamma_2d``, ``gamma_2d_batch``,
+``WinstonLutz2D``, ``WinstonLutzMultiTargetMultiField``), the gamma index (``gamma_2d``, ``gamma_2d_batch``,
 ``gamma_1d``, ``gamma_geometric``, ``gamma_bakai``), the field analyses
 (``FieldAnalysis``, ``DeviceFieldAnalysis``, ``FieldAnalysisBatch``,
 ``analyze_field_batch``) and the starshot analyses (``Starshot``,
@@ -25,11 +25,14 @@ from .starshot import Starshot, StarshotBatch, StarshotResults, analyze_star_bat
 from .picketfence import (MLC, MLCArrangement, Orientation, PFResult, PicketFence,
                           PicketFenceBatch, analyze_batch)
 from .version import __version__
-from .winston_lutz import BBArrangement, WinstonLutz, WinstonLutz2D
+from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
+                           WinstonLutzMultiTargetMultiField, WinstonLutzMultiTargetMultiFieldResult)
 
-__all__ = ["BBArrangement", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
+__all__ = ["BBArrangement", "BBConfig", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
            "CatPhanBatch", "Centering", "DeviceFieldAnalysis", "Edge", "FieldAnalysis",
            "FieldAnalysisBatch", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
-           "Starshot", "StarshotBatch", "StarshotResults", "WinstonLutz", "WinstonLutz2D", "analyze_batch", "analyze_field_batch", "analyze_star_batch", "gamma_1d",
+           "Starshot", "StarshotBatch", "StarshotResults", "WinstonLutz", "WinstonLutz2D",
+           "WinstonLutzMultiTargetMultiField", "WinstonLutzMultiTargetMultiFieldResult",
+           "analyze_batch", "analyze_field_batch", "analyze_star_batch", "gamma_1d",
            "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "__version__"]

@@ -2,7 +2,8 @@
 images, numpy and scipy.
 
 Port of ``pylinac_tpu/imggen/layers.py``: ``Layer`` ``:111``,
-``PerfectConeLayer`` ``:119``, ``PerfectFieldLayer`` ``:170``,
+``PerfectConeLayer`` ``:119``, ``FilterFreeConeLayer`` ``:148``,
+``PerfectFieldLayer`` ``:170``,
 ``FilteredFieldLayer`` ``:198``, ``FilterFreeFieldLayer`` ``:221``,
 ``PerfectBBLayer`` ``:242``, ``RandomNoiseLayer`` ``:270``, ``SlopeLayer``
 ``:295`` with the helpers they use (``clip_add`` ``:20``,
@@ -119,6 +120,10 @@ class PerfectConeLayer(Layer):
         self.rotation = rotation
 
     def apply(self, image, pixel_size, mag_factor):
+        image, _, _ = self._create_perfect_field(image, pixel_size, mag_factor)
+        return image
+
+    def _create_perfect_field(self, image, pixel_size, mag_factor):
         cone_size_pix = mag_factor * (self.cone_size_mm / 2) / pixel_size
         off_y, off_x = rotate_point(
             x=self.cax_offset_mm[0] * mag_factor / pixel_size,
@@ -129,7 +134,29 @@ class PerfectConeLayer(Layer):
         rr, cc = _disk_coords(center, cone_size_pix, image.shape)
         temp = np.zeros(image.shape)
         temp[rr, cc] = int(np.iinfo(image.dtype).max * self.alpha)
-        return clip_add(image, temp)
+        return clip_add(image, temp), rr, cc
+
+
+class FilterFreeConeLayer(PerfectConeLayer):
+    """A cone with FFF (central peak) effects."""
+
+    def __init__(self, cone_size_mm: float = 10, cax_offset_mm=(0, 0),
+                 alpha: float = 1.0, filter_magnitude: float = 0.4,
+                 filter_sigma_mm: float = 80):
+        super().__init__(cone_size_mm, cax_offset_mm, alpha)
+        self.filter_magnitude = filter_magnitude
+        self.filter_sigma_mm = filter_sigma_mm
+
+    def apply(self, image, pixel_size, mag_factor):
+        image, rr, cc = self._create_perfect_field(image, pixel_size, mag_factor)
+        center_x = geometric_center_idx(image[:, 0])
+        center_y = geometric_center_idx(image[0, :])
+        n = gaussian2d(rr, cc, self.filter_magnitude * np.iinfo(image.dtype).max,
+                       center_x, center_y, self.filter_sigma_mm / pixel_size,
+                       self.filter_sigma_mm / pixel_size,
+                       constant=-self.filter_magnitude * np.iinfo(image.dtype).max)
+        image[rr, cc] += n.astype(image.dtype)
+        return image
 
 
 class PerfectFieldLayer(Layer):

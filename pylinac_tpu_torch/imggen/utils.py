@@ -1,8 +1,12 @@
 """Scenario builders for synthetic QA images: the picket fence, the
 Winston-Lutz set and the starshot.
 
-Port of ``generate_picketfence`` (``pylinac_tpu/imggen/utils.py:28``) and
-``generate_winstonlutz`` (``:67-131``), and a copy of the starshot test
+Port of ``generate_picketfence`` (``pylinac_tpu/imggen/utils.py:28``),
+``generate_winstonlutz`` (``:67-131``), ``pixel_align`` (``:155``),
+``_clean_make_dir`` (``:161``), ``_bb_offset_lui`` (``:170``) and the
+multi-target generators ``generate_winstonlutz_multi_bb_single_field``
+(``:182``), ``generate_winstonlutz_multi_bb_multi_field`` (``:236``) and
+``generate_winstonlutz_cone`` (``:304``), and a copy of the starshot test
 image ``make_starshot`` (``tests/models/test_starshot.py:10``), which
 draws the bench's stars (``bench.py:314-331``).
 """
@@ -11,6 +15,7 @@ from __future__ import annotations
 
 import os
 import os.path as osp
+import random
 import shutil
 from typing import Sequence
 
@@ -122,6 +127,180 @@ def generate_winstonlutz(
         sim_single.generate_dicom(osp.join(dir_out, file_name),
                                   gantry_angle=gantry, coll_angle=coll,
                                   table_angle=couch, tags=tags)
+        file_names.append(file_name)
+    return file_names
+
+
+def pixel_align(pixel_size: float, length_mm: float) -> float:
+    """A physical length rounded to a whole number of pixels."""
+    return round(length_mm / pixel_size) * pixel_size
+
+
+def _clean_make_dir(dir_out: str, clean_dir: bool) -> None:
+    if clean_dir and osp.isdir(dir_out):
+        shutil.rmtree(dir_out)
+    os.makedirs(dir_out, exist_ok=True)
+
+
+def _bb_offset_lui(offset, rng: random.Random, jitter_mm: float) -> tuple[float, float, float]:
+    """(left, up, in) of a [left, up, in] triple or a BBConfig-style dict,
+    each jittered uniformly by up to ``jitter_mm`` from ``rng``."""
+    if isinstance(offset, dict):
+        left, up, inward = offset["offset_left_mm"], offset["offset_up_mm"], offset["offset_in_mm"]
+    else:
+        left, up, inward = offset[0], offset[1], offset[2]
+
+    def jitter():
+        return rng.uniform(-jitter_mm, jitter_mm) if jitter_mm else 0.0
+
+    return left + jitter(), up + jitter(), inward + jitter()
+
+
+def generate_winstonlutz_multi_bb_single_field(
+    simulator: Simulator,
+    field_layer,
+    dir_out: str,
+    offsets: Sequence,
+    field_size_mm: tuple[float, float] = (30, 30),
+    final_layers: list[Layer] | None = None,
+    bb_size_mm: float = 5,
+    image_axes: Sequence[tuple[int, int, int]] = ((0, 0, 0), (90, 0, 0), (180, 0, 0), (270, 0, 0)),
+    gantry_tilt: float = 0,
+    gantry_sag: float = 0,
+    clean_dir: bool = True,
+    jitter_mm: float = 0,
+    seed: int = 1234,
+) -> list[str]:
+    """Write one image per axis of ``image_axes``: one open field and one
+    BB per entry of ``offsets`` (a [left, up, in] triple or a BBConfig-style
+    dict); returns the file names."""
+    from ..winston_lutz import bb_projection_with_rotation
+
+    rng = random.Random(seed)
+    _clean_make_dir(dir_out, clean_dir)
+    file_names = []
+    for gantry, coll, couch in image_axes:
+        sim_single = type(simulator)(sid=simulator.sid)
+        sim_single.add_layer(field_layer(
+            field_size_mm=field_size_mm,
+            cax_offset_mm=(gantry_tilt * deg_cos(gantry), gantry_sag * deg_sin(gantry))))
+        for offset in offsets:
+            left, up, inward = _bb_offset_lui(offset, rng, jitter_mm)
+            gplane_offset, long_offset = bb_projection_with_rotation(
+                offset_left=left, offset_up=up, offset_in=inward,
+                gantry=gantry, couch=couch, sad=1000)
+            sim_single.add_layer(PerfectBBLayer(
+                # the layer's offset is (out, right): the negative long offset
+                cax_offset_mm=(-long_offset, gplane_offset), bb_size_mm=bb_size_mm))
+        if final_layers is not None:
+            for layer in final_layers:
+                sim_single.add_layer(layer)
+        file_name = (f"WL G={gantry}, C={coll}, P={couch}; "
+                     f"Field={field_size_mm}mm; {len(offsets)} BBs.dcm")
+        sim_single.generate_dicom(osp.join(dir_out, file_name), gantry_angle=gantry,
+                                  coll_angle=coll, table_angle=couch)
+        file_names.append(file_name)
+    return file_names
+
+
+def generate_winstonlutz_multi_bb_multi_field(
+    simulator: Simulator,
+    field_layer,
+    dir_out: str,
+    field_offsets: Sequence,
+    bb_offsets: Sequence,
+    field_size_mm: tuple[float, float] = (20, 20),
+    final_layers: Sequence[Layer] | None = None,
+    bb_size_mm: float = 5,
+    image_axes: Sequence[tuple[int, int, int]] = ((0, 0, 0), (90, 0, 0), (180, 0, 0), (270, 0, 0)),
+    gantry_tilt: float = 0,
+    gantry_sag: float = 0,
+    clean_dir: bool = True,
+    jitter_mm: float = 0,
+    align_to_pixels: bool = True,
+    seed: int = 1234,
+) -> list[str]:
+    """Write one image per axis of ``image_axes``: one field per entry of
+    ``field_offsets`` and one BB per entry of ``bb_offsets`` (each a
+    [left, up, in] triple or a BBConfig-style dict), the multi-target
+    multi-field session; returns the file names."""
+    from ..winston_lutz import bb_projection_with_rotation
+
+    rng = random.Random(seed)
+    _clean_make_dir(dir_out, clean_dir)
+    file_names = []
+    for gantry, coll, couch in image_axes:
+        sim_single = type(simulator)(sid=simulator.sid)
+        for field_offset in field_offsets:
+            left, up, inward = _bb_offset_lui(
+                field_offset if isinstance(field_offset, dict) else list(field_offset),
+                rng, jitter_mm)
+            gplane_offset, long_offset = bb_projection_with_rotation(
+                offset_left=left, offset_up=up, offset_in=inward,
+                gantry=gantry, couch=couch, sad=1000)
+            long_offset += gantry_tilt * deg_cos(gantry)
+            gplane_offset += gantry_sag * deg_sin(gantry)
+            if align_to_pixels:
+                long_offset = pixel_align(sim_single.pixel_size, long_offset)
+                gplane_offset = pixel_align(sim_single.pixel_size, gplane_offset)
+            sim_single.add_layer(field_layer(
+                field_size_mm=field_size_mm, cax_offset_mm=(-long_offset, gplane_offset)))
+        for offset in bb_offsets:
+            left, up, inward = _bb_offset_lui(offset, rng, jitter_mm)
+            gplane_offset, long_offset = bb_projection_with_rotation(
+                offset_left=left, offset_up=up, offset_in=inward,
+                gantry=gantry, couch=couch, sad=1000)
+            sim_single.add_layer(PerfectBBLayer(
+                cax_offset_mm=(-long_offset, gplane_offset), bb_size_mm=bb_size_mm))
+        if final_layers is not None:
+            for layer in final_layers:
+                sim_single.add_layer(layer)
+        file_name = (f"WL G={gantry}, C={coll}, P={couch}; "
+                     f"{len(field_offsets)} fields; {len(bb_offsets)} BBs.dcm")
+        sim_single.generate_dicom(osp.join(dir_out, file_name), gantry_angle=gantry,
+                                  coll_angle=coll, table_angle=couch)
+        file_names.append(file_name)
+    return file_names
+
+
+def generate_winstonlutz_cone(
+    simulator: Simulator,
+    cone_layer,
+    dir_out: str,
+    cone_size_mm: float = 17.5,
+    final_layers: list[Layer] | None = None,
+    bb_size_mm: float = 5,
+    offset_mm_left: float = 0,
+    offset_mm_up: float = 0,
+    offset_mm_in: float = 0,
+    image_axes: Sequence[tuple[int, int, int]] = ((0, 0, 0), (90, 0, 0), (180, 0, 0), (270, 0, 0)),
+    gantry_tilt: float = 0,
+    gantry_sag: float = 0,
+    clean_dir: bool = True,
+) -> list[str]:
+    """Write a Winston-Lutz set with a circular cone field in place of a
+    jaw field; returns the file names."""
+    from ..winston_lutz import bb_projection_with_rotation
+
+    _clean_make_dir(dir_out, clean_dir)
+    file_names = []
+    for gantry, coll, couch in image_axes:
+        sim_single = type(simulator)(sid=simulator.sid)
+        sim_single.add_layer(cone_layer(
+            cone_size_mm=cone_size_mm,
+            cax_offset_mm=(gantry_tilt * deg_cos(gantry), gantry_sag * deg_sin(gantry))))
+        gplane_offset, long_offset = bb_projection_with_rotation(
+            offset_left=offset_mm_left, offset_up=offset_mm_up, offset_in=offset_mm_in,
+            gantry=gantry, couch=couch, sad=1000)
+        sim_single.add_layer(PerfectBBLayer(
+            cax_offset_mm=(-long_offset, gplane_offset), bb_size_mm=bb_size_mm))
+        if final_layers is not None:
+            for layer in final_layers:
+                sim_single.add_layer(layer)
+        file_name = (f"WL G={gantry}, C={coll}, P={couch}; "
+                     f"Cone={cone_size_mm}mm; BB={bb_size_mm}mm.dcm")
+        sim_single.generate_dicom(osp.join(dir_out, file_name), gantry_angle=gantry,
+                                  coll_angle=coll, table_angle=couch)
         file_names.append(file_name)
     return file_names
 

@@ -5,10 +5,10 @@ Port of ``pylinac_tpu/metrics/features.py``: the five default BB predicates
 (``:47``), ``is_round`` (``:52``) and ``is_right_circumference`` (``:59``),
 plus the Winston-Lutz predicates ``is_near_center``, ``is_modest_size``,
 ``is_square`` and ``is_right_square_size`` (``pylinac_tpu/winston_lutz.py:
-400-426``). Each takes a :class:`~pylinac_tpu_torch.metrics.utils.RegionView`
-and the finder's keyword arguments. The field predicates
-(``is_right_square_perimeter``, ``is_right_area_square``) wait for the
-field locators.
+400-426``) and the field predicates ``is_right_square_perimeter``
+(``:67``) and ``is_right_area_square`` (``:82``) of the field locators. Each
+takes a :class:`~pylinac_tpu_torch.metrics.utils.RegionView` and the
+finder's keyword arguments.
 """
 
 from __future__ import annotations
@@ -54,6 +54,27 @@ def is_right_circumference(region, *args, **kwargs) -> bool:
     lower = 2 * np.pi * (kwargs["bb_size"] - kwargs["tolerance"])
     actual = region.perimeter / kwargs["dpmm"]
     return upper > actual > lower
+
+
+def is_right_square_perimeter(region, *args, **kwargs) -> bool:
+    """Perimeter consistent with the expected square field (the upper bound
+    20 % wider on the width term, as in the reference)."""
+    actual = region.perimeter / kwargs["dpmm"]
+    upper = 1.20 * 2 * (kwargs["field_width_mm"] + kwargs["field_tolerance_mm"]) + 2 * (
+        kwargs["field_height_mm"] + kwargs["field_tolerance_mm"])
+    lower = 2 * (kwargs["field_width_mm"] - kwargs["field_tolerance_mm"]) + 2 * (
+        kwargs["field_height_mm"] - kwargs["field_tolerance_mm"])
+    return upper > actual > lower
+
+
+def is_right_area_square(region, *args, **kwargs) -> bool:
+    """Filled area consistent with the expected field size ± tolerance."""
+    field_area = region.area_filled / (kwargs["dpmm"] ** 2)
+    low = (kwargs["field_width_mm"] - kwargs["field_tolerance_mm"]) * (
+        kwargs["field_height_mm"] - kwargs["field_tolerance_mm"])
+    high = (kwargs["field_width_mm"] + kwargs["field_tolerance_mm"]) * (
+        kwargs["field_height_mm"] + kwargs["field_tolerance_mm"])
+    return low < field_area < high
 
 
 def is_near_center(region, *args, **kwargs) -> bool:

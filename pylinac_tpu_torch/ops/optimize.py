@@ -3,12 +3,28 @@
 Port of ``nelder_mead`` (``pylinac_tpu/ops/optimize.py:26-108``), step for
 step in float32: scipy's initial simplex, the reflect / expand / contract /
 shrink decisions, a stable sort of the simplex each iteration, and the
-``xatol`` and ``fatol`` termination. The expansion and contraction points
-round once, as XLA's fused multiply-adds give them on the CPU
-(:func:`pylinac_tpu_torch.ops.stats.fma_f32`); with the starshot's
-distance written the same way, ``nelder_mead_batch`` gives
-``jax.vmap(nelder_mead)``'s bits on the star lines. The JAX function ran as a
-``lax.while_loop`` inside a jitted pipeline; here it is a Python loop.
+``xatol`` and ``fatol`` termination. The JAX function runs as a
+``lax.while_loop``; here it is a Python loop. Its two forms round as XLA
+compiles them on the CPU (:func:`pylinac_tpu_torch.ops.stats.fma_f32` for
+each fused multiply-add):
+
+- ``nelder_mead``, the unvmapped call (Winston-Lutz ``_minimize_axis``,
+  the single-image starshot). JAX runs it eagerly: the initial simplex op
+  by op, then the loop as one compiled computation. XLA there folds the
+  centroid's ``1 / n`` into each trial point's coefficient, so the points
+  are ``S * k + b * worst`` of the sum ``S`` of the n best vertices, added
+  in order, with ``S * k`` fused: k = fl(2/n), fl(3/n), fl(1.5/n) and
+  fl(0.5/n) for the reflection, expansion and the outer and inner
+  contractions (for n = 3, ``S * 1.0`` drops out of the expansion). The
+  caller's objective is inlined into that loop, and its fused form
+  serves the initial simplex too.
+- ``nelder_mead_batch``, the vmapped call inside the jitted starshot
+  pipeline (``pylinac_tpu/ops/star_pipeline.py:163``). XLA folds ``1 / n``
+  there too; for the starshot's n = 2 it is exact, and this function's
+  mean-based points (the expansion and outer contraction fused) give the
+  same bits. With the starshot's distance written the same way it gives
+  ``jax.vmap(nelder_mead)``'s bits on the star lines. For n = 2 both forms
+  give the same points.
 
 Callers run it on CPU tensors. Its users, the Winston-Lutz isocentre fit
 (a 3-parameter minimax over a dozen rays) and the single-image starshot's
@@ -21,10 +37,11 @@ host placement, not a fallback: the image work stays on the card.
 (``pylinac_tpu/ops/star_pipeline.py:163``): a problem that meets its
 tolerances freezes while the others go on, as a batched
 ``lax.while_loop`` freezes it, so each problem takes the same steps, bit
-for bit, as :func:`nelder_mead` on its own. The host reads the all-done
-flag only every ``_SYNC_EVERY`` = 16 iterations; frozen problems do not
-move, so that number changes no result. The starshot pipeline runs
-it on CPU tensors too (``ops/star_pipeline.py``, measured there).
+for bit, as it would alone (and as :func:`nelder_mead` for n = 2). The
+host reads the all-done flag only every ``_SYNC_EVERY`` = 16 iterations;
+frozen problems do not move, so that number changes no result. The
+starshot pipeline runs it on CPU tensors too (``ops/star_pipeline.py``,
+measured there).
 
 ``levenberg_marquardt`` (``:110-143``), ``hill_func`` (``:146``),
 ``hill_fit`` (``:151``), ``hill_inflection`` (``:171``), ``hill_gradient``
@@ -66,6 +83,10 @@ def nelder_mead(
     x0 = torch.as_tensor(x0, dtype=torch.float32)
     n = x0.shape[0]
     rho, chi, psi, sigma = 1.0, 2.0, 0.5, 0.5
+    # the centroid's 1 / n folded into each trial point's coefficient
+    inv_n = torch.tensor(1.0, dtype=torch.float32) / n
+    k_r, k_e, k_c, k_cc = (float(torch.tensor(a, dtype=torch.float32) * inv_n)
+                           for a in (1 + rho, 1 + rho * chi, 1 + psi * rho, 1 - psi))
 
     # scipy's initial simplex
     pts = [x0]
@@ -87,15 +108,17 @@ def nelder_mead(
         ftol_ok = torch.max(torch.abs(fsim[0] - fsim[1:])) <= fatol
         if bool(xtol_ok & ftol_ok):
             break
-        xbar = torch.mean(sim[:-1], dim=0)
-        xr = (1 + rho) * xbar - rho * sim[-1]
+        total = torch.zeros(n, dtype=torch.float32)
+        for vertex in sim[:-1]:
+            total = total + vertex
+        worst = sim[-1]
+        xr = fma_f32(total, k_r, -(rho * worst))
         fxr = f(xr)
-        # XLA fuses these two into multiply-adds on the CPU
-        xe = fma_f32(xbar, 1 + rho * chi, -(rho * chi * sim[-1]))
+        xe = fma_f32(total, k_e, -(rho * chi * worst))
         fxe = f(xe)
-        xc = fma_f32(xbar, 1 + psi * rho, -(psi * rho * sim[-1]))
+        xc = fma_f32(total, k_c, -(psi * rho * worst))
         fxc = f(xc)
-        xcc = (1 - psi) * xbar + psi * sim[-1]
+        xcc = fma_f32(total, k_cc, psi * worst)
         fxcc = f(xcc)
 
         # scipy's decision tree, as the JAX function's masks
@@ -141,7 +164,7 @@ def nelder_mead_batch(
 
     ``f`` maps (P, m, n) float32 points, m of them a problem, to (P, m)
     values, each problem's row by its own function; it runs on the device
-    of ``x0``. The arithmetic is :func:`nelder_mead`'s."""
+    of ``x0``. The arithmetic is the vmapped form's (module docstring)."""
     x0 = x0.to(torch.float32)
     P, n = x0.shape
     rho, chi, psi, sigma = 1.0, 2.0, 0.5, 0.5

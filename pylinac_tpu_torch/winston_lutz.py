@@ -7,7 +7,14 @@ result models (``:228-261``, dataclasses), ``bb_projection_with_rotation``
 (``:286``), ``straight_ray`` (``:304``), the Low et al. solvers
 (``:318-349``), the field-centroid fills (``:432-494``),
 ``_wl_detect_packed`` (``:500``), ``WLBaseImage`` (``:534``),
-``WinstonLutz2D`` (``:723``) and ``WinstonLutz`` (``:785``).
+``WinstonLutz2D`` (``:723``) and ``WinstonLutz`` (``:785``); and the
+multi-target analysis: ``BBArrangement.SNC_MULTIMET``, ``DEMO`` and
+``to_human`` (``:112-130``), ``WinstonLutzMultiTargetMultiFieldResult``
+(``:264``), ``max_distance_to_lines`` (``:280``),
+``conventional_to_euler_notation`` (``:352``),
+``_euler_extrinsic_decompose`` (``:357``), ``align_points`` (``:374``),
+``WinstonLutzMultiTargetMultiFieldImage`` (``:1523``) and
+``WinstonLutzMultiTargetMultiField`` (``:1571``).
 
 Device work runs on the ``device`` given to ``analyze`` (``None`` means
 CUDA, and raises without it):
@@ -41,10 +48,17 @@ The isocentre fits (``_minimize_axis``) run Nelder-Mead on CPU tensors:
 a 3-parameter minimax over a dozen rays, where the card would only add
 launches and syncs (:mod:`pylinac_tpu_torch.ops.optimize`).
 
-Not ported: ``WinstonLutzMultiTargetMultiField`` and its image class,
-``align_points`` and the multi-BB arrangements; ``from_cbct``,
-``from_cbct_zip``, zip, URL and demo loading; plots, the PDF, plotly and
-QuAAC; warning capture into ``results_data().warnings``.
+The multi-target class finds each image's fields with
+:class:`~pylinac_tpu_torch.metrics.image.GlobalSizedFieldLocator` over the
+whole frame (the CCL kernel 8-connected, one threshold at a time) and each
+BB with a :class:`~pylinac_tpu_torch.metrics.image.SizedDiskLocator` window
+around its projection. As in the JAX class, ``WinstonLutz._load_image``
+gives every image the collection's detection conditions, so the image
+class's own ``[is_round, is_modest_size, is_symmetric]`` is never used.
+
+Not ported: ``from_cbct``, ``from_cbct_zip``, zip, URL and demo loading
+(``from_demo_images``, ``run_demo``); plots, the PDF, plotly and QuAAC;
+warning capture into ``results_data().warnings``.
 """
 
 from __future__ import annotations
@@ -80,16 +94,20 @@ from .metrics.features import (
     is_square,
     is_symmetric,
 )
-from .metrics.image import SizedDiskLocator
+from .metrics.image import GlobalSizedFieldLocator, SizedDiskLocator
 from .ops.flood import filled_centroid_batch, flood_from_border_batch
 from .ops.label import fill_holes
 from .ops.optimize import nelder_mead
+from .ops.stats import fma_f32
 
 __all__ = ["Axis", "BB3D", "BBArrangement", "BBConfig", "BBFieldMatch", "WLBaseImage",
-           "WinstonLutz", "WinstonLutz2D", "WinstonLutz2DResult", "WinstonLutzResult",
-           "bb_projection_with_rotation", "is_modest_size", "is_near_center",
-           "is_right_square_size", "is_square", "solve_3d_position_from_2d_planes",
-           "solve_3d_shift_vector_from_2d_planes", "straight_ray"]
+           "WinstonLutz", "WinstonLutz2D", "WinstonLutz2DResult",
+           "WinstonLutzMultiTargetMultiField", "WinstonLutzMultiTargetMultiFieldImage",
+           "WinstonLutzMultiTargetMultiFieldResult",
+           "WinstonLutzResult", "align_points", "bb_projection_with_rotation", "is_modest_size",
+           "is_near_center", "is_right_square_size", "is_square", "max_distance_to_lines",
+           "solve_3d_position_from_2d_planes", "solve_3d_shift_vector_from_2d_planes",
+           "straight_ray"]
 
 BB_ERROR_MESSAGE = (
     "The BB could not be detected. Please check the image for the BB and adjust "
@@ -152,10 +170,35 @@ class BBConfig(DataModel):
 
 
 class BBArrangement:
-    """Preset BB arrangements: the single BB at the isocentre."""
+    """Preset BB arrangements: the single BB at the isocentre and the SNC
+    MultiMet phantom's six (the demo arrangement)."""
 
     ISO = (BBConfig(name="Iso", offset_left_mm=0, offset_up_mm=0, offset_in_mm=0,
                     bb_size_mm=5, rad_size_mm=20),)
+    SNC_MULTIMET = (
+        BBConfig(name="Iso", offset_left_mm=0, offset_up_mm=0, offset_in_mm=0, bb_size_mm=5,
+                 rad_size_mm=20),
+        BBConfig(name="1", offset_left_mm=0, offset_up_mm=0, offset_in_mm=30, bb_size_mm=5,
+                 rad_size_mm=20),
+        BBConfig(name="2", offset_left_mm=-30, offset_up_mm=0, offset_in_mm=15, bb_size_mm=5,
+                 rad_size_mm=20),
+        BBConfig(name="3", offset_left_mm=0, offset_up_mm=0, offset_in_mm=-30, bb_size_mm=5,
+                 rad_size_mm=20),
+        BBConfig(name="4", offset_left_mm=30, offset_up_mm=0, offset_in_mm=-50, bb_size_mm=5,
+                 rad_size_mm=20),
+        BBConfig(name="5", offset_left_mm=0, offset_up_mm=0, offset_in_mm=-70, bb_size_mm=5,
+                 rad_size_mm=20),
+    )
+    DEMO = SNC_MULTIMET
+
+    @staticmethod
+    def to_human(arrangement: dict) -> str:
+        a = arrangement
+        lr = "Left" if a["offset_left_mm"] >= 0 else "Right"
+        ud = "Up" if a["offset_up_mm"] >= 0 else "Down"
+        io = "In" if a["offset_in_mm"] >= 0 else "Out"
+        return (f"'{a['name']}': {lr} {abs(a['offset_left_mm'])}mm, "
+                f"{ud} {abs(a['offset_up_mm'])}mm, {io} {abs(a['offset_in_mm'])}mm")
 
 
 @dataclasses.dataclass
@@ -290,9 +333,30 @@ class WinstonLutzResult(ResultBase):
     keyed_image_details: dict[str, WinstonLutz2DResult]
 
 
+@dataclasses.dataclass(kw_only=True)
+class WinstonLutzMultiTargetMultiFieldResult(ResultBase):
+    num_total_images: int
+    max_2d_field_to_bb_mm: float
+    mean_2d_field_to_bb_mm: float
+    median_2d_field_to_bb_mm: float
+    bb_arrangement: tuple[BBConfig, ...]
+    bb_maxes: dict[str, float]
+    bb_shift_vector: dict
+    bb_shift_yaw: float
+    bb_shift_pitch: float
+    bb_shift_roll: float
+
+
 # --------------------------------------------------------------------------
 # 3D solvers
 # --------------------------------------------------------------------------
+def max_distance_to_lines(p, lines: Iterable[Line]) -> float:
+    """The largest distance from the point (x, y, z) ``p`` to any of the
+    lines."""
+    point = Point(p[0], p[1], p[2])
+    return max(line.distance_to(point) for line in lines)
+
+
 def bb_projection_with_rotation(offset_left: float, offset_up: float, offset_in: float,
                                 gantry: float, couch: float, sad: float = 1000,
                                 machine_scale: MachineScale = MachineScale.IEC61217,
@@ -321,6 +385,29 @@ def straight_ray(vector: Vector, gantry_angle: float) -> Line:
     p2.z = vector.x * -sin(gantry_angle) - 20 * cos(gantry_angle)
     p2.y = vector.y
     return Line(p1, p2)
+
+
+def _max_ray_distance(p1: torch.Tensor, d: torch.Tensor):
+    """The isocentre fit's objective: the largest distance |d x (p - p1)|
+    from a point to the (R, 3) rays through ``p1`` along unit ``d``, as
+    XLA compiles JAX's ``jnp.cross(d, -w)`` and ``jnp.linalg.norm`` inside
+    the Nelder-Mead loop on the CPU: each cross component ``a * b - c * e``
+    with ``a * b`` fused and ``c * e`` rounded (the negation of ``w`` folds
+    away), the squares added in a chain of fused multiply-adds, and the
+    square root taken in float64 and rounded, since torch's float32 CPU
+    ``sqrt`` is not always correctly rounded and XLA's is. (JAX evaluates
+    the initial simplex op by op, where the other product is the rounded
+    one; over 184 seeded ray sets that moved no fit.)"""
+    d0, d1, d2 = d.unbind(1)
+
+    def f(p: torch.Tensor) -> torch.Tensor:
+        w0, w1, w2 = (p[None, :] - p1).unbind(1)
+        c0, c1, c2 = (fma_f32(a, b, -(c * e))
+                      for a, b, c, e in ((d2, w1, d1, w2), (d0, w2, d2, w0), (d1, w0, d0, w1)))
+        sq = fma_f32(c2, c2, fma_f32(c1, c1, c0 * c0))
+        return torch.sqrt(sq.to(torch.float64)).to(torch.float32).max()
+
+    return f
 
 
 def solve_3d_shift_vector_from_2d_planes(xs: Sequence[float], ys: Sequence[float],
@@ -354,6 +441,43 @@ def solve_3d_shift_vector_from_2d_planes(xs: Sequence[float], ys: Sequence[float
 def solve_3d_position_from_2d_planes(xs, ys, thetas, phis, scale) -> Vector:
     """The 3D position: the inverse of the shift vector."""
     return -solve_3d_shift_vector_from_2d_planes(xs, ys, thetas, phis, scale)
+
+
+def conventional_to_euler_notation(axes_resolution: str) -> str:
+    """"roll,pitch,yaw" and the like as the Euler axis letters ("yxz")."""
+    euler = {"pitch": "x", "yaw": "z", "roll": "y"}
+    return "".join(euler[a.strip()] for a in axes_resolution.split(","))
+
+
+def _euler_extrinsic_decompose(R: np.ndarray, order: str) -> tuple[float, float, float]:
+    """The extrinsic Euler angles (a, b, c) in degrees of R = Rz(c) Rx(b)
+    Ry(a), the one order ``"yxz"`` that :func:`align_points` takes."""
+    if order == "yxz":
+        b = math.degrees(math.asin(np.clip(R[2, 1], -1, 1)))
+        a = math.degrees(math.atan2(-R[2, 0], R[2, 2]))
+        c = math.degrees(math.atan2(-R[0, 1], R[1, 1]))
+        return a, b, c
+    raise ValueError(f"Unsupported euler order {order}")
+
+
+def align_points(measured_points: Sequence[Point], ideal_points: Sequence[Point],
+                 axes_order: str = "roll,pitch,yaw") -> tuple[Vector, float, float, float]:
+    """The rigid motion that takes the measured points onto the ideal ones
+    (Kabsch, by SVD in float64): (translation, yaw, pitch, roll), the
+    angles in degrees."""
+    measured_array = np.array([[p.x, p.y, p.z] for p in measured_points])
+    ideal_array = np.array([[p.x, p.y, p.z] for p in ideal_points])
+    measured_centroid = np.mean(measured_array, axis=0)
+    ideal_centroid = np.mean(ideal_array, axis=0)
+    H = (measured_array - measured_centroid).T @ (ideal_array - ideal_centroid)
+    U, _, Vt = np.linalg.svd(H)
+    R = Vt.T @ U.T
+    if np.linalg.det(R) < 0:
+        Vt[2, :] *= -1
+        R = Vt.T @ U.T
+    roll, pitch, yaw = _euler_extrinsic_decompose(R, conventional_to_euler_notation(axes_order))
+    translation = ideal_centroid - R @ measured_centroid
+    return Vector(*translation), yaw, pitch, roll
 
 
 # --------------------------------------------------------------------------
@@ -956,13 +1080,8 @@ class WinstonLutz:
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         p1t = torch.from_numpy(p1)
         dt = torch.from_numpy(d)
-
-        def objective(p):
-            cross = torch.linalg.cross(dt, -(p[None, :] - p1t), dim=1)
-            return torch.linalg.norm(cross, dim=1).max()
-
-        x, fx = nelder_mead(objective, torch.zeros(3, dtype=torch.float32), xatol=1e-5,
-                            fatol=1e-6, max_iter=600)
+        x, fx = nelder_mead(_max_ray_distance(p1t, dt), torch.zeros(3, dtype=torch.float32),
+                            xatol=1e-5, fatol=1e-6, max_iter=600)
         result = SimpleNamespace(x=x.numpy(), fun=float(fx))
         self._axis_fits[key] = result
         return result
@@ -1133,3 +1252,137 @@ class WinstonLutz:
         """The typed :class:`WinstonLutzResult`; ``as_dict`` gives the
         JSON-compatible dict the JAX package returns, ``as_json`` JSON."""
         return self._generate_results_data().output(as_dict, as_json)
+
+
+class WinstonLutzMultiTargetMultiFieldImage(WLBaseImage):
+    """A Winston-Lutz image of several fields and BBs."""
+
+    detection_conditions = [is_round, is_modest_size, is_symmetric]
+
+    def find_field_centroids(self, is_open_field: bool) -> list[Point]:
+        """Every field at once, by one :class:`GlobalSizedFieldLocator`
+        sized to the mean of the arrangement's largest and smallest field,
+        its tolerance spanning their range (at least 10 % of that size)."""
+        if is_open_field:
+            return [self.cax]
+        sizes = [bb.rad_size_mm for bb in self.bb_arrangement]
+        mean_size = (max(sizes) + min(sizes)) / 2
+        tolerance = max((max(sizes) - min(sizes)) * 1.2, 0.1 * mean_size)
+        return self.compute(metrics=GlobalSizedFieldLocator.from_physical(
+            field_width_mm=mean_size, field_height_mm=mean_size,
+            field_tolerance_mm=tolerance, max_number=len(self.bb_arrangement),
+            device=self._device))
+
+    def find_bb_centroids(self, bb_diameter_mm: float, low_density: bool) -> list[Point]:
+        """Each BB of the arrangement searched in a window of 40 mm plus its
+        size around its projection (no machine scale, as in the JAX class);
+        a BB not found is skipped."""
+        centers = []
+        for bb in self.bb_arrangement:
+            bb_tolerance_mm = self._calculate_bb_tolerance(bb.bb_size_mm)
+            left, sup = bb_projection_with_rotation(
+                offset_left=bb.offset_left_mm, offset_up=bb.offset_up_mm,
+                offset_in=bb.offset_in_mm, gantry=self.gantry_angle,
+                couch=self.couch_angle, sad=self.sad)
+            try:
+                centers.extend(self.compute(metrics=SizedDiskLocator.from_center_physical(
+                    # -sup: image rows run down, the WL superior axis up
+                    expected_position_mm=Point(x=left, y=-sup),
+                    search_window_mm=(40 + bb.bb_size_mm, 40 + bb.bb_size_mm),
+                    radius_mm=bb.bb_size_mm / 2, radius_tolerance_mm=bb_tolerance_mm / 2,
+                    invert=not low_density, detection_conditions=self.detection_conditions,
+                    device=self._device)))
+            except ValueError:
+                pass
+        return centers
+
+
+class WinstonLutzMultiTargetMultiField(WinstonLutz):
+    """Winston-Lutz analysis of a phantom of several BBs, each in its own
+    field. Each image finds its fields over the whole frame and its BBs in
+    windows around their projections; a BB seen in at least two images
+    gets a 3D position."""
+
+    image_type = WinstonLutzMultiTargetMultiFieldImage
+    bb_arrangement: tuple[BBConfig, ...]
+    bbs: list[BB3D]
+
+    def analyze(self, bb_arrangement: tuple[BBConfig, ...], is_open_field: bool = False,
+                is_low_density: bool = False,
+                machine_scale: MachineScale = MachineScale.IEC61217,
+                snap_tolerance: float = 3,
+                device: str | torch.device | None = None) -> None:
+        """Analyse the images on ``device`` (``None`` means CUDA)."""
+        self._device = resolve_device(device, f"{type(self).__name__}.analyze")
+        self.machine_scale = machine_scale
+        self.bb_arrangement = bb_arrangement
+        for img in self.images:
+            img.analyze(bb_arrangement=bb_arrangement, is_open_field=is_open_field,
+                        is_low_density=is_low_density, snap_tolerance=snap_tolerance,
+                        machine_scale=machine_scale, device=self._device)
+        self.bbs = []
+        for arrangement in bb_arrangement:
+            matches = [img.arrangement_matches[arrangement.name] for img in self.images
+                       if arrangement.name in img.arrangement_matches]
+            if len(matches) >= 2:
+                self.bbs.append(BB3D(bb_config=arrangement, bb_matches=matches,
+                                     scale=machine_scale))
+        self._is_analyzed = True
+
+    def max_bb_deviation_2d(self, bb_name: str) -> float:
+        for bb in self.bbs:
+            if bb.bb_config.name == bb_name:
+                return max(m.bb_field_distance_mm for m in bb.matches)
+        raise ValueError(f"No BB arrangement named {bb_name}")
+
+    @property
+    def bb_maxes(self) -> dict[str, float]:
+        return {bb.bb_config.name: self.max_bb_deviation_2d(bb.bb_config.name)
+                for bb in self.bbs}
+
+    @property
+    def bb_shift_vector(self) -> tuple[Vector, float, float, float]:
+        """The phantom's 6DOF alignment: the measured BB positions onto the
+        measured field positions, as (translation, yaw, pitch, roll)."""
+        measured = [bb.measured_bb_position for bb in self.bbs]
+        ideal = [bb.measured_field_position for bb in self.bbs]
+        return align_points(measured, ideal)
+
+    def bb_shift_instructions(self) -> str:
+        vector, yaw, _, _ = self.bb_shift_vector
+        x_dir = "LEFT" if vector.x < 0 else "RIGHT"
+        y_dir = "IN" if vector.y > 0 else "OUT"
+        z_dir = "UP" if vector.z > 0 else "DOWN"
+        return (f"{x_dir} {abs(vector.x):2.2f}mm; {y_dir} {abs(vector.y):2.2f}mm; "
+                f"{z_dir} {abs(vector.z):2.2f}mm; Rotation {yaw:2.2f}°")
+
+    def results(self, as_list: bool = False) -> str | list[str]:
+        results = [
+            "Winston-Lutz Multi-Target Multi-Field Analysis",
+            "==============================================",
+            f"Number of images: {len(self.images)}",
+            "",
+            "2D distances",
+            "============",
+            f"Max 2D distance of any BB->Field: {self.cax2bb_distance('max'):.2f} mm",
+            f"Mean 2D distance of any BB->Field: {self.cax2bb_distance('mean'):.2f} mm",
+            f"Median 2D distance of any BB->Field: {self.cax2bb_distance('median'):.2f} mm",
+        ]
+        for name, value in self.bb_maxes.items():
+            results.append(f"Max 2D distance of BB {name}: {value:.2f} mm")
+        return results if as_list else "\n".join(results)
+
+    def _generate_results_data(self) -> WinstonLutzMultiTargetMultiFieldResult:
+        vector, yaw, pitch, roll = self.bb_shift_vector
+        return WinstonLutzMultiTargetMultiFieldResult(
+            num_total_images=len(self.images),
+            max_2d_field_to_bb_mm=self.cax2bb_distance("max"),
+            mean_2d_field_to_bb_mm=self.cax2bb_distance("mean"),
+            median_2d_field_to_bb_mm=self.cax2bb_distance("median"),
+            bb_arrangement=self.bb_arrangement,
+            bb_maxes=self.bb_maxes,
+            bb_shift_vector=vector.dict(),
+            bb_shift_yaw=yaw,
+            bb_shift_pitch=pitch,
+            bb_shift_roll=roll,
+        )

@@ -10,7 +10,8 @@ on the CPU, takes the 2D gamma of a 32x32 pair with
 ``pylinac_tpu_torch.ops.gamma``, and analyses a small AS500 open field
 with ``FieldAnalysisBatch`` and ``FieldAnalysis`` on the CPU, two small
 stars with ``StarshotBatch`` and the single-image ``Starshot``, and the
-picket fence with the single-image ``PicketFence``, on the CPU. The
+picket fence with the single-image ``PicketFence``, and a 2-BB AS500
+multi-target set with ``WinstonLutzMultiTargetMultiField``, on the CPU. The
 machine with the card has neither package.
 """
 
@@ -90,7 +91,17 @@ CHILD = textwrap.dedent("""
     star.analyze()
     pf_single = PicketFence(path, device="cpu")
     pf_single.analyze(tolerance=0.5)
+    from pylinac_tpu_torch import BBConfig, WinstonLutzMultiTargetMultiField
+    from pylinac_tpu_torch.imggen.utils import generate_winstonlutz_multi_bb_multi_field
+    mt_dir = tempfile.mkdtemp() + "/mtmf"
+    generate_winstonlutz_multi_bb_multi_field(
+        AS500Image(sid=1000), PerfectFieldLayer, mt_dir, field_offsets=[(0, 0, 0), (-20, 0, 30)],
+        bb_offsets=[(0, 0, 0), (-20, 0, 30)], final_layers=[GaussianFilterLayer(sigma_mm=1)])
+    mt = WinstonLutzMultiTargetMultiField(mt_dir)
+    mt.analyze((BBConfig("Iso", 0, 0, 0, 5, 20), BBConfig("1", -20, 0, 30, 5, 20)), device="cpu")
+    mt_data = mt.results_data()
     print(json.dumps({
+        "mtmf": [mt_data.num_total_images, mt_data.max_2d_field_to_bb_mm, list(mt_data.bb_maxes)],
         "star_centres": [r.circle_center_x_y for r in star_batch.results_data()]
                         + [star.results_data().circle_center_x_y],
         "star_diameters": [r.circle_diameter_mm for r in star_batch.results_data()]
@@ -131,3 +142,5 @@ def test_port_runs_without_jax_or_pydantic():
         assert abs(x - 250) < 0.1 and abs(y - 260) < 0.1
     assert all(d < 0.05 for d in out["star_diameters"])
     assert out["pf_single"][0] == 8 and out["pf_single"][1] < 0.1
+    # within half an AS500 pixel (0.78 mm at the isocentre) of the fields
+    assert out["mtmf"][0] == 4 and out["mtmf"][1] < 0.4 and out["mtmf"][2] == ["Iso", "1"]

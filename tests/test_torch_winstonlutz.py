@@ -4,12 +4,12 @@ Two generated 4-frame sessions (gantry 0, 90, 180, 270; 30 mm field, 5 mm
 BB 0.5 mm left and 0.3 mm up of the isocentre, 1 mm blur): AS500 frames
 (384 x 512, 1.28 px/mm at SID 1000) and AS1200 frames (1280 x 1280, 2.976
 px/mm, the bench's frame). Both packages analyse the same DICOM files, the
-port on the CPU.
+port on the CPU. A third AS500 session adds an 'in' offset of -0.4 mm,
+and 24 seeded ray sets hold the isocentre fit to JAX's bit for bit.
 
 Tolerance: every float of ``results_data()`` within 0.01 (mm, and px for
 the point fields), integers, strings, keys and types exact. The detections
-agree to the last bit here; only the Nelder-Mead isocentre sizes differ, in
-the seventh decimal (float32 arithmetic in another order).
+and the Nelder-Mead isocentre fits agree to the last bit here.
 
 The selectors: JAX's ``PYLINAC_TPU_FLOOD=packed`` calls the Pallas kernel
 without interpret mode (``winston_lutz.py:493``), which does not lower on
@@ -268,6 +268,69 @@ def test_helpers_match_jax(jwl):
                                                   jwl.MachineScale.VARIAN_STANDARD)
     assert (v.x, v.y, v.z) == (jv.x, jv.y, jv.z)
     assert BBArrangement.ISO[0].to_human() == jwl.BBArrangement.ISO[0].to_human()
+
+
+@pytest.fixture(scope="module")
+def offset_in_session(tmp_path_factory):
+    return _generate(str(tmp_path_factory.mktemp("wl_in") / "wl"), AS500Image, image_axes=AXES_4,
+                     offset_mm_left=0.5, offset_mm_up=0.3, offset_mm_in=-0.4)
+
+
+def test_3d_iso_sizes_match_jax_to_the_bit(jwl, offset_in_session):
+    """The Nelder-Mead isocentre fits of a session with an 'in' offset,
+    where a last-bit gap once moved the end point by 0.011 mm."""
+    port = _port(offset_in_session)
+    ref = jwl.WinstonLutz(offset_in_session)
+    ref.analyze()
+    got, want = port.results_data(as_dict=True), ref.results_data(as_dict=True)
+    assert_same(got, want)
+    for key in ("gantry_3d_iso_diameter_mm", "gantry_coll_3d_iso_diameter_mm"):
+        assert got[key] == want[key], key
+    assert port.results() == ref.results()
+
+
+def _random_rays(rng):
+    """Four rays at gantry 0/90/180/270 +- 1 deg through a centre uniform
+    within +-1 mm, with 5 um of noise, as ``straight_ray`` draws them."""
+    c = rng.uniform(-1, 1, 3)
+    p1, p2 = [], []
+    for g0 in (0, 90, 180, 270):
+        g = np.deg2rad(g0 + rng.uniform(-1, 1))
+        vx = c[0] * np.cos(g) - c[2] * np.sin(g) + rng.normal(0, 0.005)
+        vy = c[1] + rng.normal(0, 0.005)
+        p1.append([vx * np.cos(g) + 20 * np.sin(g), vy, -vx * np.sin(g) + 20 * np.cos(g)])
+        p2.append([vx * np.cos(g) - 20 * np.sin(g), vy, -vx * np.sin(g) - 20 * np.cos(g)])
+    p1, p2 = np.array(p1, np.float32), np.array(p2, np.float32)
+    d = p2 - p1
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return p1, d
+
+
+def test_minimize_axis_fit_is_jax_bit_for_bit():
+    """``_minimize_axis``'s objective and Nelder-Mead (xatol 1e-5, fatol
+    1e-6, 600 iterations, from the origin) against JAX's, called as JAX's
+    ``_minimize_axis`` calls it (eagerly, the rays closed over), on 24
+    seeded ray sets."""
+    import jax.numpy as jnp
+
+    from pylinac_tpu.ops.optimize import nelder_mead as jnm
+    from pylinac_tpu_torch.ops.optimize import nelder_mead
+
+    rng = np.random.default_rng(11)
+    for i in range(24):
+        p1, d = _random_rays(rng)
+        p1j, dj = jnp.asarray(p1), jnp.asarray(d)
+
+        def objective(p):
+            w = p[None, :] - p1j
+            return jnp.max(jnp.linalg.norm(jnp.cross(dj, -w), axis=1))
+
+        jx, jf = jnm(objective, jnp.zeros(3, jnp.float32), xatol=1e-5, fatol=1e-6, max_iter=600)
+        p1t, dt = torch.from_numpy(p1), torch.from_numpy(d)
+        x, fx = nelder_mead(twl._max_ray_distance(p1t, dt), torch.zeros(3), xatol=1e-5,
+                            fatol=1e-6, max_iter=600)
+        np.testing.assert_array_equal(x.numpy(), np.asarray(jx), err_msg=str(i))
+        assert fx.numpy() == np.asarray(jf), i
 
 
 @pytest.mark.cuda
