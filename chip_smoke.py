@@ -79,6 +79,24 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   timed there), the results against the CPU run, ``PicketFenceBatch`` on
   the same frames and the drawn pickets; timed. Its launches join the
   median's entry of the kernels line;
+- compressed DICOM: one seeded 512x512 uint16 frame through the port's
+  ``dcmwrite`` and ``core/image.load`` in RLE, JPEG Lossless SV1, JPEG-LS
+  and JPEG 2000, each equal to the frame, each host C++ decoder equal to
+  its Python twin where there is one; the decode times a slice;
+- CatPhan 700: four synthetic 80-slice scans of 512x512 int16 (0.5 mm
+  pixels, 2.5 mm slices), scan 0 stored as JPEG Lossless SV1 and the rest
+  uncompressed, through ``CatPhanBatch(model=CatPhan700)`` on the card,
+  and scan 0 from a zip through ``CatPhan700.from_zip(...,
+  memory_efficient_mode=True)``, every CCL input of both held bit-equal to
+  its twin; the drawn phantom's bars (plugs, geometry, thickness, roll, a
+  falling MTF with its 50 % point measured), the zipped scan against the
+  batch and the CPU, warm runs equal; batch scans/s, the zipped scan's
+  load and decode and its analyze timed apart, a profile;
+- Winston-Lutz from a CBCT: 160 slices of 512x512 of a 5 mm BB as JPEG-LS
+  in a zip, ``WinstonLutz.from_cbct_zip`` then ``analyze`` on the card
+  (the batched BB window scan, every CCL input held to its twin), the
+  reference's bars, card against CPU, warm runs equal; the projection
+  build and the analyze timed apart, a profile with the hull's range;
 - multi-target Winston-Lutz: writes the SNC MultiMet session (6 BBs in 6
   fields of 20 mm, 8 AS1200 frames: gantry 0, 45, 135, 180, 225, 315 and
   gantry 0 at couch 45 and 315) and a copy with every BB 1 mm left, runs
@@ -88,9 +106,9 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   the largest whole-frame mask ten more launches equal; checks every BB
   matched in every frame and the reference's bars, holds 2 frames to the
   CPU run, times the warm analysis (every run's results equal), profiles
-  it (the hull's device time named) and times each kernel use against
-  its twin. It runs last: its profile of 177,000 launches left the
-  profiler of a phase after it with no device events.
+  the 2-frame run (the hull's device time named) and times each kernel use
+  against its twin. It runs last: its profile of an 8-frame run (177,000
+  launches) left the profiler of a phase after it with no device events.
 
 The launch counts of each path are set to 0 just before it runs and read
 just after. Every failure raises and exits non-zero. The last line of
@@ -118,6 +136,7 @@ import functools
 import io
 import json
 import multiprocessing
+import os
 import pstats
 import shutil
 import statistics
@@ -125,6 +144,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+import zipfile
 from collections import Counter
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -536,7 +557,7 @@ def largest_record(seen, mode: str):
 
 
 def results_text(result) -> str:
-    """A typed result, or a list of them, as JSON without its
+    """A typed result or its dict, or a list of them, as JSON without its
     ``date_of_analysis`` fields (nested ones too): the one field that a
     rerun must change."""
     def undated(x):
@@ -546,7 +567,8 @@ def results_text(result) -> str:
 
     if isinstance(result, list):
         return "\n".join(results_text(r) for r in result)
-    return json.dumps(undated(json.loads(result.model_dump_json())))
+    data = result if isinstance(result, dict) else json.loads(result.model_dump_json())
+    return json.dumps(undated(data))
 
 
 def check_same_texts(texts: list[str], what: str) -> None:
@@ -1304,6 +1326,452 @@ def winston_lutz_phase(card: str, ccl, flood) -> list[dict]:
     return lines
 
 
+# the CatPhan 700 phase: 4 synthetic 80-slice scans of 512 x 512 int16 at
+# 0.5 mm pixels and 2.5 mm slices (CTP404 at +70 mm, CTP486 at -90 mm),
+# seeds CT_SEED + i; scan 0 stored as JPEG Lossless SV1, the rest uncompressed
+CP700_SLICES = 80
+CP700_HU_TOL = 40         # plug against its nominal HU
+CP700_GEOMETRY_MM = 1.0   # node distance against 50 mm
+CP700_THICKNESS_MM = 0.2  # slice thickness against 2.5 mm
+CP700_ROLL_DEG = 0.1
+# the kV CBCT of a 5 mm BB (tests/models/test_winstonlutz.py:124-157 at
+# clinical width): 160 slices of 512 x 512 at 0.5 mm pixels and 1 mm slices,
+# stored as JPEG-LS; the bars of test_winstonlutz.py:159-170
+CBCT_SLICES = 160
+CBCT_SIZE = 512
+CBCT_BARS = {"max_2d_cax_to_bb_mm": (3.61, 0.2), "x": (1.0, 0.2), "y": (-3.0, 0.2),
+             "z": (-2.0, 0.2)}
+# the Nelder-Mead isocentre fits, held as check_cbct_fits says
+CBCT_FIT_FIELDS = ("gantry_3d_iso_diameter_mm", "gantry_coll_3d_iso_diameter_mm")
+WARM_RUNS = 6             # 1 warm-up, then the median of 5
+
+
+def recompress(path: str, transfer_syntax: str) -> None:
+    """Rewrite a DICOM file in ``transfer_syntax`` (a worker of the
+    set-up's pool)."""
+    from pylinac_tpu_torch.core import dcm
+
+    dcm.dcmwrite(path, dcm.dcmread(path), transfer_syntax=transfer_syntax)
+
+
+def zip_folder(folder: str, path: str) -> str:
+    with zipfile.ZipFile(path, "w") as zf:
+        for name in sorted(os.listdir(folder)):
+            zf.write(os.path.join(folder, name), name)
+    return path
+
+
+def make_cp700_scans(tmp: str) -> tuple[list[str], str]:
+    """The four CatPhan 700 scans, written in parallel, then scan 0's
+    slices rewritten as JPEG Lossless SV1 in parallel and zipped. Returns
+    the folders and scan 0's zip."""
+    from pylinac_tpu_torch.core import dcm
+    from pylinac_tpu_torch.imggen.ct import _generate_catphan700
+
+    dirs = [f"{tmp}/cp700_{i}" for i in range(CT_SCANS)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+        futures = [pool.submit(_generate_catphan700, d, num_slices=CP700_SLICES,
+                               seed=CT_SEED + i) for i, d in enumerate(dirs)]
+        paths = [f.result() for f in futures]
+        for f in [pool.submit(recompress, p, dcm.JPEG_LOSSLESS_SV1) for p in paths[0]]:
+            f.result()
+    return dirs, zip_folder(dirs[0], f"{tmp}/cp700_0.zip")
+
+
+def check_cp700_results(results: list[dict], what: str) -> None:
+    """The drawn phantom's bars on every scan: each of the 11 plugs within
+    CP700_HU_TOL of its nominal HU and HU linearity passed, the nodes 50 mm
+    apart within CP700_GEOMETRY_MM, the slice thickness 2.5 mm within
+    CP700_THICKNESS_MM, the roll within CP700_ROLL_DEG of 0, and the MTF's
+    50 % point inside the 0.1-0.8 lp/mm bar groups."""
+    for i, r in enumerate(results):
+        c404 = r["ctp404"]
+        hu_err = max(abs(x["value"] - x["nominal_value"]) for x in c404["hu_rois"].values())
+        checks = {
+            "model 700, 80 slices": (r["catphan_model"], r["num_images"]) == ("700", CP700_SLICES),
+            "11 plugs": len(c404["hu_rois"]) == 11,
+            f"plugs within {CP700_HU_TOL} HU": hu_err < CP700_HU_TOL,
+            "HU linearity passed": c404["hu_linearity_passed"],
+            f"nodes 50 +- {CP700_GEOMETRY_MM} mm":
+                abs(c404["avg_line_distance_mm"] - 50) < CP700_GEOMETRY_MM,
+            "geometry passed": c404["geometry_passed"],
+            f"thickness 2.5 +- {CP700_THICKNESS_MM} mm":
+                abs(c404["measured_slice_thickness_mm"] - 2.5) < CP700_THICKNESS_MM,
+            f"|roll| < {CP700_ROLL_DEG} deg": abs(r["catphan_roll_deg"]) < CP700_ROLL_DEG,
+            "0.1 < mtf50 < 0.8": 0.1 < r["ctp528"]["mtf_lp_mm"]["50"] < 0.8,
+            "start angle None": r["ctp528"]["start_angle_radians"] is None,
+            "uniformity passed": r["ctp486"]["passed"],
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise RuntimeError(f"{what} scan {i} fails {failed}: {r}")
+        print(f"{what} scan {i}: origin {r['origin_slice']}, roll {r['catphan_roll_deg']:.4f} "
+              f"deg, nodes {c404['avg_line_distance_mm']:.4f} mm, thickness "
+              f"{c404['measured_slice_thickness_mm']:.4f} mm, max HU error {hu_err:.1f}, mtf50 "
+              f"{r['ctp528']['mtf_lp_mm']['50']:.4f} lp/mm: inside every bar")
+
+
+def check_mtf_falls(ct, caught, what: str) -> None:
+    """The eight bar groups' relative MTF must fall monotonically (no
+    ``core/mtf.py:38`` warning) and its 50 % point must be measured (no
+    extrapolation warning at 50 %)."""
+    norm = list(ct.ctp528.mtf.norm_mtfs.values())
+    messages = [str(w.message) for w in caught]
+    if (len(norm) != 8 or any(a <= b for a, b in zip(norm, norm[1:]))
+            or any("monotonically" in m or " 50%" in m for m in messages)):
+        raise RuntimeError(f"{what}: the MTF does not fall over the 8 bar groups or its 50 % "
+                           f"point is extrapolated: {norm}, {messages}")
+    print(f"{what}: relative MTF over 0.1-0.8 lp/mm {[round(v, 4) for v in norm]}, falling")
+
+
+def same_warnings(card_data: dict, cpu_data: dict, what: str) -> None:
+    """Card and CPU ``results_data().warnings`` equal on (message,
+    category)."""
+    def proj(d):
+        return [(w["message"], w["category"]) for w in d["warnings"]]
+
+    if proj(card_data) != proj(cpu_data):
+        raise RuntimeError(f"{what}: the card's warnings {proj(card_data)} are not the CPU's "
+                           f"{proj(cpu_data)}")
+    print(f"{what}: card and CPU warnings equal on (message, category): {proj(card_data)}")
+
+
+def median_runs(card: str, what: str, run, n: int = WARM_RUNS) -> tuple[float, list]:
+    """``run()`` n times (it synchronises the card itself); the median of
+    all but the first wall, in ms, and every run's output."""
+    times, outs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        outs.append(run())
+        times.append((time.perf_counter() - t0) * 1e3)
+    warm = statistics.median(times[1:])
+    print(f"[{card}] {what}: median {warm:.1f} ms of {n - 1} runs "
+          f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
+    return warm, outs
+
+
+def codec_checks(card: str) -> None:
+    """One seeded 512 x 512 uint16 frame through the port's ``dcmwrite``
+    and ``core/image.load`` in RLE, JPEG Lossless, JPEG-LS and JPEG 2000:
+    each load must give the frame back, and each native decode must equal
+    its Python twin where there is one. Then each syntax's decode time a
+    slice, native (median of 5 after 1) and Python (one call)."""
+    from pylinac_tpu_torch import native
+    from pylinac_tpu_torch.core import compressed_px as cpx
+    from pylinac_tpu_torch.core import dcm, image, jpegls
+
+    frame = np.random.default_rng(CT_SEED).normal(1024, 300, (512, 512)).clip(0, 4095)
+    frame = frame.astype(np.uint16)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_codecs_")
+    try:
+        for name, ts in (("RLE", dcm.RLE_LOSSLESS), ("JPEG Lossless SV1", dcm.JPEG_LOSSLESS_SV1),
+                         ("JPEG-LS", dcm.JPEG_LS_LOSSLESS), ("JPEG 2000", dcm.J2K_LOSSLESS)):
+            ds = dcm.Dataset()
+            ds.Modality = "CT"
+            ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+            ds.set_pixel_data(frame)
+            path = f"{tmp}/{name.replace(' ', '_')}.dcm"
+            dcm.dcmwrite(path, ds, transfer_syntax=ts)
+            if not np.array_equal(image.load(path).array, frame):
+                raise RuntimeError(f"{name}: image.load does not give the frame back")
+            frag = dcm.dcmread(path).get("PixelData")[1]  # after the Basic Offset Table
+            twin = {"RLE": lambda f: cpx.rle_decode_frame(f, 512, 512, 16),
+                    "JPEG Lossless SV1": cpx.jpeg_lossless_decode,
+                    "JPEG-LS": jpegls.jpegls_decode}.get(name)
+            fast = {"RLE": None, "JPEG Lossless SV1": native.jpeg_lossless_native(),
+                    "JPEG-LS": native.jpegls_native()[0],
+                    "JPEG 2000": cpx.j2k_decode}[name]
+            cells = [f"{os.path.getsize(path)} bytes"]
+            if fast is not None:
+                out = fast(frag)
+                if not np.array_equal(out, frame):
+                    raise RuntimeError(f"{name}: the native decode is not the frame")
+                ms, _ = median_runs(card, f"{name} native decode of a 512 x 512 slice",
+                                    lambda: fast(frag))
+                cells.append(f"native {ms:.3f} ms")
+            if twin is not None:
+                t0 = time.perf_counter()
+                out = twin(frag)
+                py_ms = (time.perf_counter() - t0) * 1e3
+                if not np.array_equal(out, frame):
+                    raise RuntimeError(f"{name}: the Python twin is not the frame")
+                cells.append(f"Python {py_ms:.1f} ms")
+            print(f"[{card}] codec {name}: round trip through dcmwrite and image.load equal; "
+                  f"native equal to the Python twin where both exist; " + ", ".join(cells))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def counted_ccl(ccl, run, what: str):
+    """``run()`` with the CCL counts at 0 and every CCL input recorded,
+    each held bit-equal to its twin. Returns (its output, its counts, its
+    records, the largest error of each mode)."""
+    ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+    with recording_inputs(ccl_entries()) as seen:
+        out = run()
+    torch.cuda.synchronize()
+    counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches}
+    check_counts(seen, counts, what)
+    if min(counts.values()) < 1:
+        raise RuntimeError(f"the {what} launched a CCL mode no time: {counts}")
+    errs = check_path_masks(kernel_pairs(ccl), seen, what)
+    print(f"{what}: launches {counts}")
+    return out, counts, seen, errs
+
+
+def catphan700_phase(card: str, ccl) -> list[dict]:
+    """CatPhan 700 from mixed compressed and uncompressed series: the
+    4-scan ``CatPhanBatch`` on the card and scan 0 from a zip of JPEG
+    Lossless slices in memory-efficient mode, both counted with every CCL
+    input held to its twin; the drawn phantom's bars, batch against lazy
+    single, card against CPU, warm runs equal; batch scans/s, the zipped
+    scan's load and decode and its analyze as separate times, a profile.
+    Returns the CCL kernel's two lines (label and holes)."""
+    from pylinac_tpu_torch import ct
+    from pylinac_tpu_torch.core.image import LazyZipDicomImageStack
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp700_")
+    try:
+        t0 = time.perf_counter()
+        dirs, zipped = make_cp700_scans(tmp)
+        print(f"inputs: {CT_SCANS} CatPhan 700 scans x {CP700_SLICES} slices of 512 x 512 int16 "
+              f"(scan 0 JPEG Lossless SV1, zipped {os.path.getsize(zipped) / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        def batch_run():
+            batch = ct.CatPhanBatch(dirs, model=ct.CatPhan700)
+            batch.analyze(device="cuda")
+            return batch, batch.results_data(as_dict=True)
+
+        def lazy_run(device="cuda"):
+            single = ct.CatPhan700.from_zip(zipped, memory_efficient_mode=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                single.analyze(device=device)
+                data = single.results_data(as_dict=True)
+            return single, data, caught
+
+        (batch, results), counts, seen, errs = counted_ccl(ccl, batch_run, "CatPhan 700 batch")
+        check_cp700_results(results, "card CatPhan 700 batch")
+        (single, single_data, caught), single_counts, single_seen, single_errs = counted_ccl(
+            ccl, lazy_run, "CatPhan 700 lazy zipped scan")
+        if not isinstance(single.dicom_stack, LazyZipDicomImageStack):
+            raise RuntimeError("the zipped scan did not load as a lazy zip stack")
+        check_cp700_results([single_data], "card CatPhan 700 lazy zipped")
+        check_mtf_falls(single, caught, "card CatPhan 700 lazy zipped scan 0")
+        worst = compare_tree(results[0], single_data, "batch scan 0 vs lazy zipped scan", ct_tol)
+        exact = results_text(results[0]) == results_text(single_data)
+        print(f"lazy zipped scan 0 vs batch scan 0: agree (max difference {worst:.2e}; "
+              f"{'equal' if exact else 'NOT equal'} character for character)")
+
+        t0 = time.perf_counter()
+        _, cpu_data, _ = lazy_run("cpu")
+        cpu_s = time.perf_counter() - t0
+        worst = max(compare_tree(cpu_data, single_data, "CPU vs card lazy scan", ct_tol),
+                    compare_tree(cpu_data, results[0], "CPU vs card batch", ct_tol))
+        same_warnings(single_data, cpu_data, "CatPhan 700 scan 0")
+        print(f"card vs CPU on scan 0 (the CPU run {cpu_s:.1f} s): agree (max difference "
+              f"{worst:.2e})")
+
+        def warm_batch():
+            for scan in batch.cts:
+                scan._slice_centroids = None  # a fresh localisation per run
+            batch.analyze(device="cuda")
+            data = batch.results_data()
+            torch.cuda.synchronize()
+            return data
+
+        warm, outs = median_runs(card, f"warm CatPhanBatch(model=CatPhan700) analyze + "
+                                 f"results_data of {CT_SCANS} scans", warm_batch)
+        check_same_texts([results_text(o) for o in outs], "CatPhan 700 warm batches")
+        print(f"[{card}] warm CatPhan 700 batch: {CT_SCANS / warm * 1e3:.3f} scans/s = "
+              f"{CT_SCANS * CP700_SLICES / warm * 1e3:.1f} slices/s")
+
+        def load_decode():
+            scan = ct.CatPhan700.from_zip(zipped, memory_efficient_mode=True)
+            scan._loc_stage_host()  # the one decode of the series
+            return scan
+
+        load_ms, scans = median_runs(card, "CatPhan700.from_zip(memory_efficient_mode=True) "
+                                     "load + decode of 80 JPEG Lossless slices", load_decode)
+
+        def analyze_scan():
+            scan = scans.pop()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                scan.analyze(device="cuda")
+                data = scan.results_data()
+            torch.cuda.synchronize()
+            return data
+
+        analyze_ms, outs = median_runs(card, "lazy zipped CatPhan700 analyze + results_data "
+                                       "(series decoded)", analyze_scan)
+        check_same_texts([results_text(o) for o in outs], "CatPhan 700 lazy zipped warm runs")
+        print(f"[{card}] lazy zipped CatPhan 700 scan: load + decode {load_ms:.1f} ms, analyze "
+              f"{analyze_ms:.1f} ms")
+        device_profile(card, "CatPhan 700 batch", warm_batch, warm)
+
+        lines = []
+        for mode, replaces in (("label", "pylinac_tpu/ops/pallas_label.py:336"),
+                               ("holes", "pylinac_tpu/ops/pallas_label.py:336")):
+            masks, args, kwargs = largest_record(seen, mode)
+            kernel, twin = kernel_pairs(ccl)[mode]
+            lines.append(ccl_line(
+                f"ccl_{mode}_cp700", replaces, counts[mode] + single_counts[mode],
+                max(errs.get(mode, 0.0), single_errs.get(mode, 0.0)),
+                timed_pair(card, f"CatPhan 700 ccl {mode} on the batch's largest input",
+                           lambda x: kernel(x, *args, **kwargs),
+                           lambda x: twin(x, *args, **kwargs), masks, ccl_bound)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+def check_cbct_results(wl, data: dict, what: str) -> None:
+    """``tests/models/test_winstonlutz.py:159-170``'s bars: the BB planted
+    (2, -1, 3) mm off gives a max 2D CAX-BB of 3.61 mm and a shift of
+    (1, -3, -2) mm, each within 0.2 mm."""
+    sv = wl.bb_shift_vector
+    got = {"max_2d_cax_to_bb_mm": data["max_2d_cax_to_bb_mm"], "x": sv.x, "y": sv.y, "z": sv.z}
+    failed = {k: v for k, v in got.items() if abs(v - CBCT_BARS[k][0]) > CBCT_BARS[k][1]}
+    if failed or len(wl.images) != 4:
+        raise RuntimeError(f"{what} fails the CBCT bars: {failed}, {len(wl.images)} views")
+    print(f"{what}: 4 views, max 2D CAX-BB {got['max_2d_cax_to_bb_mm']:.4f} mm, shift "
+          f"({sv.x:.4f}, {sv.y:.4f}, {sv.z:.4f}) mm: inside every bar")
+
+
+def check_cbct_fits(wl, cpu_wl, data: dict, cpu_data: dict) -> None:
+    """The 3D isocentre diameters of the CBCT, card against CPU. The float32
+    Nelder-Mead from the origin (JAX's, kept for parity; ROADMAP section 3)
+    stalls on some ray sets, and the card's rays differ from the CPU's in
+    the last bits (the region sums' order), so these two fields are held
+    by what the device path decides: each view's BB and field centre card
+    against CPU within PX_TOL; each fit's value twice the largest float64
+    distance from its point to its own rays (within 1e-5 mm); and the
+    card's diameter no larger than the CPU's plus MM_TOL."""
+    for a, b in zip(wl.images, cpu_wl.images):
+        diff = max(abs(a.bb.x - b.bb.x), abs(a.bb.y - b.bb.y),
+                   abs(a.field_cax.x - b.field_cax.x), abs(a.field_cax.y - b.field_cax.y))
+        if diff > PX_TOL:
+            raise RuntimeError(f"WL from CBCT: a view's BB or field centre differs from the "
+                               f"CPU's by {diff} px")
+    for which, session in (("card", wl), ("CPU", cpu_wl)):
+        fit = session._minimize_axis()
+        rays = [img.arrangement_matches["Iso"].bb_to_field_projection for img in session.images]
+        p1 = np.array([[r.point1.x, r.point1.y, r.point1.z] for r in rays])
+        d = np.array([[r.point2.x, r.point2.y, r.point2.z] for r in rays]) - p1
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        dist = np.linalg.norm(np.cross(d, fit.x.astype(np.float64) - p1), axis=1).max()
+        if abs(2 * dist - 2 * fit.fun) > 1e-5:
+            raise RuntimeError(f"WL from CBCT {which}: the fit reports {fit.fun} mm, its point's "
+                               f"largest ray distance is {dist} mm")
+    for name in CBCT_FIT_FIELDS:
+        if data[name] > cpu_data[name] + MM_TOL:
+            raise RuntimeError(f"WL from CBCT {name}: the card's {data[name]} exceeds the "
+                               f"CPU's {cpu_data[name]}")
+    print("WL from CBCT 3D isocentre fits: BB and field centres within "
+          f"{PX_TOL} px of the CPU's; " + ", ".join(
+              f"{name} card {data[name]:.6f} mm, CPU {cpu_data[name]:.6f} mm"
+              for name in CBCT_FIT_FIELDS)
+          + "; each twice its point's largest ray distance")
+
+
+def wl_cbct_phase(card: str, ccl) -> list[dict]:
+    """Winston-Lutz from a JPEG-LS CBCT zip: ``WinstonLutz.from_cbct_zip``
+    (host projections), then ``analyze(bb_size_mm=5)`` on the card, which
+    takes a low-density BB in an open field: no field fill, and the four
+    views' BB windows scanned at 52 thresholds in one batched pass
+    (``ccl.cu`` 4-connected, label and holes), counted with every input
+    held to its twin; the bars, card against CPU, warm runs equal; the
+    projection build and the analyze timed apart; a profile with the
+    hull's range. Returns the CCL kernel's two lines."""
+    from pylinac_tpu_torch import WinstonLutz
+    from pylinac_tpu_torch.core import dcm
+    from pylinac_tpu_torch.imggen.ct import _generate_cbct_bb
+    from pylinac_tpu_torch.ops import label as tlabel
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cbct_")
+    try:
+        t0 = time.perf_counter()
+        _generate_cbct_bb(f"{tmp}/cbct", num_slices=CBCT_SLICES, image_size=CBCT_SIZE,
+                          transfer_syntax=dcm.JPEG_LS_LOSSLESS)
+        zipped = zip_folder(f"{tmp}/cbct", f"{tmp}/cbct.zip")
+        print(f"inputs: a CBCT of {CBCT_SLICES} slices of {CBCT_SIZE} x {CBCT_SIZE} uint16 as "
+              f"JPEG-LS, zipped "
+              f"{os.path.getsize(zipped) / 2**20:.1f} MiB, in {time.perf_counter() - t0:.1f} s")
+
+        def run(device="cuda"):
+            wl = WinstonLutz.from_cbct_zip(zipped)
+            wl.analyze(bb_size_mm=5, device=device)
+            return wl, wl.results_data(as_dict=True)
+
+        (wl, data), counts, seen, errs = counted_ccl(ccl, run, "WL from CBCT")
+        check_cbct_results(wl, data, "card WL from CBCT")
+        t0 = time.perf_counter()
+        cpu_wl, cpu_data = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        for got, want in zip(wl.images, cpu_wl.images):
+            if not np.array_equal(got.array, want.array):
+                raise RuntimeError("the card run's projections differ from the CPU run's")
+        worst = compare_tree({k: v for k, v in cpu_data.items() if k not in CBCT_FIT_FIELDS},
+                             {k: v for k, v in data.items() if k not in CBCT_FIT_FIELDS},
+                             "WL from CBCT CPU vs card", wl_tol)
+        same_warnings(data, cpu_data, "WL from CBCT")
+        print(f"WL from CBCT card vs CPU (the CPU run {cpu_s:.1f} s): agree in every field but "
+              f"the 3D isocentre fits (max difference {worst:.2e})")
+        check_cbct_fits(wl, cpu_wl, data, cpu_data)
+
+        build_ms, wls = median_runs(card, f"WinstonLutz.from_cbct_zip projection build of "
+                                    f"{CBCT_SLICES} JPEG-LS slices",
+                                    lambda: WinstonLutz.from_cbct_zip(zipped))
+
+        def analyze():
+            fresh = wls.pop()
+            fresh.analyze(bb_size_mm=5, device="cuda")
+            out = fresh.results_data()
+            torch.cuda.synchronize()
+            return out
+
+        analyze_ms, outs = median_runs(card, "WL from CBCT analyze + results_data of 4 views",
+                                       analyze)
+        check_same_texts([results_text(o) for o in outs], "WL from CBCT warm runs")
+        print(f"[{card}] WL from CBCT: projection build {build_ms:.1f} ms, analyze "
+              f"{analyze_ms:.1f} ms")
+
+        hull = tlabel._hull_area
+
+        def named_hull(*args, **kwargs):
+            with torch.profiler.record_function("hull_area"):
+                return hull(*args, **kwargs)
+
+        profiled = WinstonLutz.from_cbct_zip(zipped)
+        tlabel._hull_area = named_hull
+        try:
+            device_profile(card, "WL from CBCT analyze",
+                           lambda: (profiled.analyze(bb_size_mm=5, device="cuda"),
+                                    torch.cuda.synchronize()), analyze_ms, top=12,
+                           ranges=("hull_area",))
+        finally:
+            tlabel._hull_area = hull
+
+        label4 = (functools.partial(ccl.label_batch, connectivity=1),
+                  functools.partial(ccl.label_reference, connectivity=1))
+        lines = []
+        for mode, kernel_twin in (("label", label4),
+                                  ("holes", (ccl.hole_roots_batch, ccl.hole_roots_reference))):
+            masks = largest_record(seen, mode)[0]
+            masks = masks if masks.dim() == 3 else masks[None]
+            lines.append(ccl_line(
+                f"ccl_{mode}4_wl_cbct", "pylinac_tpu/ops/pallas_label.py:336", counts[mode],
+                errs.get(mode, 0.0),
+                timed_pair(card, f"WL from CBCT ccl {mode} 4-conn on the BB windows",
+                           *kernel_twin, masks, ccl_bound)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
 MTMF_AXES = ((0, 0, 0), (45, 0, 0), (135, 0, 0), (180, 0, 0), (225, 0, 0), (315, 0, 0),
              (0, 0, 45), (0, 0, 315))   # set C: at gantry 90 two fields merge
 MTMF_CPU_FRAMES = (0, 3)  # the 2 frames held against the CPU: gantry 0 and 45
@@ -1366,8 +1834,8 @@ def mtmf_phase(card: str, ccl) -> list[dict]:
     card with every CCL input recorded and held to its twin (the largest
     whole-frame mask ten more launches, equal), the results against the
     reference's bars, a 1 mm offset copy, 2 frames against the CPU, the
-    warm wall (every run's results equal) and a profile with the hull's
-    device time. Returns the kernels-line entries: the field locator's
+    warm wall (every run's results equal) and a profile of the 2-frame run
+    with the hull's device time. Returns the kernels-line entries: the field locator's
     8-connected labels and their holes, the BB windows' 4-connected labels
     and their holes."""
     from pylinac_tpu_torch import BBArrangement, WinstonLutzMultiTargetMultiField
@@ -1468,6 +1936,17 @@ def mtmf_phase(card: str, ccl) -> list[dict]:
               f"{len(wl.images) / warm * 1e3:.2f} images/s "
               f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
 
+        # the profile takes the 2-frame run (frames 0 and 3): the profiler
+        # took 130 s to process an 8-frame run's 177,000 launches
+        two = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            analyze(card2)()
+            torch.cuda.synchronize()
+            two.append((time.perf_counter() - t1) * 1e3)
+        two_ms = statistics.median(two[1:])
+        print(f"[{card}] warm MTMF analyze + results_data of frames {MTMF_CPU_FRAMES}: "
+              f"median {two_ms:.1f} ms of 2 runs")
         hull = tlabel._hull_area
 
         def named_hull(*args, **kwargs):
@@ -1476,8 +1955,8 @@ def mtmf_phase(card: str, ccl) -> list[dict]:
 
         tlabel._hull_area = named_hull
         try:
-            device_profile(card, "MTMF", analyze(wl), warm, top=15,
-                           ranges=("hull_area",))
+            device_profile(card, f"MTMF, frames {MTMF_CPU_FRAMES}", analyze(card2), two_ms,
+                           top=15, ranges=("hull_area",))
         finally:
             tlabel._hull_area = hull
         print(f"MTMF profile, with its processing: {time.perf_counter() - t0:.1f} s")
@@ -2658,8 +3137,15 @@ def main() -> int:
     kernels[0]["launches"] += pf_launches
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], pf_err)
     print(f"single PicketFence phase: {time.perf_counter() - t0:.1f} s")
-    # last: its profile of 177,000 launches left the next phase's profiler
-    # with no device events
+    t0 = time.perf_counter()
+    codec_checks(card)
+    kernels += catphan700_phase(card, ccl)
+    print(f"CatPhan 700 phase, the codec checks with it: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += wl_cbct_phase(card, ccl)
+    print(f"Winston-Lutz from CBCT phase: {time.perf_counter() - t0:.1f} s")
+    # last: its profile of an 8-frame run (177,000 launches) left the next
+    # phase's profiler with no device events
     t0 = time.perf_counter()
     kernels += mtmf_phase(card, ccl)
     print(f"multi-target Winston-Lutz phase: {time.perf_counter() - t0:.1f} s; whole run "

@@ -4,10 +4,12 @@ The JAX package ``pylinac_tpu`` stays the reference. This package mirrors
 its layout (``ops/``, ``core/``, ``metrics/``, ``imggen/``,
 ``picketfence.py``, ``ct.py``), imports ``torch`` and never ``jax``, and runs
 its device work on an NVIDIA card through hand-written kernels (``csrc/``).
-Ported so far: the picket fence, single image and batched
-(``PicketFence``, ``PicketFenceBatch``, ``analyze_batch``), the CatPhan
-503/504/600/604 analyses, single scan and batched (``CatPhan504``,
-``CatPhanBatch``), the Winston-Lutz analyses (``WinstonLutz``,
+Its host codecs for compressed DICOM are C++ (``native/``), built with
+``g++`` at first use. Ported so far: the picket fence, single image and
+batched (``PicketFence``, ``PicketFenceBatch``, ``analyze_batch``), the
+CatPhan 503/504/600/604/700 analyses, single scan and batched, from folders
+or zips (``CatPhan504``, ``CatPhan700``, ``CatPhanBatch``), the
+Winston-Lutz analyses (``WinstonLutz``, also from zips and CBCT scans,
 ``WinstonLutz2D``, ``WinstonLutzMultiTargetMultiField``), the gamma index (``gamma_2d``, ``gamma_2d_batch``,
 ``gamma_1d``, ``gamma_geometric``, ``gamma_bakai``), the field analyses
 (``FieldAnalysis``, ``DeviceFieldAnalysis``, ``FieldAnalysisBatch``,
@@ -17,7 +19,7 @@ Ported so far: the picket fence, single image and batched
 
 from .core.profile import Centering, Edge, Interpolation, Normalization
 from .core.scale import MachineScale
-from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhanBatch
+from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhan700, CatPhanBatch
 from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
                              analyze_field_batch)
 from .ops.gamma import gamma_1d, gamma_2d, gamma_2d_batch, gamma_bakai, gamma_geometric
@@ -29,7 +31,7 @@ from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
                            WinstonLutzMultiTargetMultiField, WinstonLutzMultiTargetMultiFieldResult)
 
 __all__ = ["BBArrangement", "BBConfig", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
-           "CatPhanBatch", "Centering", "DeviceFieldAnalysis", "Edge", "FieldAnalysis",
+           "CatPhan700", "CatPhanBatch", "Centering", "DeviceFieldAnalysis", "Edge", "FieldAnalysis",
            "FieldAnalysisBatch", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
            "Starshot", "StarshotBatch", "StarshotResults", "WinstonLutz", "WinstonLutz2D",

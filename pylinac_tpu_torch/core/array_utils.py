@@ -6,9 +6,9 @@ Port of ``geometric_center_idx`` (``pylinac_tpu/core/array_utils.py:15``),
 (``:73``), ``get_dtype_info`` (``:85``), ``convert_to_dtype`` (``:92``),
 ``array_to_dicom`` (``:143``) and
 ``_rt_image_position`` (``:136``), and ``median3x3_array``, the 3x3
-median of an image or a stack through the kernel. The port's simulators make integer arrays only, so the JAX
-``array_to_dicom``'s float-to-uint16 rescale is not carried over: a float
-array is rejected by ``Dataset.set_pixel_data``. ``filter`` and
+median of an image or a stack through the kernel. ``array_to_dicom``
+stretches a float array over uint16, as the JAX function does (the
+projections of ``WinstonLutz.from_cbct``). ``filter`` and
 ``median3x3_array`` run on the device they are given, CUDA when it is
 ``None`` (a 3x3 median launches ``csrc/median3x3.cu`` there), as the JAX
 function put a full image on the default device. The profiles pass
@@ -160,7 +160,8 @@ def _rt_image_position(array: np.ndarray, dpmm: float) -> list[float]:
 def array_to_dicom(array: np.ndarray, sid: float, gantry: float, coll: float,
                    couch: float, dpi: float | None = None,
                    extra_tags: dict | None = None) -> dcm.Dataset:
-    """An RT Image DICOM dataset holding a 2D integer array."""
+    """An RT Image DICOM dataset holding a 2D array; a float array is
+    stretched over uint16 first."""
     if array.ndim != 2:
         raise ValueError("Array must be 2D")
     ds = dcm.Dataset()
@@ -182,6 +183,8 @@ def array_to_dicom(array: np.ndarray, sid: float, gantry: float, coll: float,
         pixel_mm = 1.0 / dpmm
         ds.ImagePlanePixelSpacing = [pixel_mm, pixel_mm]
         ds.RTImagePosition = _rt_image_position(array, dpmm)
+    if array.dtype.kind == "f":
+        array = convert_to_dtype(array, np.uint16)
     ds.set_pixel_data(np.ascontiguousarray(array))
     if extra_tags:
         for key, value in extra_tags.items():

@@ -1,15 +1,19 @@
 """Self-contained DICOM codec (reader + writer), numpy only.
 
-Carried over from ``pylinac_tpu/core/dcm.py`` (reader ``dcmread`` ``:635``,
-writer ``dcmwrite`` ``:804``) for the uncompressed transfer syntaxes. The
-compressed ones (RLE, JPEG Lossless, JPEG-LS, JPEG 2000; JAX
-``core/compressed_px.py`` and ``core/jpegls.py``) are not ported yet: a file
-in one of them is rejected with ``InvalidDicomError``. Supported:
+Carried over from ``pylinac_tpu/core/dcm.py`` (reader ``dcmread`` ``:635``
+with the encapsulated branch ``_decode_compressed`` ``:392``, writer
+``dcmwrite`` ``:804`` with ``_encapsulate_pixels`` ``:771``). Compressed
+pixel data in RLE Lossless, JPEG Lossless (process 14 and SV1), JPEG-LS
+Lossless and JPEG 2000 goes through :mod:`.compressed_px` and the host C++
+codecs; any other transfer syntax is rejected with ``InvalidDicomError``.
+Supported:
 
 * reading implicit/explicit VR little-endian (and explicit big-endian)
   datasets, with or without the 128-byte preamble,
 * nested sequences (defined and undefined length),
 * pixel decoding for 8/16/32-bit integer and 32/64-bit float grayscale data,
+  and encapsulated (compressed) frames: the Basic Offset Table is skipped,
+  and a JPEG frame may span several fragments,
 * writing explicit VR little-endian files (round-trip safe for the tags we
   touch), including multi-frame and RT Plan sequence data.
 """
@@ -29,7 +33,16 @@ import numpy as np
 IMPLICIT_VR_LE = "1.2.840.10008.1.2"
 EXPLICIT_VR_LE = "1.2.840.10008.1.2.1"
 EXPLICIT_VR_BE = "1.2.840.10008.1.2.2"
-_SUPPORTED_TS = {IMPLICIT_VR_LE, EXPLICIT_VR_LE, EXPLICIT_VR_BE}
+RLE_LOSSLESS = "1.2.840.10008.1.2.5"
+JPEG_LOSSLESS_SV1 = "1.2.840.10008.1.2.4.70"
+JPEG_LOSSLESS_P14 = "1.2.840.10008.1.2.4.57"
+JPEG_LS_LOSSLESS = "1.2.840.10008.1.2.4.80"
+J2K_LOSSLESS = "1.2.840.10008.1.2.4.90"
+J2K = "1.2.840.10008.1.2.4.91"
+# compressed syntaxes parse as explicit VR LE with encapsulated PixelData
+_COMPRESSED_TS = {RLE_LOSSLESS, JPEG_LOSSLESS_SV1, JPEG_LOSSLESS_P14,
+                  JPEG_LS_LOSSLESS, J2K_LOSSLESS, J2K}
+_SUPPORTED_TS = {IMPLICIT_VR_LE, EXPLICIT_VR_LE, EXPLICIT_VR_BE} | _COMPRESSED_TS
 
 # UID root used for generated UIDs (the generic "2.25 + uuid" DICOM form).
 def generate_uid() -> str:
@@ -356,8 +369,8 @@ class Dataset:
         if el is None:
             raise AttributeError("Dataset has no PixelData")
         raw = el.value
-        if isinstance(raw, list):
-            raise InvalidDicomError("Encapsulated (compressed) pixel data is not supported")
+        if isinstance(raw, list):  # encapsulated fragments: codec decode
+            return self._decode_compressed(raw)
         bits = int(self.get("BitsAllocated", 16))
         signed = int(self.get("PixelRepresentation", 0)) == 1
         rows = int(self.Rows)
@@ -377,6 +390,56 @@ class Dataset:
         else:
             arr = arr.reshape(nframes, rows, cols) if nframes > 1 else arr.reshape(rows, cols)
         return arr
+
+    def _decode_compressed(self, fragments: list) -> np.ndarray:
+        """Decode encapsulated (compressed) pixel data by the file's transfer
+        syntax (:mod:`.compressed_px`)."""
+        from . import compressed_px as cpx
+
+        ts = ""
+        meta = getattr(self, "file_meta", None)
+        if meta is not None:
+            ts = str(meta.get("TransferSyntaxUID", ""))
+        rows = int(self.Rows)
+        cols = int(self.Columns)
+        bits = int(self.get("BitsAllocated", 16))
+        samples = int(self.get("SamplesPerPixel", 1))
+        nframes = int(self.get("NumberOfFrames", 1) or 1)
+        # the first fragment is the Basic Offset Table (possibly empty)
+        frags = fragments[1:] if len(fragments) > 1 else fragments
+        if len(frags) < nframes:
+            nframes = len(frags)
+        if ts == cpx.RLE_TS:
+            frames = [cpx.rle_decode_frame(f, rows, cols, bits, samples)
+                      for f in frags[:nframes]]
+        elif ts in (cpx.JPEG_LOSSLESS_SV1_TS, cpx.JPEG_LOSSLESS_TS,
+                    cpx.JPEG_LS_LOSSLESS_TS):
+            # a frame may span several fragments; JPEG frames start with SOI
+            joined: list[bytes] = []
+            for f in frags:
+                if f[:2] == b"\xff\xd8" or not joined:
+                    joined.append(f)
+                else:
+                    joined[-1] += f
+            decode = (cpx.jpegls_decode_fast if ts == cpx.JPEG_LS_LOSSLESS_TS
+                      else cpx.jpeg_lossless_decode_fast)
+            frames = [decode(f) for f in joined[:nframes]]
+        elif ts in (cpx.J2K_LOSSLESS_TS, cpx.J2K_TS):
+            joined = []
+            for f in frags:
+                if f[:4] in (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0c") or not joined:
+                    joined.append(f)
+                else:
+                    joined[-1] += f
+            frames = [cpx.j2k_decode(f) for f in joined[:nframes]]
+        else:
+            raise InvalidDicomError(
+                f"Unsupported compressed transfer syntax: {ts}")
+        signed = int(self.get("PixelRepresentation", 0)) == 1
+        out = np.stack(frames) if len(frames) > 1 else frames[0]
+        if signed and out.dtype == np.uint16:
+            out = out.astype(np.int16)
+        return out
 
     def set_pixel_data(self, array: np.ndarray) -> None:
         """Set PixelData + image-pixel module tags from a 2D/3D numpy integer array."""
@@ -705,13 +768,60 @@ def _serialize_dataset(ds: Dataset) -> bytes:
     return out.getvalue()
 
 
+def _encapsulate_pixels(ds: Dataset, transfer_syntax: str) -> bytes:
+    """Encode the PixelData frames in ``transfer_syntax`` and return the
+    encapsulated element's bytes (an empty Basic Offset Table item, then one
+    item a frame)."""
+    from . import compressed_px as cpx
+
+    arr = ds.pixel_array
+    frames = arr if arr.ndim == 3 else arr[None]
+    if transfer_syntax == RLE_LOSSLESS:
+        encoded = [cpx.rle_encode_frame(f) for f in frames]
+    elif transfer_syntax == JPEG_LS_LOSSLESS:
+        bits = int(ds.get("BitsStored", 0) or 0)
+        encoded = [cpx.jpegls_encode_fast(f, prec=bits or None) for f in frames]
+    elif transfer_syntax in (J2K_LOSSLESS, J2K):
+        bits = int(ds.get("BitsStored", 0) or 0)
+        encoded = [cpx.j2k_encode(f, prec=bits or None) for f in frames]
+    else:
+        encoded = [cpx.jpeg_lossless_encode(f) for f in frames]
+    out = io.BytesIO()
+    out.write(struct.pack("<HH", 0x7FE0, 0x0010))
+    out.write(b"OB\x00\x00")
+    out.write(struct.pack("<I", 0xFFFFFFFF))
+    out.write(struct.pack("<HHI", 0xFFFE, 0xE000, 0))  # empty Basic Offset Table
+    for frag in encoded:
+        if len(frag) % 2:
+            frag += b"\x00"
+        out.write(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)))
+        out.write(frag)
+    out.write(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+    return out.getvalue()
+
+
 def dcmwrite(path: str | Path | BinaryIO, ds: Dataset,
              transfer_syntax: str = EXPLICIT_VR_LE) -> None:
-    """Write a dataset as a DICOM Part-10 file in explicit-VR little-endian
-    (the only transfer syntax the port writes)."""
-    if transfer_syntax != EXPLICIT_VR_LE:
+    """Write a dataset as a DICOM Part-10 file.
+
+    ``transfer_syntax`` defaults to explicit-VR little-endian; RLE Lossless,
+    JPEG Lossless (.57/.70), JPEG-LS Lossless and JPEG 2000 write
+    encapsulated compressed pixel data (:mod:`.compressed_px`)."""
+    if transfer_syntax in _COMPRESSED_TS:
+        pixel_bytes = _encapsulate_pixels(ds, transfer_syntax)
+        out_body = io.BytesIO()
+        for el in ds:
+            if el.tag >> 16 == 0x0002:
+                continue
+            if el.tag == DICT["PixelData"][0]:
+                out_body.write(pixel_bytes)
+            else:
+                _write_element(out_body, el.tag, el.vr, el.value)
+        body = out_body.getvalue()
+    elif transfer_syntax == EXPLICIT_VR_LE:
+        body = _serialize_dataset(ds)
+    else:
         raise ValueError(f"dcmwrite cannot encode transfer syntax {transfer_syntax}")
-    body = _serialize_dataset(ds)
     meta = io.BytesIO()
     sop_class = ds.get("SOPClassUID", "1.2.840.10008.5.1.4.1.1.7")  # Secondary Capture
     sop_inst = ds.get("SOPInstanceUID", generate_uid())

@@ -14,9 +14,11 @@ names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid`` and
 ``dpmm``), ``DicomImage.save`` (``:548``) with ``_unscale_dicom_values``,
 ``z_position`` (``:775``),
 ``DicomImageStack`` (``:796-879``: UID filter, z-sort, ``slice_spacing``,
-``metadata``) and ``_rescale_dicom_values`` (``:142``). Pixels stay on the
-host as numpy; the analyses stage them on the card. The lazy and zip
-stacks wait.
+``metadata``, ``from_zip``), ``LazyDicomImageStack`` (``:881``: paths and
+metadata kept, pixels decoded on each item access),
+``LazyZipDicomImageStack`` (``:949``) and ``_rescale_dicom_values``
+(``:142``). Pixels stay on the host as numpy; the analyses stage them on the
+card. A compressed slice (``core/compressed_px.py``) loads as any other.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .array_utils import filter as _filter_array
 from .array_utils import convert_to_dtype, get_dtype_info, ground, invert, normalize
 from .array_utils import stretch as stretcharray
 from .geometry import Point
+from .io import TemporaryZipDirectory, retrieve_filenames
 from .utilities import resolve_device
 
 MM_PER_INCH = 25.4
@@ -469,9 +472,8 @@ class DicomImageStack:
 
     def __init__(self, folder, dtype=None, min_number: int = 39,
                  check_uid: bool = True, raw_pixels: bool = False):
-        paths = [str(p) for p in sorted(Path(folder).rglob("*")) if p.is_file()]
         candidates = [DicomImage(p, dtype=dtype, raw_pixels=raw_pixels)
-                      for p in paths if dcm.is_dicom_image(p)]
+                      for p in retrieve_filenames(folder) if dcm.is_dicom_image(p)]
         if check_uid:
             candidates = self._filter_uid(candidates, min_number)
         candidates.sort(key=lambda img: img.z_position)
@@ -489,6 +491,13 @@ class DicomImageStack:
             raise ValueError(
                 f"The minimum number of CT images ({min_number}) was not found")
         return [img for img in images if img.metadata.get("SeriesInstanceUID") == most_common]
+
+    @classmethod
+    def from_zip(cls, zip_path, dtype=None, **kwargs):
+        """The stack of the series in a zip archive, extracted to a
+        temporary folder that is removed once the slices are loaded."""
+        with TemporaryZipDirectory(zip_path) as tmpzip:
+            return cls(tmpzip, dtype=dtype, **kwargs)
 
     @property
     def metadata(self) -> dcm.Dataset:
@@ -509,3 +518,70 @@ class DicomImageStack:
 
     def __len__(self):
         return len(self.images)
+
+
+class LazyDicomImageStack(DicomImageStack):
+    """A stack that keeps each slice's path and metadata and decodes its
+    pixels on every item access. Only CT and MR slices count. The CatPhan
+    analysis decodes the series once into its cached host volume."""
+
+    def __init__(self, folder, dtype=None, min_number: int = 39,
+                 check_uid: bool = True, raw_pixels: bool = False):
+        self._dtype = dtype
+        self._raw_pixels = raw_pixels
+        metas = []
+        for path in retrieve_filenames(folder):
+            try:
+                ds = dcm.dcmread(path)
+            except Exception:  # not DICOM: skipped, as the JAX loader does
+                continue
+            if ds.get("Modality") in ("CT", "MR") and "PixelData" in ds:
+                metas.append((path, ds))
+        if check_uid and metas:
+            uids = [m[1].get("SeriesInstanceUID") for m in metas]
+            most_common, count = Counter(uids).most_common(1)[0]
+            if count < min_number:
+                raise ValueError(
+                    f"The minimum number of CT images ({min_number}) was not found")
+            metas = [m for m in metas if m[1].get("SeriesInstanceUID") == most_common]
+        metas.sort(key=lambda m: z_position(m[1]))
+        self._paths = [m[0] for m in metas]
+        self._metas = [m[1] for m in metas]
+        if len(self._paths) < 2:
+            raise FileNotFoundError(f"No CT images were found in {folder}")
+
+    @property
+    def metadata(self) -> dcm.Dataset:
+        return self._metas[0]
+
+    @property
+    def metadatas(self) -> list[dcm.Dataset]:
+        return self._metas
+
+    @property
+    def images(self) -> list[DicomImage]:
+        """Every slice, decoded anew."""
+        return [self[i] for i in range(len(self))]
+
+    @property
+    def slice_spacing(self) -> float:
+        zs = sorted(z_position(m) for m in self._metas)
+        return float(np.median(np.abs(np.diff(zs))))
+
+    def __getitem__(self, item) -> DicomImage:
+        return DicomImage(self._paths[item], dtype=self._dtype, raw_pixels=self._raw_pixels)
+
+    def __len__(self):
+        return len(self._paths)
+
+
+class LazyZipDicomImageStack(LazyDicomImageStack):
+    """A lazy stack of the series in a zip archive, whose extracted folder
+    lives as long as the stack."""
+
+    @classmethod
+    def from_zip(cls, zip_path, dtype=None, **kwargs):
+        tmp = TemporaryZipDirectory(zip_path, delete=False)
+        obj = cls(tmp.name, dtype=dtype, **kwargs)
+        obj._tmp = tmp
+        return obj

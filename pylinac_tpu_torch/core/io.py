@@ -1,8 +1,10 @@
-"""The SNC Profiler's ``.prs`` text export, numpy only, and zip archives.
+"""The SNC Profiler's ``.prs`` text export, numpy only, zip archives and
+folder listings.
 
-Port of ``TemporaryZipDirectory`` (``pylinac_tpu/core/io.py:21``) and
-``SNCProfiler`` (``:82``). The demo and URL retrieval of that module are
-not carried over: the port reads local files.
+Port of ``TemporaryZipDirectory`` (``pylinac_tpu/core/io.py:21``),
+``retrieve_filenames`` (``:35``) and ``SNCProfiler`` (``:82``). The demo and
+URL retrieval of that module are not carried over: the port reads local
+files.
 """
 
 from __future__ import annotations
@@ -17,12 +19,29 @@ import numpy as np
 
 
 class TemporaryZipDirectory(tempfile.TemporaryDirectory):
-    """A zip archive extracted to a temporary directory; context-managed."""
+    """A zip archive extracted to a temporary directory; context-managed.
+    With ``delete=False`` leaving the context keeps the directory, which is
+    then removed when the object is collected."""
 
-    def __init__(self, zfile: str | Path | BinaryIO):
+    def __init__(self, zfile: str | Path | BinaryIO, delete: bool = True):
         super().__init__()
+        self.delete = delete
         with zipfile.ZipFile(zfile) as zf:
             zf.extractall(self.name)
+
+    def __exit__(self, exc, value, tb):
+        if self.delete:
+            super().__exit__(exc, value, tb)
+
+
+def retrieve_filenames(directory: str | Path, func=None, recursive: bool = True,
+                       **kwargs) -> list[str]:
+    """The files of a folder (and its subfolders when ``recursive``), in
+    sorted order, that pass ``func(path, **kwargs)``."""
+    func = func or (lambda p: True)
+    directory = Path(directory)
+    it = directory.rglob("*") if recursive else directory.glob("*")
+    return [str(p) for p in sorted(it) if p.is_file() and func(str(p), **kwargs)]
 
 
 class SNCProfiler:

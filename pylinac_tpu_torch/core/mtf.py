@@ -1,7 +1,8 @@
 """Relative MTF from line-pair maxima and minima, numpy only.
 
-Port of ``MTF`` (``pylinac_tpu/core/mtf.py:16``) without its plot. The
-moments and edge-spread MTFs wait for the slices that use them.
+Port of ``MTF`` (``pylinac_tpu/core/mtf.py:16``, with
+``from_high_contrast_diskset`` ``:66``) without its plot. The moments and
+edge-spread MTFs wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -63,3 +64,10 @@ class MTF:
                 "The value returned is an extrapolation.")
         return float(mtf)
 
+
+    @classmethod
+    def from_high_contrast_diskset(cls, spacings: Sequence[float], diskset) -> "MTF":
+        """The MTF of ROIs over line-pair groups: each ROI's max and min."""
+        maximums = [roi.max for roi in diskset]
+        minimums = [roi.min for roi in diskset]
+        return cls(spacings, maximums, minimums)

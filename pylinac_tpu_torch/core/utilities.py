@@ -1,23 +1,26 @@
 """Typed results without pydantic, enum coercion, and the device argument.
 
 Port of ``ResultBase`` (``pylinac_tpu/core/utilities.py:43``), a pydantic
-model there, as a dataclass with the same fields, and of ``convert_to_enum``
-(``pylinac_tpu/core/profile.py:127``, the form ``picketfence.py`` imports).
-``model_dump()`` and ``model_dump_json()`` keep callers written for the
-pydantic models working. :func:`resolve_device` has no JAX counterpart: the
-port's analyses take an explicit device.
+model there, as a dataclass with the same fields, of ``ResultsDataMixin``
+(``:59-78``) and of ``convert_to_enum`` (``pylinac_tpu/core/profile.py:127``,
+the form ``picketfence.py`` imports). ``model_dump()`` and
+``model_dump_json()`` keep callers written for the pydantic models working.
+:func:`resolve_device` has no JAX counterpart: the port's analyses take an
+explicit device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from datetime import datetime
 
 import numpy as np
 import torch
 
 from ..version import __version__
+from .warnings import WarningCollectorMixin
 
 
 def resolve_device(device, caller: str) -> torch.device:
@@ -48,8 +51,20 @@ def _json_default(obj):
     if isinstance(obj, datetime):
         return obj.isoformat()
     if isinstance(obj, np.generic):  # numpy scalars, as pydantic coerces them
-        return obj.item()
+        return _finite_or_none(obj.item())
     raise TypeError(f"Object of type {type(obj).__name__} is not JSON serializable")
+
+
+def _finite_or_none(value):
+    """``value`` with every infinite or NaN float made None, nested ones
+    too: pydantic writes them to JSON as null."""
+    if isinstance(value, float):
+        return value if math.isfinite(value) else None
+    if isinstance(value, dict):
+        return {k: _finite_or_none(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_finite_or_none(v) for v in value]
+    return value
 
 
 _COERCE = {"float": float, "int": int, "bool": bool, "str": str}
@@ -80,8 +95,8 @@ class DataModel:
 
     def model_dump_json(self) -> str:
         """The fields as a JSON object; datetimes in ISO 8601, numpy scalars
-        as Python numbers."""
-        return json.dumps(self.model_dump(), default=_json_default)
+        as Python numbers, infinite and NaN floats as null (as pydantic)."""
+        return json.dumps(_finite_or_none(self.model_dump()), default=_json_default)
 
     def output(self, as_dict: bool = False, as_json: bool = False):
         """What ``results_data(as_dict, as_json)`` returns: the model, the
@@ -102,3 +117,22 @@ class ResultBase(DataModel):
     pylinac_version: str = __version__
     date_of_analysis: datetime = dataclasses.field(default_factory=datetime.today)
     warnings: list[dict] = dataclasses.field(default_factory=list)
+
+
+class ResultsDataMixin(WarningCollectorMixin):
+    """``results_data()`` from a class's own ``_generate_results_data()``,
+    with the warnings its decorated methods captured. Defined here and not
+    in each class's body, so that ``capture_warnings`` never wraps it, as in
+    the JAX package."""
+
+    def _generate_results_data(self) -> ResultBase:
+        raise NotImplementedError
+
+    def results_data(self, as_dict: bool = False, as_json: bool = False):
+        """The typed result; ``as_dict`` gives the JSON-compatible dict the
+        JAX package returns, ``as_json`` JSON."""
+        if as_dict and as_json:
+            raise ValueError("Cannot return as both dict and JSON. Pick one.")
+        data = self._generate_results_data()
+        data.warnings = self.get_captured_warnings()
+        return data.output(as_dict, as_json)

@@ -1,12 +1,17 @@
-"""CatPhan CT/CBCT QA: CatPhan 503, 504, 600 and 604, single scan and batched.
+"""CatPhan CT/CBCT QA: CatPhan 503, 504, 600, 604 and 700, single scan and
+batched.
 
 Port of ``pylinac_tpu/ct.py``: the result models (``:70-123``) as
-dataclasses, ``HUDiskROI`` ``:135``, ``ThicknessROI`` ``:161``, the region
+dataclasses, ``SpatialResolutionROI`` ``:129``, ``HUDiskROI`` ``:135``,
+``ThicknessROI`` ``:161``, the region
 finders ``get_regions`` ``:289`` and ``get_regions_batch`` ``:376`` (the
 device route, ``_regions_fused`` ``:275`` and ``_regions_fused_batch``
 ``:344``), ``_stack_phantom_regions`` ``:471``, ``Slice`` ``:530``, the
-modules (``CatPhanModule`` ``:606`` to ``CTP515CP600`` ``:1318``),
-``CatPhanBase`` ``:1332`` and the models, and ``CatPhanBatch`` ``:2129``.
+modules (``CatPhanModule`` ``:606`` to ``CTP515CP700`` ``:1325``, with
+CatPhan700's ``CTP404CP700`` ``:951`` and bar-pattern ``CTP528CP700``
+``:1178``), ``CatPhanBase`` ``:1332`` (folders and zips, eager or lazy
+stacks) and the models (``CatPhan700`` ``:2113``), and ``CatPhanBatch``
+``:2129``.
 
 Localisation runs on the device given to ``analyze``: the whole stack is
 staged once per scan and cached, then pooled, clipped, Scharr-filtered,
@@ -18,11 +23,13 @@ across the scans of a :class:`CatPhanBatch` or one slice at a time (B = 1)
 for a single scan. The module stage (HU disks, wire ramps, MTF profile, NPS,
 low-contrast disks) stays numpy on the host, as in the JAX package.
 
-Not ported: plots, the PDF report, plotly, QuAAC, demo and URL loading, zip
-and lazy (memory-efficient) stacks, ``CatPhanBatch.analyze(mesh=...)``, the
-host C++ CCL route (``label_native``) and CatPhan700 (its bar-pattern
-``CTP528CP700``). Warnings are not captured into ``results_data().warnings``
-(the JAX ``capture_warnings`` wraps no method that CatPhan504 runs).
+The models carry ``capture_warnings`` as in the JAX package, which wraps
+only the methods of a class's own body; ``analyze`` is ``CatPhanBase``'s,
+so ``results_data().warnings`` stays empty, as JAX's does.
+
+Not ported: plots, the PDF report, plotly, QuAAC, demo and URL loading,
+``CatPhanBatch.analyze(mesh=...)`` and the host C++ CCL route
+(``label_native``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import os.path as osp
 import textwrap
 import warnings
 from functools import cached_property
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -45,7 +53,8 @@ from .core.image import z_position
 from .core.mtf import MTF
 from .core.profile import CollapsedCircleProfile, FWXMProfile
 from .core.roi import DiskROI, LowContrastDiskROI, RectangleROI
-from .core.utilities import DataModel, ResultBase, resolve_device
+from .core.utilities import DataModel, ResultBase, ResultsDataMixin, resolve_device
+from .core.warnings import capture_warnings
 from .metrics.utils import RegionView
 from .ops import label as tlabel
 from .ops.filters import gaussian_filter, scharr
@@ -139,6 +148,11 @@ class CatphanResult(ResultBase):
 # --------------------------------------------------------------------------
 # ROI flavours
 # --------------------------------------------------------------------------
+class SpatialResolutionROI(RectangleROI):
+    """A (rotated) rectangle over one bar group of the CatPhan 700's
+    spatial-resolution module."""
+
+
 class HUDiskROI(DiskROI):
     """A disk ROI with a nominal HU value and tolerance."""
 
@@ -663,6 +677,32 @@ class CTP404CP604(CTP404CP504):
     }
 
 
+class CTP404CP700(CTP404CP504):
+    """The CatPhan 700's HU module (CTP682): eleven plugs."""
+
+    roi_dist_mm = 58.7
+    roi_radius_mm = 5
+    roi_settings = {
+        "Air": {"value": AIR, "angle": 180 - -90, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "PMP": {"value": PMP, "angle": 180 - -120, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Lung": {"value": LUNG_7112, "angle": 180 - -165, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Delrin": {"value": DELRIN, "angle": 180 - 165, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Poly": {"value": POLY, "angle": 180 - 120, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Teflon": {"value": TEFLON, "angle": 180 - 90, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Bone 20%": {"value": BONE_20, "angle": 180 - 60, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "LDPE": {"value": LDPE, "angle": 180 - 15, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Bone 50%": {"value": BONE_50, "angle": 180 - -15, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Acrylic": {"value": ACRYLIC, "angle": 180 - -60, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "Vial": {"value": WATER, "angle": 180 - -135, "distance": roi_dist_mm, "radius": roi_radius_mm},
+    }
+    background_roi_settings = {
+        "1": {"angle": -37.5, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "2": {"angle": -142.5, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "3": {"angle": 142.5, "distance": roi_dist_mm, "radius": roi_radius_mm},
+        "4": {"angle": 37.5, "distance": roi_dist_mm, "radius": roi_radius_mm},
+    }
+
+
 class CTP486(CatPhanModule):
     """HU uniformity module."""
 
@@ -836,6 +876,54 @@ class CTP528CP600(CTP528CP504):
     roi_settings = _build_528_settings(boundaries)
 
 
+class CTP528CP700(CTP528):
+    """The CatPhan 700's spatial resolution (CTP714): the max and min of
+    eight rotated rectangles over its bar groups of 0.1-0.8 lp/mm."""
+
+    attr_name = "ctp528"
+    common_name = "Spatial Resolution"
+    combine_method = "max"
+    num_slices = 3
+    start_angle = None
+    roi_settings = {
+        "region 1": {"lp/mm": 0.1, "radial_distance": 50, "transversal_distance": -7, "rotation": -90, "width": 3, "height": 11},
+        "region 2": {"lp/mm": 0.2, "radial_distance": 50, "transversal_distance": 11, "rotation": -90, "width": 3, "height": 11},
+        "region 3": {"lp/mm": 0.3, "radial_distance": 50, "transversal_distance": -5.5, "rotation": -45, "width": 3, "height": 10},
+        "region 4": {"lp/mm": 0.4, "radial_distance": 50, "transversal_distance": 9.5, "rotation": -45, "width": 3, "height": 8.5},
+        "region 5": {"lp/mm": 0.5, "radial_distance": 50, "transversal_distance": -9, "rotation": 0, "width": 3, "height": 8},
+        "region 6": {"lp/mm": 0.6, "radial_distance": 50, "transversal_distance": 2, "rotation": 0, "width": 3, "height": 7},
+        "region 7": {"lp/mm": 0.7, "radial_distance": 50, "transversal_distance": 12, "rotation": 0, "width": 3, "height": 6},
+        "region 8": {"lp/mm": 0.8, "radial_distance": 50, "transversal_distance": -10.5, "rotation": 45, "width": 3, "height": 4},
+    }
+
+    def _setup_rois(self) -> None:
+        roll = np.deg2rad(self.catphan_roll)
+        for name, setting in self.roi_settings.items():
+            rot = np.deg2rad(setting["rotation"])
+            # the ROI placed in the phantom's polar frame, then the phantom
+            # in the image
+            local = np.array([setting["radial_distance_pixels"],
+                              setting["transversal_distance_pixels"]])
+            c, s = np.cos(rot), np.sin(rot)
+            rotated = np.array([local[0] * c - local[1] * s,
+                                local[0] * s + local[1] * c])
+            cg, sg = np.cos(roll), np.sin(roll)
+            global_xy = np.array([rotated[0] * cg - rotated[1] * sg,
+                                  rotated[0] * sg + rotated[1] * cg])
+            center = Point(global_xy[0] + self.phan_center.x,
+                           global_xy[1] + self.phan_center.y)
+            self.rois[name] = SpatialResolutionROI(
+                array=self.image.array, width=setting["width_pixels"],
+                height=setting["height_pixels"], center=center,
+                rotation=setting["rotation"] + self.catphan_roll)
+
+    @cached_property
+    def mtf(self) -> MTF:
+        return MTF.from_high_contrast_diskset(
+            spacings=[r["lp/mm"] for r in self.roi_settings.values()],
+            diskset=self.rois.values())
+
+
 class GeometricLine(Line):
     """A node-to-node line on the geometry slice."""
 
@@ -924,15 +1012,20 @@ class CTP515CP600(CTP515):
     roi_settings = _build_515_settings(roi_angles, roi_dist_mm, roi_radius_mm)
 
 
+class CTP515CP700(CTP515CP600):
+    """The CatPhan 700's low-contrast module (the 600's)."""
+
+
 # --------------------------------------------------------------------------
 # CatPhanBase and the models
 # --------------------------------------------------------------------------
-class CatPhanBase:
+class CatPhanBase(ResultsDataMixin):
     """CatPhan loading and analysis."""
 
     _model: str = ""
     air_bubble_radius_mm = 7
     localization_radius = 59
+    was_from_zip = False
     min_num_images = 39
     clear_borders = True
     hu_origin_slice_variance = 400
@@ -945,14 +1038,38 @@ class CatPhanBase:
     modules: dict = {}
     catphan_radius_mm: float
 
-    def __init__(self, folderpath, check_uid: bool = True):
+    def __init__(self, folderpath, check_uid: bool = True,
+                 memory_efficient_mode: bool = False, is_zip: bool = False):
+        """A folder of the series' slices, or a zip of them when ``is_zip``.
+        ``memory_efficient_mode`` keeps the slices' paths and metadata and
+        decodes the pixels on access (a zip then stays extracted while the
+        stack lives); the analysis decodes the series once into its cached
+        host volume either way."""
+        super().__init__()
         self.origin_slice = 0
         self.catphan_roll = 0
         self._device = None
-        if not osp.isdir(folderpath):
+        if isinstance(folderpath, (str, Path)) and not is_zip and not osp.isdir(folderpath):
             raise NotADirectoryError("Path given was not a Directory/Folder")
-        self.dicom_stack = image.DicomImageStack(folderpath, check_uid=check_uid,
-                                                 min_number=self.min_num_images)
+        if not memory_efficient_mode:
+            stack = image.DicomImageStack
+        elif is_zip:
+            stack = image.LazyZipDicomImageStack
+        else:
+            stack = image.LazyDicomImageStack
+        if is_zip:
+            self.dicom_stack = stack.from_zip(folderpath, check_uid=check_uid,
+                                              min_number=self.min_num_images)
+            self.was_from_zip = True
+        else:
+            self.dicom_stack = stack(folderpath, check_uid=check_uid,
+                                     min_number=self.min_num_images)
+
+    @classmethod
+    def from_zip(cls, zip_file, check_uid: bool = True, memory_efficient_mode: bool = False):
+        """The scan from a zip archive of its slices."""
+        return cls(folderpath=zip_file, check_uid=check_uid,
+                   memory_efficient_mode=memory_efficient_mode, is_zip=True)
 
     # -- localisation -------------------------------------------------------
     def localize(self, origin_slice: int | None) -> None:
@@ -987,7 +1104,7 @@ class CatPhanBase:
         batched = getattr(self, "_slice_centroids", None)
         if batched is None:
             batched = self._batched_phantom_centroids()
-        for idx, img in enumerate(self.dicom_stack):
+        for idx in range(len(self.dicom_stack)):
             if batched is not None and batched[idx] is not None:
                 cy, cx = batched[idx]
                 if not np.isnan(cy):
@@ -995,8 +1112,9 @@ class CatPhanBase:
                     center_y.append(cy)
                     center_x.append(cx)
                 continue
+            # decoded only here: a lazy stack decodes on every access
             slc = Slice(self, slice_num=idx, clear_borders=self.clear_borders,
-                        original_image=img)
+                        original_image=self.dicom_stack[idx])
             if slc.is_phantom_in_view():
                 roi = slc.phantom_roi
                 z.append(idx)
@@ -1044,7 +1162,8 @@ class CatPhanBase:
         vol = getattr(self, "_host_vol", None)
         if vol is None:
             try:
-                vol = np.stack([img.array for img in self.dicom_stack]).astype(np.float32)
+                vol = np.stack([self.dicom_stack[i].array
+                                for i in range(len(self.dicom_stack))]).astype(np.float32)
             except ValueError:
                 return None
             self._host_vol = vol
@@ -1217,7 +1336,8 @@ class CatPhanBase:
     # -- analysis -----------------------------------------------------------
     def analyze(self, hu_tolerance: float = 40, scaling_tolerance: float = 1,
                 thickness_tolerance: float = 0.2, low_contrast_tolerance: float = 1,
-                cnr_threshold: float = 15, contrast_method: str = Contrast.MICHELSON,
+                cnr_threshold: float = 15, zip_after: bool = False,
+                contrast_method: str = Contrast.MICHELSON,
                 visibility_threshold: float = 0.15,
                 thickness_slice_straddle: str | int = "auto",
                 expected_hu_values: dict | None = None,
@@ -1228,8 +1348,8 @@ class CatPhanBase:
                 device: str | torch.device | None = None) -> None:
         """Full analysis on ``device`` (``None`` means ``"cuda"``, and raises
         when no CUDA device exists). Other arguments as
-        ``pylinac_tpu.ct.CatPhanBase.analyze``; its ``zip_after`` is not
-        ported."""
+        ``pylinac_tpu.ct.CatPhanBase.analyze``; ``zip_after`` is accepted
+        and, as there, does nothing."""
         self._device = resolve_device(device, f"{type(self).__name__}.analyze")
         self.x_adjustment = x_adjustment
         self.y_adjustment = y_adjustment
@@ -1352,12 +1472,8 @@ class CatPhanBase:
                 roi_results={key: roi.as_dict() for key, roi in self.ctp515.rois.items()})
         return data
 
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
-        """The typed :class:`CatphanResult`; ``as_dict`` gives it as the
-        JSON-compatible dict the JAX package returns, ``as_json`` as JSON."""
-        return self._generate_results_data().output(as_dict, as_json)
 
-
+@capture_warnings
 class CatPhan503(CatPhanBase):
     """CatPhan 503: CTP404, CTP486, CTP528."""
 
@@ -1370,6 +1486,7 @@ class CatPhan503(CatPhanBase):
     }
 
 
+@capture_warnings
 class CatPhan504(CatPhanBase):
     """CatPhan 504: CTP404, CTP486, CTP528, CTP515."""
 
@@ -1383,6 +1500,7 @@ class CatPhan504(CatPhanBase):
     }
 
 
+@capture_warnings
 class CatPhan604(CatPhanBase):
     """CatPhan 604: CTP404, CTP486, CTP528, CTP515."""
 
@@ -1396,6 +1514,7 @@ class CatPhan604(CatPhanBase):
     }
 
 
+@capture_warnings
 class CatPhan600(CatPhanBase):
     """CatPhan 600: CTP404, CTP486, CTP528, CTP515."""
 
@@ -1412,6 +1531,21 @@ class CatPhan600(CatPhanBase):
         """The 600's top air ROI may hold a water vial."""
         angle = super().find_phantom_roll(lambda x: -x.centroid[0])
         return angle if abs(angle) < 10 else angle + 75
+
+
+@capture_warnings
+class CatPhan700(CatPhanBase):
+    """CatPhan 700: CTP682 (HU), CTP714 (spatial resolution), CTP712
+    (uniformity), CTP515."""
+
+    _model = "700"
+    catphan_radius_mm = 101
+    modules = {
+        CTP404CP700: {"offset": 0},
+        CTP515CP700: {"offset": -80},
+        CTP486: {"offset": -160},
+        CTP528CP700: {"offset": -40},
+    }
 
 
 # ===========================================================================

@@ -43,7 +43,7 @@ from .core.geometry import Point
 from .core.io import SNCProfiler
 from .core.profile import Centering, Edge, Interpolation, Normalization, SingleProfile
 from .core.roi import RectangleROI
-from .core.utilities import ResultBase, convert_to_enum, resolve_device
+from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum, resolve_device
 from .ops import field_host
 
 
@@ -196,7 +196,7 @@ class FieldResult(DeviceResult):
     central_roi_min: float = 0
 
 
-class FieldAnalysis:
+class FieldAnalysis(ResultsDataMixin):
     """Analyze an open-field image for flatness/symmetry/penumbra/field size.
 
     ``filter`` (a median size) runs on ``device`` (``None`` means CUDA; a 3x3
@@ -415,6 +415,8 @@ class FieldAnalysis:
         return results
 
     def _generate_results_data(self) -> FieldResult:
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
         return FieldResult(
             **self._results,
             protocol=self._protocol.name,
@@ -428,13 +430,6 @@ class FieldAnalysis:
             central_roi_min=self.central_roi.min,
             central_roi_std=self.central_roi.std,
         )
-
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
-        """The typed :class:`FieldResult`; ``as_dict`` gives the
-        JSON-compatible dict the JAX package returns, ``as_json`` JSON."""
-        if not self._is_analyzed:
-            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
-        return self._generate_results_data().output(as_dict, as_json)
 
 
 class DeviceFieldAnalysis(FieldAnalysis):
@@ -482,6 +477,8 @@ class DeviceFieldAnalysis(FieldAnalysis):
         self._profile_results(in_field_ratio, slope_exclusion_ratio, penumbra, kwargs)
 
     def _generate_results_data(self) -> DeviceResult:
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
         return DeviceResult(
             **self._results,
             protocol=self._protocol.name,
@@ -584,7 +581,7 @@ class FieldAnalysisBatch:
         if mesh is not None:
             raise NotImplementedError(
                 "FieldAnalysisBatch.analyze(mesh=...) is not ported: multi-device "
-                "sharding waits for ROADMAP section 1 item 6")
+                "sharding waits for the 'Multi-device' item of ROADMAP.md")
         device = resolve_device(self._device if device is None else device,
                                 "FieldAnalysisBatch.analyze")
         edge = convert_to_enum(edge_detection_method, Edge)

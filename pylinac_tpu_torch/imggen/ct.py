@@ -8,6 +8,13 @@ nodes), CTP486 (uniformity), CTP528 (line-pair gauge) and CTP515
 (low-contrast bubbles) modules at their nominal z-offsets. The same seed
 gives the same pixels as the JAX package's generator. The Quart, Cheese,
 ACR and Helios generators wait for their analyses.
+
+Two private generators, test and smoke data with no JAX counterpart (the
+JAX package generates neither), write a CatPhan 700 series
+(:func:`_generate_catphan700`) and a kV CBCT of a BB
+(:func:`_generate_cbct_bb`, the fixture of
+``tests/models/test_winstonlutz.py:124-157`` at any size), in any transfer
+syntax the port's ``dcmwrite`` encodes.
 """
 
 from __future__ import annotations
@@ -221,5 +228,238 @@ def generate_catphan504(
         ds.set_pixel_data(stored)
         path = str(Path(dir_out) / f"ct_{i:03d}.dcm")
         dcm.dcmwrite(path, ds)
+        paths.append(path)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# test and smoke data: a CatPhan 700 series and a CBCT of a BB
+# ---------------------------------------------------------------------------
+# the CatPhan 700's plugs (``ct.CTP404CP700.roi_settings``): angle (deg,
+# y-down image convention), HU
+CP700_PLUGS = {
+    "Air": (270, -1000), "PMP": (300, -196), "Lung": (345, -868), "Delrin": (15, 365),
+    "Poly": (60, -47), "Teflon": (90, 1000), "Bone 20%": (120, 237), "LDPE": (165, -104),
+    "Bone 50%": (195, 725), "Acrylic": (240, 115), "Vial": (315, 0),
+}
+# its bar groups (``ct.CTP528CP700.roi_settings``): lp/mm, radial and
+# transversal distance (mm), rotation (deg), ROI width and height (mm)
+CP700_BARS = (
+    (0.1, 50, -7, -90, 3, 11), (0.2, 50, 11, -90, 3, 11), (0.3, 50, -5.5, -45, 3, 10),
+    (0.4, 50, 9.5, -45, 3, 8.5), (0.5, 50, -9, 0, 3, 8), (0.6, 50, 2, 0, 3, 7),
+    (0.7, 50, 12, 0, 3, 6), (0.8, 50, -10.5, 45, 3, 4),
+)
+# module offsets from CTP404 (``ct.CatPhan700.modules``), mm
+CP700_CTP528_OFFSET = -40
+CP700_CTP515_OFFSET = -80
+CP700_CTP486_OFFSET = -160
+
+
+def _gaussian_blur(arr: np.ndarray, sigma_px: float) -> np.ndarray:
+    """Separable Gaussian blur, edges held at their value."""
+    radius = int(np.ceil(4 * sigma_px))
+    x = np.arange(-radius, radius + 1)
+    k = np.exp(-0.5 * (x / sigma_px) ** 2)
+    k /= k.sum()
+    out = arr
+    for ax in (0, 1):
+        padded = np.pad(out, [(radius, radius) if a == ax else (0, 0) for a in (0, 1)],
+                        mode="edge")
+        out = sum(k[i] * np.take(padded, np.arange(i, i + out.shape[ax]), axis=ax)
+                  for i in range(len(k)))
+    return out
+
+
+def _bar_template(center: float, image_size: int, mm_per_pixel: float,
+                  bar_hu: float, blur_mm: float, supersample: int = 4) -> np.ndarray:
+    """The CTP714 bar groups as HU over a 0 HU background: each group fills
+    its ROI rectangle (plus 0.75 mm along the bars' period and 1 mm across)
+    with bars of half the period, starting with a bar at the group's edge;
+    each pixel averages ``supersample``**2 sub-samples, then a Gaussian of
+    ``blur_mm`` stands for the scanner's resolution."""
+    offs = (np.arange(supersample) + 0.5) / supersample - 0.5
+    yy, xx = np.mgrid[:image_size, :image_size].astype(np.float64)
+    cov = np.zeros((image_size, image_size))
+    for lpmm, radial, transversal, rotation, width, height in CP700_BARS:
+        rot = np.deg2rad(rotation)
+        c, s = np.cos(rot), np.sin(rot)
+        cx = center + (radial * c - transversal * s) / mm_per_pixel
+        cy = center + (radial * s + transversal * c) / mm_per_pixel
+        half_w, half_h = width / 2 + 1.0, height / 2 + 0.75
+        period = 1 / lpmm
+        for oy in offs:
+            for ox in offs:
+                dx = (xx + ox - cx) * mm_per_pixel
+                dy = (yy + oy - cy) * mm_per_pixel
+                # the group's own frame: u across the bars, v along the period
+                u = dx * c + dy * s
+                v = -dx * s + dy * c
+                inside = (np.abs(u) <= half_w) & (np.abs(v) <= half_h)
+                bars = np.mod(v + half_h, period) < period / 2
+                cov += (inside & bars) / supersample**2
+    return _gaussian_blur(cov * bar_hu, blur_mm / mm_per_pixel)
+
+
+def _write_ct_slice(path, stored: np.ndarray, z: float, index: int, uids: tuple,
+                    mm_per_pixel: float, slice_thickness_mm: float, intercept: float,
+                    transfer_syntax: str) -> None:
+    study_uid, series_uid, frame_uid = uids
+    ds = dcm.Dataset()
+    ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+    ds.SOPInstanceUID = dcm.generate_uid()
+    ds.StudyInstanceUID = study_uid
+    ds.SeriesInstanceUID = series_uid
+    ds.FrameOfReferenceUID = frame_uid
+    ds.Modality = "CT"
+    ds.PatientName = "CatPhan^Synthetic"
+    ds.PixelSpacing = [mm_per_pixel, mm_per_pixel]
+    ds.SliceThickness = slice_thickness_mm
+    ds.RescaleSlope = 1.0
+    ds.RescaleIntercept = intercept
+    ds.ImagePositionPatient = [0.0, 0.0, float(z)]
+    ds.InstanceNumber = index + 1
+    ds.set_pixel_data(stored)
+    dcm.dcmwrite(path, ds, transfer_syntax=transfer_syntax)
+
+
+def _generate_catphan700(
+    dir_out: str | Path,
+    num_slices: int = 80,
+    slice_thickness_mm: float = 2.5,
+    mm_per_pixel: float = 0.5,
+    image_size: int = 512,
+    ctp404_z_mm: float = 70.0,
+    noise_hu: float = 3.0,
+    bar_hu: float = 1000.0,
+    bar_blur_mm: float = 0.4,
+    low_contrast_hu: float = 10.0,
+    seed: int = 1234,
+    transfer_syntax: str = dcm.EXPLICIT_VR_LE,
+) -> list[str]:
+    """Write a synthetic CatPhan 700 series of int16 slices (HU, intercept
+    0); returns the file paths. Test and smoke data, not a public
+    generator.
+
+    A 101 mm water cylinder holds, at their CatPhan 700 offsets from
+    ``ctp404_z_mm``: CTP404 (the eleven CP700 plugs at their nominal HU and
+    angles, with the wire ramps, central hole and geometry nodes of
+    :func:`generate_catphan504` and its roll bubbles, made smaller), CTP714 at -40 mm (the eight bar
+    groups of 0.1-0.8 lp/mm inside ``CTP528CP700``'s rectangles, blurred by
+    ``bar_blur_mm``), CTP515 at -80 mm (the CP600/700 low-contrast disks)
+    and a uniform CTP486 at -160 mm. Slices sit at (i - n/2) x thickness,
+    so the defaults put every module inside the scan. Band-limited noise of
+    ``noise_hu`` is drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(dir_out, exist_ok=True)
+    center = image_size / 2 - 0.5
+    uids = (dcm.generate_uid(), dcm.generate_uid(), dcm.generate_uid())
+    z_positions = (np.arange(num_slices) - num_slices / 2) * slice_thickness_mm
+    yy, xx = np.mgrid[:image_size, :image_size]
+    phantom = np.full((image_size, image_size), -1000.0)
+    phantom[(yy - center) ** 2 + (xx - center) ** 2 < (101 / mm_per_pixel) ** 2] = 0.0
+
+    def polar_to_px(angle_deg, dist_mm):
+        a = np.deg2rad(angle_deg)
+        return (center + np.cos(a) * dist_mm / mm_per_pixel,
+                center + np.sin(a) * dist_mm / mm_per_pixel)
+
+    hu_module = phantom.copy()
+    hu_module[(yy - center) ** 2 + (xx - center) ** 2 < (95 / mm_per_pixel) ** 2] = 45.0
+    for angle, value in CP700_PLUGS.values():
+        _disk(hu_module, *polar_to_px(angle, PLUG_DIST_MM), PLUG_RADIUS_MM / mm_per_pixel, value)
+    # the roll bubbles, 5 mm at 45 mm: clear of the top and bottom wire
+    # ramps (the 504 generator's 6 mm bubbles at 44 mm reach the ramps at
+    # 38 mm, which shortens those two wires) and of the plugs at 58.7 mm
+    for bub_angle in (-90, 90):
+        _disk(hu_module, *polar_to_px(bub_angle, 45), 5.0 / mm_per_pixel, -1000)
+    bar_module = phantom + _bar_template(center, image_size, mm_per_pixel, bar_hu, bar_blur_mm)
+    low_contrast_module = phantom.copy()
+    for angle, radius_mm in zip((92.6, 110.9, 127.3, 141.5, 154.9, 167.1),
+                                (6, 3.5, 3, 2.5, 2, 1.5)):
+        _disk(low_contrast_module, *polar_to_px(angle, 50), radius_mm / mm_per_pixel,
+              low_contrast_hu)
+
+    paths = []
+    for i, z in enumerate(z_positions):
+        dz = z - ctp404_z_mm
+        if abs(dz) <= 20:
+            hu = hu_module.copy()
+        elif abs(dz - CP700_CTP528_OFFSET) <= 10:
+            hu = bar_module.copy()
+        elif abs(dz - CP700_CTP515_OFFSET) <= 8:
+            hu = low_contrast_module.copy()
+        else:
+            hu = phantom.copy()
+        if abs(dz) <= slice_thickness_mm * 1.6:
+            # the 504 generator's 23-degree wire ramps, central hole and
+            # geometry nodes
+            lo_px = (dz - slice_thickness_mm / 2) / (0.42 * mm_per_pixel)
+            hi_px = (dz + slice_thickness_mm / 2) / (0.42 * mm_per_pixel)
+            t = max(int(round(0.4 / mm_per_pixel)), 1)
+            for angle, horiz in ((180, False), (0, False), (90, True), (-90, True)):
+                px, py = polar_to_px(angle, 38)
+                lo = int(round(px + lo_px)) if horiz else int(round(py + lo_px))
+                hi = int(round(px + hi_px)) if horiz else int(round(py + hi_px))
+                if horiz:
+                    hu[int(py) - t: int(py) + t + 1, lo:hi] = 800
+                else:
+                    hu[lo:hi, int(px) - t: int(px) + t + 1] = 800
+            _disk(hu, center, center, 1.2 / mm_per_pixel, -1000)
+            for dx, dy in ((-25, -25), (25, -25), (-25, 25), (25, 25)):
+                _disk(hu, center + dx / mm_per_pixel, center + dy / mm_per_pixel,
+                      2.5 / mm_per_pixel, 900)
+        noise = _smooth(_smooth(_smooth(rng.normal(0, noise_hu, hu.shape))))
+        hu += noise * (noise_hu / max(noise.std(), 1e-9))
+        path = str(Path(dir_out) / f"ct_{i:03d}.dcm")
+        _write_ct_slice(path, np.clip(np.round(hu), -32768, 32767).astype(np.int16), z, i,
+                        uids, mm_per_pixel, slice_thickness_mm, 0.0, transfer_syntax)
+        paths.append(path)
+    return paths
+
+
+def _generate_cbct_bb(
+    dir_out: str | Path,
+    num_slices: int = 80,
+    image_size: int = 256,
+    mm_per_pixel: float = 0.5,
+    slice_thickness_mm: float = 1.0,
+    bb_offset_mm: tuple[float, float, float] = (2.0, -1.0, 3.0),
+    seed: int = 0,
+    transfer_syntax: str = dcm.EXPLICIT_VR_LE,
+) -> list[str]:
+    """Write a synthetic kV CBCT of a 5 mm BB (8000 HU in -1000 HU air,
+    sigma 5 HU noise, uint16 with intercept -1024) offset by (x, y, z) mm
+    from the volume's centre; returns the file paths. Test and smoke data:
+    ``tests/models/test_winstonlutz.py:124-157``'s fixture, whose pixels it
+    gives at its default size and seed."""
+    from ..core.array_utils import array_to_dicom
+
+    os.makedirs(dir_out, exist_ok=True)
+    nz, ny, nx = num_slices, image_size, image_size
+    off_x_mm, off_y_mm, off_z_mm = bb_offset_mm
+    cy, cx, cz = (ny - 1) / 2, (nx - 1) / 2, (nz - 1) / 2
+    vol = np.full((nz, ny, nx), -1000.0)
+    yy, xx = np.mgrid[:ny, :nx]
+    for z in range(nz):
+        dz_mm = (z - cz) * slice_thickness_mm - off_z_mm
+        r2_mm = 2.5**2 - dz_mm**2
+        if r2_mm > 0:
+            mask = ((yy - cy - off_y_mm / mm_per_pixel) ** 2
+                    + (xx - cx - off_x_mm / mm_per_pixel) ** 2) * mm_per_pixel**2 <= r2_mm
+            vol[z][mask] = 8000.0
+    vol += np.random.default_rng(seed).normal(0, 5, vol.shape)
+    series = dcm.generate_uid()
+    paths = []
+    for z in range(nz):
+        u16 = np.clip(vol[z] + 1024, 0, 65535).astype(np.uint16)
+        ds = array_to_dicom(
+            u16, sid=1000, gantry=0, coll=0, couch=0, dpi=25.4 / mm_per_pixel,
+            extra_tags={"SeriesInstanceUID": series,
+                        "ImagePositionPatient": [0.0, 0.0, float(z * slice_thickness_mm)],
+                        "SliceThickness": slice_thickness_mm,
+                        "PixelSpacing": [mm_per_pixel, mm_per_pixel],
+                        "RescaleSlope": 1.0, "RescaleIntercept": -1024.0, "Modality": "CT"})
+        path = str(Path(dir_out) / f"{z:03d}.dcm")
+        dcm.dcmwrite(path, ds, transfer_syntax=transfer_syntax)
         paths.append(path)
     return paths

@@ -105,7 +105,7 @@ def gamma_2d_batch(references, evaluations, dose_to_agreement: float = 1.0,
     if mesh is not None:
         raise NotImplementedError(
             "gamma_2d_batch(mesh=...) is not ported: multi-device sharding waits for "
-            "ROADMAP item 9")
+            "the 'Multi-device' item of ROADMAP.md")
     dev = resolve_device(device, "gamma_2d_batch")
     dta = _check_dta(distance_to_agreement)
     refs, evals = _stage(references, dev), _stage(evaluations, dev)

@@ -40,7 +40,8 @@ import torch
 from .core import image
 from .core.geometry import Line, Point
 from .core.profile import MultiProfile
-from .core.utilities import ResultBase, convert_to_enum, resolve_device
+from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum, resolve_device
+from .core.warnings import capture_warnings
 from .ops import peaks
 from .ops.picket_pipeline import PFLeafConfig, PFParams, picket_fence_batch
 
@@ -371,7 +372,8 @@ class Picket:
         return [np.poly1d(r_fit), np.poly1d(other)]
 
 
-class PicketFence:
+@capture_warnings
+class PicketFence(ResultsDataMixin):
     """MLC picket fence analysis of one image. The de-spike, the optional
     median ``filter`` and the kiss-profile FWXM run on ``device``
     (``None`` means CUDA, and raises without it)."""
@@ -677,8 +679,7 @@ class PicketFence:
             return "\n".join(results)
         return results
 
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
-        """The :class:`PFResult`, or its dict or JSON."""
+    def _generate_results_data(self) -> PFResult:
         picket_widths = {
             f"picket_{pk}": {key: self.picket_width_stat(pk, key)
                              for key in ("max", "mean", "median", "min")}
@@ -713,7 +714,7 @@ class PicketFence:
             mlc_positions_by_leaf=dict(sorted(positions_by_leaf.items())),
             mlc_errors_by_leaf=dict(sorted(errors_by_leaf.items())),
             cax=self.image.center.dict(),
-        ).output(as_dict, as_json)
+        )
 
 
 class PicketFenceBatch:

@@ -36,7 +36,8 @@ from .core import image
 from .core.geometry import Circle, Line, Point
 from .core.io import TemporaryZipDirectory
 from .core.profile import CollapsedCircleProfile, FWXMProfile
-from .core.utilities import ResultBase, resolve_device
+from .core.utilities import ResultBase, ResultsDataMixin, resolve_device
+from .core.warnings import capture_warnings
 from .ops.optimize import nelder_mead
 from .ops.star_pipeline import (StarParams, _combo_table, _max_distance, n_angles,
                                  starshot_batch)
@@ -141,7 +142,8 @@ def calculate_angles(lines: list[Line]) -> list[float]:
     return angles
 
 
-class Starshot:
+@capture_warnings
+class Starshot(ResultsDataMixin):
     """Determine the wobble of a starshot image (gantry, collimator, couch or
     MLC)."""
 
@@ -292,8 +294,7 @@ class Starshot:
             return "\n".join(results)
         return results
 
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
-        """The :class:`StarshotResults`, or its dict or JSON."""
+    def _generate_results_data(self) -> StarshotResults:
         if not self._is_analyzed:
             raise ValueError("The image has not been analyzed; use .analyze()")
         return StarshotResults(
@@ -303,7 +304,7 @@ class Starshot:
             circle_center_x_y=(self.wobble.center.x, self.wobble.center.y),
             angles=self.angles,
             passed=self.passed,
-        ).output(as_dict, as_json)
+        )
 
 
 class StarshotBatch:

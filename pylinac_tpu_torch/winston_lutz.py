@@ -7,7 +7,9 @@ result models (``:228-261``, dataclasses), ``bb_projection_with_rotation``
 (``:286``), ``straight_ray`` (``:304``), the Low et al. solvers
 (``:318-349``), the field-centroid fills (``:432-494``),
 ``_wl_detect_packed`` (``:500``), ``WLBaseImage`` (``:534``),
-``WinstonLutz2D`` (``:723``) and ``WinstonLutz`` (``:785``); and the
+``WinstonLutz2D`` (``:723``) and ``WinstonLutz`` (``:785``, with
+``from_zip`` ``:846``, ``from_cbct_zip`` ``:857`` and ``from_cbct``
+``:864-903``); and the
 multi-target analysis: ``BBArrangement.SNC_MULTIMET``, ``DEMO`` and
 ``to_human`` (``:112-130``), ``WinstonLutzMultiTargetMultiFieldResult``
 (``:264``), ``max_distance_to_lines`` (``:280``),
@@ -57,8 +59,18 @@ gives every image the collection's detection conditions, so the image
 class's own ``[is_round, is_modest_size, is_symmetric]`` is never used.
 
 Not ported: ``from_cbct``, ``from_cbct_zip``, zip, URL and demo loading
-(``from_demo_images``, ``run_demo``); plots, the PDF, plotly and QuAAC;
-warning capture into ``results_data().warnings``.
+A CBCT scan of a BB (``WinstonLutz.from_cbct``) becomes four maximum
+intensity projections on the host, as in the JAX package; ``analyze`` then
+forces a low-density BB and an open field: no field fill, and the four
+views' BB windows go through the batched scan (``bb_scan_core``, the CCL
+kernel 4-connected).
+
+``WinstonLutz2D``, ``WinstonLutz`` and ``WinstonLutzMultiTargetMultiField``
+capture the warnings their own methods raise into
+``results_data().warnings`` (``capture_warnings``, as in the JAX package).
+
+Not ported: URL and demo loading (``from_url``, ``from_demo_images``,
+``run_demo``); plots, the PDF, plotly and QuAAC.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ import math
 import os
 import os.path as osp
 import statistics
+import tempfile
 from functools import cached_property
 from pathlib import Path
 from types import SimpleNamespace
@@ -78,10 +91,14 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from .core import image
+from .core import dcm, image
+from .core.array_utils import array_to_dicom
 from .core.geometry import Line, Point, Vector, cos, sin
+from .core.io import TemporaryZipDirectory
 from .core.scale import MachineScale, convert
-from .core.utilities import DataModel, ResultBase, convert_to_enum, resolve_device
+from .core.utilities import (DataModel, ResultBase, ResultsDataMixin, convert_to_enum,
+                             resolve_device)
+from .core.warnings import capture_warnings
 from .metrics.batch_find import batched_bb_windows, bb_scan_core, reference_cutoffs
 from .metrics.features import (
     is_modest_size,
@@ -572,6 +589,19 @@ def _wl_detect_packed(arrs: torch.Tensor, thrs: torch.Tensor, *,
 # --------------------------------------------------------------------------
 # Images
 # --------------------------------------------------------------------------
+def _zoom_z(arr2d: np.ndarray, ratio: float) -> np.ndarray:
+    """Linear resample of the second axis by ``ratio`` (``scipy.ndimage.zoom``
+    with ``grid_mode=True``), as ``from_cbct``'s ``zoom_z``
+    (``pylinac_tpu/winston_lutz.py:879``)."""
+    n_in = arr2d.shape[1]
+    n_out = int(round(n_in * ratio))
+    x = np.clip((np.arange(n_out) + 0.5) / ratio - 0.5, 0, n_in - 1)
+    x0 = np.floor(x).astype(int)
+    x1 = np.minimum(x0 + 1, n_in - 1)
+    f = x - x0
+    return arr2d[:, x0] * (1 - f) + arr2d[:, x1] * f
+
+
 class WLBaseImage(image.LinacDicomImage):
     """A Winston-Lutz image: find the field CAX and the BB, match them to
     the nominal BB position."""
@@ -752,7 +782,8 @@ class WLBaseImage(image.LinacDicomImage):
             safety_stop -= 1
 
 
-class WinstonLutz2D(WLBaseImage):
+@capture_warnings
+class WinstonLutz2D(WLBaseImage, ResultsDataMixin):
     """A single Winston-Lutz EPID image."""
 
     def analyze(self, bb_size_mm: float = 5, low_density_bb: bool = False,
@@ -811,17 +842,14 @@ class WinstonLutz2D(WLBaseImage):
             field_cax=self.field_cax.dict(),
         )
 
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
-        """The typed :class:`WinstonLutz2DResult`; ``as_dict`` gives the
-        JSON-compatible dict the JAX package returns, ``as_json`` JSON."""
-        return self._generate_results_data().output(as_dict, as_json)
 
-
-class WinstonLutz:
+@capture_warnings
+class WinstonLutz(ResultsDataMixin):
     """Winston-Lutz analysis of a set of images."""
 
     images: list[WinstonLutz2D]
     image_type = WinstonLutz2D
+    is_from_cbct: bool = False
     _virtual_shift: str | None = None
     detection_conditions: list = [is_right_size_bb, is_round, is_right_circumference,
                                   is_symmetric, is_solid]
@@ -870,6 +898,44 @@ class WinstonLutz:
         img.detection_conditions = self.detection_conditions
         return img
 
+    @classmethod
+    def from_zip(cls, zfile, **kwargs):
+        """The image set in a zip archive (extracted to a temporary folder
+        while the images load)."""
+        with TemporaryZipDirectory(zfile) as tmpz:
+            return cls(tmpz, **kwargs)
+
+    @classmethod
+    def from_cbct_zip(cls, file, raw_pixels: bool = False, **kwargs):
+        """:meth:`from_cbct` of a zipped CBCT series."""
+        with TemporaryZipDirectory(file) as tmpz:
+            return cls.from_cbct(tmpz, raw_pixels=raw_pixels, **kwargs)
+
+    @classmethod
+    def from_cbct(cls, directory, raw_pixels: bool = False, **kwargs):
+        """A four-view test from a CBCT scan of a BB: maximum intensity
+        projections seen from the left, top, right and bottom (gantry 270,
+        0, 90 and 180), the z axis resampled to the pixel spacing, built on
+        the host. Sets ``is_from_cbct``, so that :meth:`analyze` takes a
+        low-density BB in an open field."""
+        stack = image.DicomImageStack(directory, min_number=10, raw_pixels=raw_pixels)
+        np_stack = np.stack([im.array for im in stack.images], axis=-1)
+        ratio = float(stack.metadata.SliceThickness) / float(stack.metadata.PixelSpacing[0])
+        left_arr = np.rot90(_zoom_z(np_stack.max(axis=0), ratio), k=1)
+        top_arr = np.rot90(_zoom_z(np_stack.max(axis=1), ratio), k=1)
+        right_arr = np.fliplr(left_arr)
+        bottom_arr = np.fliplr(top_arr)
+        dpi = 25.4 / float(stack.metadata.PixelSpacing[0])
+        with tempfile.TemporaryDirectory() as dicom_dir:
+            for array, gantry in zip((left_arr, top_arr, right_arr, bottom_arr),
+                                     (270, 0, 90, 180)):
+                ds = array_to_dicom(np.ascontiguousarray(array), sid=1000, gantry=gantry,
+                                    coll=0, couch=0, dpi=dpi)
+                dcm.dcmwrite(Path(dicom_dir) / f"G={gantry}.dcm", ds)
+            instance = cls(dicom_dir, **kwargs)
+        instance.is_from_cbct = True
+        return instance
+
     def analyze(self, bb_size_mm: float = 5,
                 machine_scale: MachineScale = MachineScale.IEC61217,
                 low_density_bb: bool = False, open_field: bool = False,
@@ -877,10 +943,15 @@ class WinstonLutz:
                 gantry_reference: float = 0, collimator_reference: float = 0,
                 couch_reference: float = 0, bb_proximity_mm: float = 20,
                 device: str | torch.device | None = None) -> None:
-        """Analyse the image set on ``device`` (``None`` means CUDA)."""
+        """Analyse the image set on ``device`` (``None`` means CUDA). A set
+        made from a CBCT scan always takes a low-density BB in an open
+        field."""
         self._device = resolve_device(device, "WinstonLutz.analyze")
         self.machine_scale = machine_scale
         self._axis_fits = {}
+        if self.is_from_cbct:
+            low_density_bb = True
+            open_field = True
         if not (not open_field and self._batch_detect(bb_size_mm, low_density_bb)):
             if not open_field:
                 self._batch_field_centroids()
@@ -1248,11 +1319,6 @@ class WinstonLutz:
             keyed_image_details=keyed,
         )
 
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
-        """The typed :class:`WinstonLutzResult`; ``as_dict`` gives the
-        JSON-compatible dict the JAX package returns, ``as_json`` JSON."""
-        return self._generate_results_data().output(as_dict, as_json)
-
 
 class WinstonLutzMultiTargetMultiFieldImage(WLBaseImage):
     """A Winston-Lutz image of several fields and BBs."""
@@ -1297,6 +1363,7 @@ class WinstonLutzMultiTargetMultiFieldImage(WLBaseImage):
         return centers
 
 
+@capture_warnings
 class WinstonLutzMultiTargetMultiField(WinstonLutz):
     """Winston-Lutz analysis of a phantom of several BBs, each in its own
     field. Each image finds its fields over the whole frame and its BBs in

@@ -11,8 +11,11 @@ on the CPU, takes the 2D gamma of a 32x32 pair with
 with ``FieldAnalysisBatch`` and ``FieldAnalysis`` on the CPU, two small
 stars with ``StarshotBatch`` and the single-image ``Starshot``, and the
 picket fence with the single-image ``PicketFence``, and a 2-BB AS500
-multi-target set with ``WinstonLutzMultiTargetMultiField``, on the CPU. The
-machine with the card has neither package.
+multi-target set with ``WinstonLutzMultiTargetMultiField``, a small
+CatPhan 700 from a zip of JPEG Lossless slices (memory-efficient mode), a
+Winston-Lutz test from a small JPEG-LS CBCT, and the single picket fence's
+captured warning, on the CPU: the native codecs build and run without
+either package. The machine with the card has neither package.
 """
 
 import json
@@ -100,7 +103,47 @@ CHILD = textwrap.dedent("""
     mt = WinstonLutzMultiTargetMultiField(mt_dir)
     mt.analyze((BBConfig("Iso", 0, 0, 0, 5, 20), BBConfig("1", -20, 0, 30, 5, 20)), device="cpu")
     mt_data = mt.results_data()
+
+    import zipfile
+    from pylinac_tpu_torch import CatPhan700
+    from pylinac_tpu_torch.core import dcm
+    from pylinac_tpu_torch.core import image as timage
+    from pylinac_tpu_torch.imggen.ct import _generate_catphan700, _generate_cbct_bb
+    ct_dir = tempfile.mkdtemp()
+    ct_paths = _generate_catphan700(ct_dir, num_slices=40, slice_thickness_mm=5,
+                                    mm_per_pixel=1.0, image_size=256,
+                                    transfer_syntax=dcm.JPEG_LOSSLESS_SV1)
+    with zipfile.ZipFile(ct_dir + "/ct.zip", "w") as zf:
+        for p in ct_paths:
+            zf.write(p, p.rsplit("/", 1)[1])
+    cp700 = CatPhan700.from_zip(ct_dir + "/ct.zip", memory_efficient_mode=True)
+    cp700.analyze(device="cpu")
+    cp700_data = cp700.results_data()
+    cbct_dir = tempfile.mkdtemp()
+    _generate_cbct_bb(cbct_dir, num_slices=40, image_size=128,
+                      transfer_syntax=dcm.JPEG_LS_LOSSLESS)
+    cbct = WinstonLutz.from_cbct(cbct_dir)
+    cbct.analyze(bb_size_mm=5, device="cpu")
+    cbct_data = cbct.results_data()
+    # one leaf pair blanked from the middle picket: the analysis warns
+    img = timage.DicomImage(path)
+    a = img.array.copy()
+    prof = a.mean(axis=0)
+    cols = np.nonzero(prof > (prof.max() + prof.min()) / 2)[0]
+    runs = np.split(cols, np.nonzero(np.diff(cols) > 1)[0] + 1)
+    mid, row = runs[len(runs) // 2], a.shape[0] // 2
+    a[row - 6:row + 6, mid[0] - 5:mid[-1] + 6] = np.median(a[:, :runs[0][0] - 10])
+    img.array = a
+    pf_warn = PicketFence(img.save(tempfile.mkdtemp() + "/pf_missing.dcm"), device="cpu")
+    pf_warn.analyze(tolerance=0.5)
     print(json.dumps({
+        "cp700": [cp700_data.catphan_model, cp700_data.num_images,
+                  type(cp700.dicom_stack).__name__, len(cp700_data.ctp404.hu_rois),
+                  cp700_data.ctp528.start_angle_radians],
+        "cbct": [len(cbct.images), cbct_data.max_2d_cax_to_bb_mm,
+                 [cbct.bb_shift_vector.x, cbct.bb_shift_vector.y, cbct.bb_shift_vector.z]],
+        "pf_warnings": [(w["message"][:28], w["category"]) for w in
+                        pf_warn.results_data().warnings],
         "mtmf": [mt_data.num_total_images, mt_data.max_2d_field_to_bb_mm, list(mt_data.bb_maxes)],
         "star_centres": [r.circle_center_x_y for r in star_batch.results_data()]
                         + [star.results_data().circle_center_x_y],
@@ -144,3 +187,9 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["pf_single"][0] == 8 and out["pf_single"][1] < 0.1
     # within half an AS500 pixel (0.78 mm at the isocentre) of the fields
     assert out["mtmf"][0] == 4 and out["mtmf"][1] < 0.4 and out["mtmf"][2] == ["Iso", "1"]
+    # a lazy zip of JPEG Lossless slices through the native decoder
+    assert out["cp700"] == ["700", 40, "LazyZipDicomImageStack", 11, None]
+    # a JPEG-LS CBCT: the BB (2, -1, 3) mm off, as at full size
+    assert out["cbct"][0] == 4 and abs(out["cbct"][1] - 3.61) < 0.2
+    assert all(abs(a - b) < 0.2 for a, b in zip(out["cbct"][2], (1.0, -3.0, -2.0)))
+    assert out["pf_warnings"] == [["Some leaves were removed fro", "UserWarning"]]

@@ -28,7 +28,7 @@ MM_TOL = 0.01
 PCT_TOL = 0.1
 MM_FIELDS = ("absolute_median_error_mm", "max_error_mm", "mean_picket_spacing_mm",
              "mlc_skew", "tolerance_mm")
-EXACT_FIELDS = ("pylinac_version", "warnings", "action_tolerance_mm", "number_of_pickets",
+EXACT_FIELDS = ("pylinac_version", "action_tolerance_mm", "number_of_pickets",
                 "max_error_picket", "max_error_leaf", "passed", "failed_leaves", "cax")
 
 
@@ -72,6 +72,9 @@ def _assert_results_match(t: PFResult, j: JaxPFResult):
     assert [f.name for f in dataclasses.fields(t)] == list(type(j).model_fields)
     for name in EXACT_FIELDS:
         assert getattr(t, name) == getattr(j, name), name
+    # captured warnings: their filename and lineno name each package's source
+    assert ([(w["message"], w["category"]) for w in t.warnings]
+            == [(w["message"], w["category"]) for w in j.warnings])
     for name in MM_FIELDS:
         assert getattr(t, name) == pytest.approx(getattr(j, name), abs=MM_TOL), name
     assert t.percent_leaves_passing == pytest.approx(j.percent_leaves_passing, abs=PCT_TOL)
