@@ -97,6 +97,23 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   (the batched BB window scan, every CCL input held to its twin), the
   reference's bars, card against CPU, warm runs equal; the projection
   build and the analyze timed apart, a profile with the hull's range;
+- VMAT: a DRGS, a DRMLC and a DRCS pair of AS1200 frames (1280x1280
+  uint16, SID 1000), each with one segment drawn 3 % hot, on the card:
+  that segment the only one that fails, the DRCS spokes found, the card
+  equal to the CPU, DRCS's size-10 median (the general sort) on the card
+  equal to the CPU's; the DRGS pair written as .xim files and loaded as
+  ``XIM``, its results equal to the DICOM pair's, the native .xim decode
+  equal to its numpy twin, each timed; each analysis timed (this path
+  launches no kernel of the port);
+- DLG: one AS1200 frame with five drawn gaps, the measured DLG within
+  0.15 mm of the drawn 0, timed (host code);
+- Quart DVT: a generated 60-slice 512x512 series and a copy rolled 2
+  degrees through ``QuartDVT.analyze`` on the card, the geometry module's
+  ``median3x3`` launches and the localisation's and roll slice's CCL
+  launches counted, every input held bit-equal to the twins; the drawn
+  phantom's bars, card against CPU, warm runs equal, a profile, the
+  kernels timed at these shapes with their bounds. Its median launches
+  join the median's entry of the kernels line;
 - multi-target Winston-Lutz: writes the SNC MultiMet session (6 BBs in 6
   fields of 20 mm, 8 AS1200 frames: gantry 0, 45, 135, 180, 225, 315 and
   gantry 0 at couch 45 and 315) and a copy with every BB 1 mm left, runs
@@ -1612,6 +1629,15 @@ def catphan700_phase(card: str, ccl) -> list[dict]:
               f"{analyze_ms:.1f} ms")
         device_profile(card, "CatPhan 700 batch", warm_batch, warm)
 
+        # the single scan's B = 1 launches (its roll slice and geometry
+        # nodes), each shape timed apart
+        for m, masks, args, kwargs in single_seen:
+            if masks.shape[0] == 1:
+                kernel, twin = kernel_pairs(ccl)[m]
+                timed_pair(card, f"CatPhan 700 lazy scan ccl {m} (B = 1)",
+                           lambda x: kernel(x, *args, **kwargs),
+                           lambda x: twin(x, *args, **kwargs), masks, ccl_bound)
+
         lines = []
         for mode, replaces in (("label", "pylinac_tpu/ops/pallas_label.py:336"),
                                ("holes", "pylinac_tpu/ops/pallas_label.py:336")):
@@ -3100,6 +3126,298 @@ def pf_single_phase(card: str, median) -> tuple[int, float]:
     return launches, worst
 
 
+VMAT_TESTS = (("DRGS", "drgs", [0, 0, 3, 0, 0, 0, 0]), ("DRMLC", "drmlc", [0, 0, 0, 3]),
+              ("DRCS", "drcs", [0, 3, 0, 0, 0]))   # each pair with one segment 3 % hot
+DLG_GAPS = (-0.4, -0.6, -0.8, -1.0, -1.2)
+DLG_TOL_MM = 0.15         # tests/models/test_quart_dlg.py:131
+QUART_SLICES = 60
+QUART_ROLL_DEG = 2.0
+QUART_HU = {"Air": -1000, "Poly": -35, "Acrylic": 120, "Teflon": 990, "Water": 0}
+QUART_HU_TOL = 15         # tests/models/test_quart_dlg.py:34-52
+QUART_ROLL_TOL = 0.7      # tests/models/test_quart_dlg.py:90
+
+
+def result_dict(obj) -> dict:
+    """A VMAT or Quart result as its dict, without date and version."""
+    data = obj.results_data(as_dict=True)
+    data.pop("date_of_analysis")
+    data.pop("pylinac_version")
+    return data
+
+
+def xim_payload(path: str):
+    """The lookup table and diff buffer of a compressed .xim file."""
+    import struct
+
+    with open(path, "rb") as f:
+        f.seek(8 + 6 * 4)
+        lut = np.frombuffer(f.read(struct.unpack("<i", f.read(4))[0]), np.uint8)
+        buf = np.frombuffer(f.read(struct.unpack("<i", f.read(4))[0]), np.uint8)
+    return lut, buf
+
+
+def vmat_phase(card: str) -> None:
+    """DRGS, DRMLC and DRCS on AS1200 pairs (1280 x 1280 uint16, SID 1000),
+    each with one segment drawn 3 % hot, on the card: the hot segment the
+    one that fails, the card against the CPU, DRCS's size-10 median on the
+    card against the CPU's; the DRGS pair also as .xim files, its results
+    against the DICOM pair's, the native .xim decode against its numpy
+    twin, both timed; each analysis timed, DRCS's profiled. This path
+    launches no kernel of the port: the VMAT tests are host numpy but DRCS's
+    median, which the general sort computes on the card."""
+    from pylinac_tpu_torch import vmat
+    from pylinac_tpu_torch import native
+    from pylinac_tpu_torch.core import xim
+    from pylinac_tpu_torch.core.image import XIM, load
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.imggen.utils import _generate_vmat_pair
+    from pylinac_tpu_torch.ops.filters import median_filter
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vmat_")
+    try:
+        t0 = time.perf_counter()
+        pairs = {test: _generate_vmat_pair(test, AS1200Image(sid=1000), tmp, errors)
+                 for _, test, errors in VMAT_TESTS}
+        print(f"inputs: 3 VMAT pairs of AS1200 frames (1280 x 1280 uint16) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, test, errors in VMAT_TESTS:
+            cls = getattr(vmat, name)
+
+            def run(device="cuda"):
+                obj = cls(image_paths=pairs[test], device=device)
+                obj.analyze()
+                data = result_dict(obj)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                return data
+
+            card_data = run()
+            hot = errors.index(3)
+            passed = [seg["passed"] for seg in card_data["segment_data"]]
+            devs = [seg["r_dev"] for seg in card_data["segment_data"]]
+            if card_data["passed"] or passed != [i != hot for i in range(len(passed))] \
+                    or int(np.argmax(devs)) != hot or not 1.5 < devs[hot] < 3.5:
+                raise RuntimeError(f"{name}: the 3 % hot segment {hot} is not the one that "
+                                   f"fails: passed {passed}, deviations {devs}")
+            if name == "DRCS":
+                offsets = [c["angle_deviation"] for c in card_data["collimator_data"].values()]
+                if sorted(card_data["collimator_data"]) != list("ABCDEF") \
+                        or max(map(abs, offsets)) > 1.0:
+                    raise RuntimeError(f"DRCS collimator spokes: {card_data['collimator_data']}")
+            cpu_data = run("cpu")
+            if json.dumps(card_data) != json.dumps(cpu_data):
+                raise RuntimeError(f"{name}: the card's results differ from the CPU's")
+            warm, outs = median_runs(card, f"{name} load + analyze + results_data of one "
+                                     f"AS1200 pair", run)
+            check_same_texts([json.dumps(o) for o in outs], f"{name} warm runs")
+            if name == "DRCS":  # the only VMAT test with device work: its medians
+                device_profile(card, "DRCS load + analyze + results_data", run, warm, top=8)
+            print(f"{name}: segment {hot} drawn 3 % hot fails alone (deviations "
+                  f"{', '.join(f'{d:.4f}' for d in devs)} %), card equal to the CPU bit for "
+                  f"bit" + (f", collimator offsets {', '.join(f'{o:.3f}' for o in offsets)} deg"
+                            if name == "DRCS" else ""))
+
+        # DRCS's identification median: the general sort on the card and the CPU
+        frame = torch.from_numpy(np.asarray(load(pairs["drcs"][0]).array, np.float32))
+        on_card = median_filter(frame.cuda(), 10)
+        if not torch.equal(on_card.cpu(), median_filter(frame, 10)):
+            raise RuntimeError("DRCS: the card's size-10 median differs from the CPU's")
+        card_ms = time_ms(lambda x: median_filter(x, 10), frame.cuda(), 5)
+        print(f"[{card}] DRCS size-10 median of a {tuple(frame.shape)} frame on the card "
+              f"(the general sort): {card_ms:.3f} ms, equal to the CPU's bit for bit")
+
+        # the DRGS pair as .xim files: the same results as the DICOM pair
+        xim_paths = []
+        for path in pairs["drgs"]:
+            arr = load(path).array
+            out = path[:-4] + ".xim"
+            xim.write_xim(out, arr, {"PixelWidth": 0.0336, "PixelHeight": 0.0336,
+                                     "GantryRtn": 180.0, "MVCollimatorRtn": 180.0,
+                                     "CouchRtn": 180.0})
+            img = load(out)
+            if not isinstance(img, XIM) or not np.array_equal(img.array, arr):
+                raise RuntimeError(f"{out}: the .xim image does not load back as written")
+            xim_paths.append(out)
+        d_obj = vmat.DRGS(image_paths=pairs["drgs"], device="cuda")
+        d_obj.analyze()
+        x_obj = vmat.DRGS(image_paths=xim_paths, device="cuda")
+        x_obj.analyze()
+        # the .xim pixel size is 0.0336 cm, whose dpmm differs from the DICOM
+        # pair's 1 / 0.336 in the last bit
+        worst = compare_tree(result_dict(x_obj), result_dict(d_obj), "DRGS .xim vs DICOM pair",
+                             wl_tol)
+        print(f"DRGS from the .xim pair: results_data() agrees with the DICOM pair's (max "
+              f"difference {worst:.2e}; flags, keys and strings equal)")
+        lut, buf = xim_payload(xim_paths[1])
+        decode = native.xim_decode_native()
+        rc, pixels = decode(buf, lut, 1280, 1280)
+        twin = xim._decode_numpy(buf, lut, 1280, 1280)
+        if rc != 0 or not np.array_equal(pixels, twin):
+            raise RuntimeError(f"native .xim decode (rc {rc}) differs from its numpy twin")
+        times = {"native": [], "numpy": []}
+        for which in ("numpy", "native", "native", "numpy"):
+            for _ in range(3):
+                t0 = time.perf_counter()
+                decode(buf, lut, 1280, 1280) if which == "native" else \
+                    xim._decode_numpy(buf, lut, 1280, 1280)
+                times[which].append((time.perf_counter() - t0) * 1e3)
+        print(f"[{card}] .xim decode of a 1280 x 1280 frame ({buf.nbytes} payload bytes) on the "
+              f"host: native {statistics.median(times['native']):.2f} ms, numpy twin "
+              f"{statistics.median(times['numpy']):.2f} ms (medians of 6), equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dlg_phase(card: str) -> None:
+    """DLG of one AS1200 frame with five drawn gaps (-0.4 to -1.2 mm, the
+    depth 300 |gap|, ``tests/models/test_quart_dlg.py:104-131``), against
+    the drawn value 0 within 0.15 mm; host code, timed on this machine's
+    CPU."""
+    from pylinac_tpu_torch import DLG, MLC
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.imggen.utils import _generate_dlg
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dlg_")
+    try:
+        path = os.path.join(tmp, "dlg.dcm")
+        _generate_dlg(AS1200Image(sid=1000), path, DLG_GAPS)
+
+        def run():
+            dlg = DLG(path)
+            dlg.analyze(gaps=DLG_GAPS, mlc=MLC.MILLENNIUM)
+            return dlg
+
+        warm, outs = median_runs(card, "DLG load + analyze of one AS1200 frame (host)", run)
+        dlg = outs[0]
+        if len(dlg.measured_dlg_per_leaf) < 10 or abs(dlg.measured_dlg) > DLG_TOL_MM:
+            raise RuntimeError(f"DLG: {len(dlg.measured_dlg_per_leaf)} leaves, measured "
+                               f"{dlg.measured_dlg} mm against the drawn 0")
+        if any(o.measured_dlg_per_leaf != dlg.measured_dlg_per_leaf for o in outs):
+            raise RuntimeError("DLG: runs disagree")
+        print(f"DLG: {len(dlg.measured_dlg_per_leaf)} leaves, measured {dlg.measured_dlg:.5f} mm "
+              f"(drawn 0, bar {DLG_TOL_MM}), every run equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_quart_results(data: dict, roll: float, what: str) -> None:
+    """The generator's phantom: its HU inserts and uniform body within 15 HU,
+    a 160 mm diameter within 2 mm, a sharp edge, the slice thickness, the
+    roll (``tests/models/test_quart_dlg.py``'s bars)."""
+    hu = data["hu_module"]["rois"]
+    bad = {k: hu[k]["value"] for k, v in QUART_HU.items()
+           if k not in hu or abs(hu[k]["value"] - v) > QUART_HU_TOL}
+    bad.update({f"uniformity {k}": r["value"] for k, r in
+                data["uniformity_module"]["rois"].items() if abs(r["value"] - 120) > QUART_HU_TOL})
+    dist = data["geometric_module"]["distances"]
+    bad.update({k: v for k, v in dist.items() if abs(v - 160) > 2})
+    edge = data["geometric_module"]["mean_high_contrast_distance"]
+    thick = data["hu_module"]["measured_slice_thickness_mm"]
+    if bad or not 0 < edge < 3 or abs(thick - 2.5) > 0.8 \
+            or abs(data["phantom_roll_deg"] - roll) > QUART_ROLL_TOL \
+            or data["hu_module"]["signal_to_noise"] < 50 \
+            or data["hu_module"]["contrast_to_noise"] < 10 or data["warnings"]:
+        raise RuntimeError(f"{what}: off the drawn phantom: {bad}, edge {edge}, thickness "
+                           f"{thick}, roll {data['phantom_roll_deg']}, warnings "
+                           f"{data['warnings']}")
+    print(f"{what}: inside the drawn phantom's bars (HU {[hu[k]['value'] for k in QUART_HU]}, "
+          f"diameters {[round(v, 4) for v in dist.values()]} mm, edge {edge:.4f} mm, thickness "
+          f"{thick:.4f} mm, roll {data['phantom_roll_deg']:.4f} deg)")
+
+
+def quart_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
+    """The Quart DVT on the card: a generated 60-slice 512 x 512 series and
+    a copy rolled 2 degrees, the 3x3 median's and the CCL kernel's launches
+    counted with every input held bit-equal to the twins, the generator's
+    bars, card against CPU, warm runs (1, then 5 timed) equal to the first,
+    a profile, and the kernels timed at these shapes with their bounds.
+    Returns the median's launches and largest error, and the CCL lines."""
+    from pylinac_tpu_torch import QuartDVT
+    from pylinac_tpu_torch.imggen.ct import generate_quart
+    from pylinac_tpu_torch.ops import filters as tfilters
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quart_")
+    try:
+        t0 = time.perf_counter()
+        dirs = {0.0: os.path.join(tmp, "plain"), QUART_ROLL_DEG: os.path.join(tmp, "rolled")}
+        for roll, d in dirs.items():
+            generate_quart(d, num_slices=QUART_SLICES, roll_deg=roll)
+        print(f"inputs: 2 Quart DVT series x {QUART_SLICES} slices of 512 x 512 uint16 "
+              f"(one rolled {QUART_ROLL_DEG} deg) in {time.perf_counter() - t0:.1f} s")
+
+        def run(d, device="cuda"):
+            q = QuartDVT(d)
+            q.analyze(device=device)
+            data = result_dict(q)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return q, data
+
+        median.median3x3.launches = 0
+        ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+        with recording_inputs(ccl_entries() + [(tfilters, "median3x3", "median")]) as seen:
+            runs = {roll: run(d) for roll, d in dirs.items()}
+        torch.cuda.synchronize()
+        counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
+                  "median": median.median3x3.launches}
+        check_counts(seen, counts, "Quart runs")
+        if min(counts.values()) < 1:
+            raise RuntimeError(f"the Quart runs launched a kernel no time: {counts}")
+        pairs = {**kernel_pairs(ccl), "median": (median.median3x3, median.median3x3_reference)}
+        errs = check_path_masks(pairs, seen, "Quart runs")
+        print(f"Quart (2 scans): launches {counts}, inputs "
+              f"{sorted(Counter(f'{m} {tuple(x.shape)}' for m, x, *_ in seen).items())}")
+        worst = 0.0
+        for roll, d in dirs.items():
+            data = runs[roll][1]
+            check_quart_results(data, roll, f"card Quart, roll {roll}")
+            _, cpu_data = run(d, "cpu")
+            worst = max(worst, compare_tree(data, cpu_data, f"Quart roll {roll} card vs CPU",
+                                            ct_tol))
+            same_warnings(data, cpu_data, f"Quart roll {roll}")
+        print(f"Quart card vs CPU: agree (max difference {worst:.2e})")
+
+        scan = runs[0.0][0]
+
+        def warm_run():
+            scan._slice_centroids = None  # a fresh localisation each run
+            scan.analyze(device="cuda")
+            data = scan.results_data()
+            torch.cuda.synchronize()
+            return data
+
+        warm, outs = median_runs(card, "warm QuartDVT analyze + "
+                                 "results_data of one 60-slice scan", warm_run)
+        check_same_texts([results_text(o) for o in outs], "Quart warm runs")
+        device_profile(card, "Quart DVT analyze", warm_run, warm)
+
+        slice_img = next(x for m, x, *_ in seen if m == "median")
+        frame = slice_img.to(torch.float32)
+        kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference, frame, 50, 5)
+        bound_ms, bound_by = bound(8 * frame.numel(), 21 * frame.numel(), F32_INSTR_PER_S)
+        print(f"[{card}] median3x3 at {tuple(frame.shape)}, the Quart geometry slice: "
+              f"kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+        lines = []
+        for mode in ("label", "holes"):
+            kernel, twin = kernel_pairs(ccl)[mode]
+            shapes = {}
+            for m, masks, args, kwargs in seen:
+                if m == mode:
+                    shapes.setdefault(tuple(masks.shape), (masks, args, kwargs))
+            timed = {}
+            for shape, (masks, args, kwargs) in sorted(shapes.items(), key=lambda kv: -np.prod(kv[0])):
+                timed[shape] = timed_pair(card, f"Quart ccl {mode}",
+                                          lambda x: kernel(x, *args, **kwargs),
+                                          lambda x: twin(x, *args, **kwargs), masks, ccl_bound)
+            largest = max(timed, key=lambda shape: np.prod(shape))
+            lines.append(ccl_line(f"ccl_{mode}_quart", "pylinac_tpu/ops/pallas_label.py:336",
+                                  counts[mode], errs.get(mode, 0.0), timed[largest]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts["median"], errs.get("median", 0.0), lines
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -3144,6 +3462,18 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += wl_cbct_phase(card, ccl)
     print(f"Winston-Lutz from CBCT phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vmat_phase(card)
+    print(f"VMAT phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dlg_phase(card)
+    print(f"DLG phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q_launches, q_err, q_lines = quart_phase(card, median, ccl)
+    kernels[0]["launches"] += q_launches
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], q_err)
+    kernels += q_lines
+    print(f"Quart DVT phase: {time.perf_counter() - t0:.1f} s")
     # last: its profile of an 8-frame run (177,000 launches) left the next
     # phase's profiler with no device events
     t0 = time.perf_counter()

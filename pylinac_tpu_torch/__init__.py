@@ -13,28 +13,35 @@ Winston-Lutz analyses (``WinstonLutz``, also from zips and CBCT scans,
 ``WinstonLutz2D``, ``WinstonLutzMultiTargetMultiField``), the gamma index (``gamma_2d``, ``gamma_2d_batch``,
 ``gamma_1d``, ``gamma_geometric``, ``gamma_bakai``), the field analyses
 (``FieldAnalysis``, ``DeviceFieldAnalysis``, ``FieldAnalysisBatch``,
-``analyze_field_batch``) and the starshot analyses (``Starshot``,
-``StarshotBatch``, ``analyze_star_batch``).
+``analyze_field_batch``), the starshot analyses (``Starshot``,
+``StarshotBatch``, ``analyze_star_batch``), the VMAT tests (``DRGS``,
+``DRMLC``, ``DRCS``), the dosimetric leaf gap (``DLG``), the Quart DVT
+(``QuartDVT``, ``HypersightQuartDVT``) and Varian .xim images (``XIM``).
 """
 
+from .core.image import XIM
 from .core.profile import Centering, Edge, Interpolation, Normalization
 from .core.scale import MachineScale
 from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhan700, CatPhanBatch
+from .dlg import DLG
 from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
                              analyze_field_batch)
 from .ops.gamma import gamma_1d, gamma_2d, gamma_2d_batch, gamma_bakai, gamma_geometric
 from .starshot import Starshot, StarshotBatch, StarshotResults, analyze_star_batch
 from .picketfence import (MLC, MLCArrangement, Orientation, PFResult, PicketFence,
                           PicketFenceBatch, analyze_batch)
+from .quart import HypersightQuartDVT, QuartDVT
 from .version import __version__
+from .vmat import DRCS, DRGS, DRMLC
 from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
                            WinstonLutzMultiTargetMultiField, WinstonLutzMultiTargetMultiFieldResult)
 
 __all__ = ["BBArrangement", "BBConfig", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
-           "CatPhan700", "CatPhanBatch", "Centering", "DeviceFieldAnalysis", "Edge", "FieldAnalysis",
-           "FieldAnalysisBatch", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
+           "CatPhan700", "CatPhanBatch", "Centering", "DLG", "DRCS", "DRGS", "DRMLC",
+           "DeviceFieldAnalysis", "Edge", "FieldAnalysis", "FieldAnalysisBatch",
+           "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
-           "Starshot", "StarshotBatch", "StarshotResults", "WinstonLutz", "WinstonLutz2D",
+           "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "WinstonLutz", "WinstonLutz2D",
            "WinstonLutzMultiTargetMultiField", "WinstonLutzMultiTargetMultiFieldResult",
            "analyze_batch", "analyze_field_batch", "analyze_star_batch", "gamma_1d",
-           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "__version__"]
+           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "XIM", "__version__"]

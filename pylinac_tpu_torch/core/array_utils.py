@@ -2,7 +2,7 @@
 
 Port of ``geometric_center_idx`` (``pylinac_tpu/core/array_utils.py:15``),
 ``geometric_center_value`` (``:20``), ``normalize`` (``:28``), ``invert``
-(``:33``), ``ground`` (``:49``), ``filter`` (``:53``), ``stretch``
+(``:33``), ``bit_invert`` (``:38``), ``ground`` (``:49``), ``filter`` (``:53``), ``stretch``
 (``:73``), ``get_dtype_info`` (``:85``), ``convert_to_dtype`` (``:92``),
 ``array_to_dicom`` (``:143``) and
 ``_rt_image_position`` (``:136``), and ``median3x3_array``, the 3x3
@@ -50,6 +50,16 @@ def normalize(array: np.ndarray, value: float | None = None) -> np.ndarray:
 def invert(array: np.ndarray) -> np.ndarray:
     """Value inversion, max + min - a, in the array's own dtype."""
     return -array + array.max() + array.min()
+
+
+def bit_invert(array: np.ndarray) -> np.ndarray:
+    """Bitwise inversion, in the array's own (integer or bool) dtype."""
+    try:
+        return np.invert(array)
+    except TypeError:
+        raise ValueError(
+            f"The datatype {array.dtype} could not be safely inverted. "
+            "Cast to an integer-like datatype first.")
 
 
 def get_dtype_info(dtype) -> np.iinfo | np.finfo:

@@ -1,24 +1,31 @@
-"""Host image model: DICOM images, arrays and CT stacks as numpy arrays.
+"""Host image model: DICOM and XIM images, arrays and CT stacks as numpy
+arrays.
 
-Port of the part of ``pylinac_tpu/core/image.py`` that the picket fence,
-CatPhan, Winston-Lutz, field and starshot analyses use: ``load``
-(``:89``), ``load_multiples`` (``:113``), ``BaseImage`` (``:201``:
-``center``, ``filter`` (``:270``), ``crop`` with ``edges``, ``roll``,
-``invert``, ``dist2edge_min`` (``:336``), ``ground``, ``normalize``,
-``check_inversion`` (``:352``), ``check_inversion_by_histogram``, ``compute``,
-``shape``, indexing and the numpy array protocol, and ``gamma``, the Bakai
-approximation, ``:377-402``), ``DicomImage`` (``:522``: load,
-``z_position``, ``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``,
-``cax``), ``LinacDicomImage`` (``:635-694``: axis angles from tags, file
-names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid`` and
-``dpmm``), ``DicomImage.save`` (``:548``) with ``_unscale_dicom_values``,
-``z_position`` (``:775``),
-``DicomImageStack`` (``:796-879``: UID filter, z-sort, ``slice_spacing``,
-``metadata``, ``from_zip``), ``LazyDicomImageStack`` (``:881``: paths and
-metadata kept, pixels decoded on each item access),
-``LazyZipDicomImageStack`` (``:949``) and ``_rescale_dicom_values``
-(``:142``). Pixels stay on the host as numpy; the analyses stage them on the
-card. A compressed slice (``core/compressed_px.py``) loads as any other.
+Port of the part of ``pylinac_tpu/core/image.py`` that the analyses use:
+``load`` (``:89``, DICOM, XIM and arrays), ``load_multiples`` (``:113``),
+``BaseImage`` (``:201-470``: ``truncated_path``, ``center``,
+``physical_shape``, ``date_created``, ``filter`` (``:270``), ``crop`` with
+``edges``, ``flipud``, ``fliplr``, ``invert``, ``bit_invert``, ``roll``,
+``rot90``, ``rotate`` (``:308``, bilinear through
+:func:`pylinac_tpu_torch.ops.interp.map_coordinates`), ``threshold``,
+``as_binary``, ``dist2edge_min`` (``:336``), ``ground``, ``normalize``,
+``check_inversion`` (``:352``), ``check_inversion_by_histogram``, ``gamma``,
+the Bakai approximation (``:377-402``), ``compute``, ``as_dicom``,
+``as_type``, ``shape``, ``size``, ``ndim``, ``dtype``, ``sum``, indexing,
+the numpy array protocol and ``__sub__``), ``XIM`` (``:494``, the file
+parsed by :mod:`pylinac_tpu_torch.core.xim`), ``DicomImage`` (``:522``:
+load, ``save`` (``:548``) with ``_unscale_dicom_values``, ``z_position``,
+``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``, ``cax``,
+``as_dicom``), ``LinacDicomImage`` (``:635-694``: axis angles from tags,
+file names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid``
+and ``dpmm``), ``z_position`` (``:775``), ``DicomImageStack``
+(``:796-879``: UID filter, z-sort, ``slice_spacing``, ``metadata``,
+``from_zip``), ``LazyDicomImageStack`` (``:881``: paths and metadata kept,
+pixels decoded on each item access), ``LazyZipDicomImageStack`` (``:949``)
+and ``_rescale_dicom_values`` (``:142``). Pixels stay on the host as numpy;
+the analyses stage them on the card. A compressed slice
+(``core/compressed_px.py``) loads as any other. ``FileImage`` (Pillow), the
+MTF classes and ``NMImageStack`` are not ported.
 """
 
 from __future__ import annotations
@@ -27,17 +34,20 @@ import os.path as osp
 import re
 import warnings
 from collections import Counter
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from . import dcm
 from .array_utils import filter as _filter_array
-from .array_utils import convert_to_dtype, get_dtype_info, ground, invert, normalize
+from .array_utils import bit_invert, convert_to_dtype, get_dtype_info, ground, invert, normalize
 from .array_utils import stretch as stretcharray
 from .geometry import Point
 from .io import TemporaryZipDirectory, retrieve_filenames
 from .utilities import resolve_device
+from .xim import XimImage, is_xim
 
 MM_PER_INCH = 25.4
 
@@ -85,8 +95,41 @@ class BaseImage:
         self.path = path if isinstance(path, (str, Path)) else ""
 
     @property
+    def truncated_path(self) -> str:
+        """The path, cut to its last 47 characters after "..." when longer
+        than 50."""
+        p = str(getattr(self, "path", ""))
+        return "..." + p[-47:] if len(p) > 50 else p
+
+    @property
     def center(self) -> Point:
         return Point((self.shape[1] / 2) - 0.5, (self.shape[0] / 2) - 0.5)
+
+    @property
+    def physical_shape(self) -> tuple[float, float]:
+        """The image's height and width in mm."""
+        return self.shape[0] / self.dpmm, self.shape[1] / self.dpmm
+
+    def date_created(self, format: str = "%A, %B %d, %Y") -> str:
+        """The DICOM creation date, else the study date, else the file's
+        creation time, else "Unknown"."""
+        date = None
+        try:
+            date = datetime.strptime(
+                self.metadata.InstanceCreationDate
+                + str(round(float(self.metadata.InstanceCreationTime))),
+                "%Y%m%d%H%M%S").strftime(format)
+        except Exception:  # a missing or malformed tag: the next source
+            try:
+                date = datetime.strptime(self.metadata.StudyDate, "%Y%m%d").strftime(format)
+            except Exception:
+                pass
+        if date is None:
+            try:
+                date = datetime.fromtimestamp(osp.getctime(self.path)).strftime(format)
+            except Exception:
+                date = "Unknown"
+        return date
 
     def filter(self, size: float | int = 0.05, kind: str = "median", device=None) -> None:
         """Median or Gaussian filter of the array on ``device`` (``None``
@@ -111,12 +154,51 @@ class BaseImage:
         if self.array.size == 0:
             raise ValueError("Too many pixels removed; array is empty")
 
+    def flipud(self) -> None:
+        self.array = np.flipud(self.array)
+
+    def fliplr(self) -> None:
+        self.array = np.fliplr(self.array)
+
     def invert(self) -> None:
         self.array = invert(self.array)
+
+    def bit_invert(self) -> None:
+        self.array = bit_invert(self.array)
 
     def roll(self, direction: str = "x", amount: int = 1) -> None:
         axis = 1 if direction == "x" else 0
         self.array = np.roll(self.array, amount, axis=axis)
+
+    def rot90(self, n: int = 1) -> None:
+        self.array = np.rot90(self.array, n)
+
+    def rotate(self, angle: float, mode: str = "edge", *args, **kwargs) -> None:
+        """Rotate counter-clockwise by ``angle`` degrees about the centre:
+        bilinear, the sample points clipped to the image (edge padding), in
+        float32 on the CPU, as the JAX method."""
+        from ..ops.interp import map_coordinates
+
+        h, w = self.array.shape
+        cy, cx = (h - 1) / 2, (w - 1) / 2
+        theta = np.deg2rad(angle)
+        yy, xx = np.mgrid[:h, :w].astype(np.float32)
+        # the inverse rotation of each output pixel
+        ys = cy + np.cos(theta) * (yy - cy) - np.sin(theta) * (xx - cx)
+        xs = cx + np.sin(theta) * (yy - cy) + np.cos(theta) * (xx - cx)
+        coords = np.stack([np.clip(ys, 0, h - 1), np.clip(xs, 0, w - 1)]).astype(np.float32)
+        self.array = map_coordinates(torch.from_numpy(np.asarray(self.array, np.float32)),
+                                     torch.from_numpy(coords)).numpy()
+
+    def threshold(self, threshold: float, kind: str = "high") -> None:
+        """Zero every pixel below (``kind="high"``) or above the threshold."""
+        if kind == "high":
+            self.array = np.where(self.array >= threshold, self.array, 0)
+        else:
+            self.array = np.where(self.array <= threshold, self.array, 0)
+
+    def as_binary(self, threshold: float) -> ArrayImage:
+        return ArrayImage(np.where(self.array >= threshold, 1, 0))
 
     def dist2edge_min(self, point: Point | tuple) -> float:
         """The distance from ``point`` to the nearest image edge."""
@@ -213,9 +295,30 @@ class BaseImage:
             return values[key]
         return values
 
+    def as_dicom(self, *args, **kwargs):
+        raise NotImplementedError(f"as_dicom is not implemented for {type(self).__name__}")
+
+    def as_type(self, dtype) -> np.ndarray:
+        return self.array.astype(dtype)
+
     @property
     def shape(self):
         return self.array.shape
+
+    @property
+    def size(self) -> int:
+        return self.array.size
+
+    @property
+    def ndim(self) -> int:
+        return self.array.ndim
+
+    @property
+    def dtype(self):
+        return self.array.dtype
+
+    def sum(self) -> float:
+        return self.array.sum()
 
     def __getitem__(self, item):
         return self.array[item]
@@ -229,17 +332,30 @@ class BaseImage:
     def __len__(self):
         return len(self.array)
 
+    def __sub__(self, other):
+        return ArrayImage(self.array - other.array)
+
+
+def _is_xim_file(path) -> bool:
+    try:
+        return is_xim(path)
+    except Exception:  # not a path at all: not an XIM file, as in JAX
+        return False
+
 
 def load(path, **kwargs) -> BaseImage:
-    """An image from an image object, a numpy array or a DICOM file."""
+    """An image from an image object, a numpy array, a DICOM file or a
+    Varian .xim file."""
     if isinstance(path, BaseImage):
         return path
     if isinstance(path, np.ndarray):
         return ArrayImage(path, **kwargs)
     if dcm.is_dicom(path):
         return DicomImage(path, **kwargs)
+    if _is_xim_file(path):
+        return XIM(path, **kwargs)
     raise TypeError(
-        f"The argument `{path}` was not found to be a valid DICOM file or array")
+        f"The argument `{path}` was not found to be a valid DICOM file, XIM file or array")
 
 
 def load_multiples(image_file_list, method: str = "mean", stretch_each: bool = True,
@@ -289,6 +405,34 @@ class ArrayImage(BaseImage):
         if self._dpi is None:
             return None
         return self._dpi if self.sid is None else self._dpi * (self.sid / 1000)
+
+
+class XIM(BaseImage):
+    """A Varian .xim image (:mod:`pylinac_tpu_torch.core.xim`)."""
+
+    def __init__(self, file_path, read_pixels: bool = True):
+        super().__init__(path=file_path)
+        self._xim = XimImage(file_path, read_pixels=read_pixels)
+        if self._xim.array is not None:
+            self.array = self._xim.array
+
+    @property
+    def properties(self) -> dict:
+        return self._xim.properties
+
+    @property
+    def dpmm(self) -> float:
+        return self._xim.dpmm
+
+    @property
+    def dpi(self) -> float:
+        return self.dpmm * MM_PER_INCH
+
+    def as_dicom(self):
+        return self._xim.as_dicom()
+
+    def save_as(self, file, format=None):
+        self._xim.save_as(file, format=format)
 
 
 class DicomImage(BaseImage):
@@ -392,6 +536,9 @@ class DicomImage(BaseImage):
         except (AttributeError, ValueError, TypeError):
             return self.center
         return Point(x, y)
+
+    def as_dicom(self) -> dcm.Dataset:
+        return self.metadata
 
 
 class LinacDicomImage(DicomImage):

@@ -1,26 +1,37 @@
-"""1D profiles: what the CatPhan and field analyses read, on the host.
+"""1D profiles: what the CatPhan, field, VMAT and Quart analyses read, on
+the host.
 
 Port of part of ``pylinac_tpu/core/profile.py``: ``_interp1d`` (``:51``),
-``ProfileMixin.ground`` and ``.filter`` (``:87-93``), the enums
-``Interpolation``, ``Normalization``, ``Edge`` and ``Centering``
-(``:102-125``), ``ProfileBase`` (``:143``: x values, the linear
-``x_at_x_idx``, ``field_width_px``), ``FWXMProfile`` (``:305``), the legacy
-``SingleProfile`` (``:519-963``: resampling with the half-pixel offset,
-normalisation, the memo cache, ``fwxm_data``, ``field_data``,
-``inflection_data`` by derivative and by Hill fits, ``penumbra``,
-``field_calculation``), ``MultiProfile.find_peaks``, ``.find_valleys`` and
-``.find_fwxm_peaks`` (``:994-1040``), ``CircleProfile`` with ``roll``
-and ``CollapsedCircleProfile`` (``:1043-1200``), without plots. Peaks come from
+``ProfileMixin`` (``:65-99``: ``invert``, ``bit_invert``, ``normalize``,
+``stretch``, ``convert_to_dtype``, ``ground``, ``filter``, ``__len__``,
+``__getitem__``), the enums ``Interpolation``, ``Normalization``, ``Edge``
+and ``Centering`` (``:102-125``), the new-style profiles (``:143-517``:
+``ProfileBase`` with ``normalization=`` and ``interpolation_order=``,
+``x_idx_at_x``, ``y_at_x``, ``x_at_y``, ``field_indices``,
+``field_x_values``, ``center_idx``, ``geometric_center_idx``,
+``cax_index``, ``field_values``, ``as_resampled`` and ``resample_to``;
+``FWXMProfile``, ``InflectionDerivativeProfile`` and ``HillProfile``;
+``PhysicalProfileMixin`` with ``gamma`` and its three ``*Physical``
+classes), the legacy ``SingleProfile`` (``:519-963``: resampling with the
+half-pixel offset, normalisation, the memo cache, ``fwxm_data``,
+``field_data``, ``inflection_data`` by derivative and by Hill fits,
+``penumbra``, ``field_calculation``), ``MultiProfile.find_peaks``,
+``.find_valleys`` and ``.find_fwxm_peaks`` (``:994-1040``),
+``CircleProfile`` with ``roll`` and ``CollapsedCircleProfile``
+(``:1043-1200``), without plots. Peaks come from
 :mod:`pylinac_tpu_torch.ops.peaks`, the smoothing from
-:mod:`pylinac_tpu_torch.ops.filters` and the spline from
-:mod:`pylinac_tpu_torch.ops.interp`, all on the CPU, where the profiles
-live. ``SingleProfile.gamma``, the new-style inflection and Hill profiles
-and the physical variants wait for the slices that use them.
+:mod:`pylinac_tpu_torch.ops.filters`, the spline and the zoom from
+:mod:`pylinac_tpu_torch.ops.interp` and the profile gamma from
+:mod:`pylinac_tpu_torch.ops.gamma`, all on the CPU, where the profiles
+live. ``ProfileBase.compute`` waits for ``metrics/profile.py`` and
+``SingleProfile.gamma`` for the slice that uses them.
 """
 
 from __future__ import annotations
 
+import copy
 import enum
+import math
 from functools import cached_property
 
 import numpy as np
@@ -31,7 +42,8 @@ from .geometry import Circle, Point
 from .hill import Hill
 from .utilities import convert_to_enum
 from ..ops import filters
-from ..ops.interp import cubic_spline_interp
+from ..ops.gamma import gamma_geometric
+from ..ops.interp import cubic_spline_interp, zoom1d
 from ..ops.peaks import find_peaks
 
 LEFT = "left"
@@ -69,20 +81,38 @@ class ProfileMixin:
 
     values: np.ndarray
 
-    def ground(self) -> float:
-        min_val = self.values.min()
-        self.values = utils.ground(self.values)
-        return min_val
+    def invert(self) -> None:
+        self.values = utils.invert(self.values)
+
+    def bit_invert(self) -> None:
+        self.values = utils.bit_invert(self.values)
 
     def normalize(self, norm_val: str | float | None = None) -> None:
         if norm_val == "max":
             norm_val = None
         self.values = utils.normalize(self.values, value=norm_val)
 
+    def stretch(self, min: float = 0, max: float = 1) -> None:
+        self.values = utils.stretch(self.values, min=min, max=max)
+
+    def convert_to_dtype(self, dtype) -> None:
+        self.values = utils.convert_to_dtype(self.values, dtype=dtype)
+
+    def ground(self) -> float:
+        min_val = self.values.min()
+        self.values = utils.ground(self.values)
+        return min_val
+
     def filter(self, size: float = 0.05, kind: str = "median") -> None:
         # 1D profiles stay on the CPU, where the JAX package kept arrays of
         # up to 2**18 elements (pylinac_tpu/ops/route.py:22)
         self.values = utils.filter(self.values, size=size, kind=kind, device="cpu")
+
+    def __len__(self):
+        return len(self.values)
+
+    def __getitem__(self, items):
+        return self.values[items]
 
 
 class Interpolation(enum.Enum):
@@ -111,12 +141,18 @@ class Centering(enum.Enum):
 
 
 class ProfileBase(ProfileMixin):
-    """Base of the single-peak profiles: values over sorted x values."""
+    """Base of the single-peak profiles: values over sorted x values,
+    grounded and normalised on request; ``interpolation_order`` 1 is
+    linear, any other the cubic spline."""
 
-    def __init__(self, values, x_values=None, ground: bool = False):
+    def __init__(self, values, x_values=None, ground: bool = False,
+                 normalization=Normalization.NONE, interpolation_order: int = 1):
         values = np.asarray(values)
         if values.ndim != 1:
             raise ValueError("Values must be 1D")
+        self.metrics: list = []
+        self.metric_values: dict[str, float] = {}
+        self._interp_order = interpolation_order
         if x_values is None:
             x_values = np.arange(len(values), dtype=float)
         x_values = np.asarray(x_values, dtype=float)
@@ -128,20 +164,59 @@ class ProfileBase(ProfileMixin):
         self.values = values[sort_idxs]
         if ground:
             self.values = utils.ground(self.values)
+        normalization = convert_to_enum(normalization, Normalization)
+        if normalization == Normalization.MAX:
+            self.normalize()
+        elif normalization == Normalization.GEOMETRIC_CENTER:
+            self.normalize(utils.geometric_center_value(self.values))
+        elif normalization == Normalization.BEAM_CENTER:
+            self.normalize(self.y_at_x(self.center_idx))
+
+    def _kind(self) -> str:
+        return "linear" if self._interp_order == 1 else "cubic"
 
     def x_at_x_idx(self, x) -> float | np.ndarray:
-        out = _interp_linear_extrap(x, np.arange(len(self.x_values), dtype=float),
-                                    self.x_values)
+        out = _interp1d(np.arange(len(self.x_values)), self.x_values, kind=self._kind())(x)
+        return float(out) if np.size(out) == 1 else out
+
+    def x_idx_at_x(self, x: float) -> int:
+        return int(np.argmin(np.abs(self.x_values - x)))
+
+    def y_at_x(self, x) -> float | np.ndarray:
+        out = _interp1d(self.x_values, self.values, kind=self._kind())(x)
+        return float(out) if np.size(out) == 1 else out
+
+    def x_at_y(self, y, side: str) -> float | np.ndarray:
+        """The x where the ``side`` half of the profile takes the value
+        ``y`` (linear, over that half's values sorted)."""
+        s = self.x_idx_at_x(self.center_idx)
+        if side == LEFT:
+            vals, xs = self.values[:s], self.x_values[:s]
+        else:
+            vals, xs = self.values[s:], self.x_values[s:]
+        order = np.argsort(vals)
+        out = np.interp(y, vals[order], xs[order])
         return float(out) if np.size(out) == 1 else out
 
     def field_edge_idx(self, side: str) -> float:
         raise NotImplementedError
 
-    @cached_property
-    def field_width_px(self) -> float:
+    def field_indices(self, in_field_ratio: float) -> tuple[float, float, float]:
+        xs = self.field_x_values(in_field_ratio)
+        left, right = xs[0], xs[-1]
+        return left, right, max(right, left) - min(right, left)
+
+    def field_x_values(self, in_field_ratio: float) -> np.ndarray:
+        """The x values inside the central ``in_field_ratio`` of the field."""
         left = self.field_edge_idx(side=LEFT)
         right = self.field_edge_idx(side=RIGHT)
-        return max(right, left) - min(right, left)
+        width = self.field_width_px
+        f_left = left + (1 - in_field_ratio) / 2 * width
+        f_right = right - (1 - in_field_ratio) / 2 * width
+        lower = math.floor(min((f_left, f_right)))
+        upper = math.ceil(max((f_left, f_right)))
+        inner = np.nonzero((self.x_values >= lower) & (self.x_values <= upper))[0]
+        return self.x_values[inner]
 
     @cached_property
     def center_idx(self) -> float:
@@ -149,20 +224,244 @@ class ProfileBase(ProfileMixin):
         right = self.field_edge_idx(side=RIGHT)
         return abs(right - left) / 2 + left
 
+    @cached_property
+    def geometric_center_idx(self) -> float:
+        return self.x_at_x_idx(utils.geometric_center_idx(self.values))
+
+    @cached_property
+    def cax_index(self) -> float:
+        return self.x_at_x_idx((len(self.x_values) - 1) / 2)
+
+    @cached_property
+    def field_width_px(self) -> float:
+        left = self.field_edge_idx(side=LEFT)
+        right = self.field_edge_idx(side=RIGHT)
+        return max(right, left) - min(right, left)
+
+    def field_values(self, in_field_ratio: float = 0.8) -> np.ndarray:
+        return self.y_at_x(self.field_x_values(in_field_ratio))
+
+    def as_resampled(self, interpolation_factor: float = 10, order: int = 3, **kwargs):
+        """A profile of the same type, zoomed by ``interpolation_factor``
+        (scipy ``zoom``, float32) over the same x range."""
+        new_y = zoom1d(np.asarray(self.values, np.float32), interpolation_factor, order=order)
+        new_x = np.linspace(self.x_values.min(), self.x_values.max(), len(new_y))
+        return type(self)(values=new_y, x_values=new_x, ground=False,
+                          normalization=Normalization.NONE, **kwargs)
+
+    def resample_to(self, target_profile):
+        """This profile linearly interpolated at another's x values (its
+        physical ones where either is physical); a physical profile gives
+        its non-physical base type."""
+        if isinstance(target_profile, PhysicalProfileMixin):
+            target_x = target_profile.physical_x_values
+        else:
+            target_x = target_profile.x_values
+        self_x = self.physical_x_values if isinstance(self, PhysicalProfileMixin) else self.x_values
+        if target_x.min() < self_x.min() - 1e-9 or target_x.max() > self_x.max() + 1e-9:
+            raise ValueError(
+                "The target profile x-values are outside this profile's range. "
+                f"self: {self_x.min()} to {self_x.max()}; target: {target_x.min()} to {target_x.max()}")
+        target_y = np.interp(target_x, self_x, self.values)
+        if isinstance(self, PhysicalProfileMixin):
+            output_type = self.__class__.__bases__[-1]
+        else:
+            output_type = self.__class__
+        return output_type(values=target_y, x_values=np.asarray(target_x, dtype=float))
+
 
 class FWXMProfile(ProfileBase):
     """Field edges at the full width at ``fwxm_height`` % of the maximum."""
 
     def __init__(self, values, x_values=None, ground: bool = False,
-                 fwxm_height: float = 50):
+                 normalization=Normalization.NONE, fwxm_height: float = 50):
         self.fwxm_height = fwxm_height
-        super().__init__(values=values, x_values=x_values, ground=ground)
+        super().__init__(values=values, x_values=x_values, ground=ground,
+                         normalization=normalization)
 
     def field_edge_idx(self, side: str) -> float:
         _, props = find_peaks(self.values, fwxm_height=self.fwxm_height / 100,
                               max_number=1)
         idx = props["left_ips"][0] if side == LEFT else props["right_ips"][0]
         return self.x_at_x_idx(idx)
+
+    def as_resampled(self, interpolation_factor: float = 10, order: int = 3) -> FWXMProfile:
+        return super().as_resampled(interpolation_factor=interpolation_factor,
+                                    order=order, fwxm_height=self.fwxm_height)
+
+
+class InflectionDerivativeProfile(ProfileBase):
+    """Field edges at the extrema of the smoothed profile's derivative."""
+
+    def __init__(self, values, x_values=None, ground: bool = False,
+                 normalization=Normalization.NONE, edge_smoothing_ratio: float = 0.003):
+        self.edge_smoothing_ratio = edge_smoothing_ratio
+        super().__init__(values=values, x_values=x_values, ground=ground,
+                         normalization=normalization)
+
+    def _refine_extremum(self, f, x0: float, lo: float, hi: float, maximize: bool) -> float:
+        """The extremum of ``f`` near ``x0``: 801 points over +-2, then a
+        parabola through the best and its neighbours."""
+        xs = np.linspace(max(lo, x0 - 2), min(hi, x0 + 2), 801)
+        ys = f(xs)
+        i = int(np.argmax(ys) if maximize else np.argmin(ys))
+        if 0 < i < len(xs) - 1:
+            y0, y1, y2 = ys[i - 1], ys[i], ys[i + 1]
+            denom = y0 - 2 * y1 + y2
+            if denom != 0:
+                return xs[i] + 0.5 * (y0 - y2) / denom * (xs[1] - xs[0])
+        return xs[i]
+
+    def field_edge_idx(self, side: str) -> float:
+        filtered = filters.gaussian_filter1d(
+            torch.from_numpy(np.asarray(self.values, np.float32)),
+            sigma=self.edge_smoothing_ratio * len(self.values)).numpy()
+        diff = np.gradient(filtered)
+        f = _interp1d(self.x_values, diff, kind="cubic")
+        lo, hi = self.x_values.min(), self.x_values.max()
+        if side == LEFT:
+            guess = self.x_at_x_idx(np.argmax(diff))
+            return self._refine_extremum(f, guess, lo, hi, maximize=True)
+        guess = self.x_at_x_idx(np.argmin(diff))
+        return self._refine_extremum(f, guess, lo, hi, maximize=False)
+
+    def as_resampled(self, interpolation_factor: float = 10, order: int = 3):
+        return ProfileBase.as_resampled(
+            self, interpolation_factor=interpolation_factor, order=order,
+            edge_smoothing_ratio=self.edge_smoothing_ratio)
+
+
+class HillProfile(InflectionDerivativeProfile):
+    """Field edges at the inflection of a Hill sigmoid fitted over a window
+    (``hill_window_ratio`` of the field width) about each derivative edge."""
+
+    def __init__(self, values, x_values=None, ground: bool = False,
+                 normalization=Normalization.NONE, edge_smoothing_ratio: float = 0.003,
+                 hill_window_ratio: float = 0.1):
+        self.hill_window_ratio = hill_window_ratio
+        super().__init__(values=values, x_values=x_values, ground=ground,
+                         normalization=normalization,
+                         edge_smoothing_ratio=edge_smoothing_ratio)
+
+    def field_edge_idx(self, side: str) -> float:
+        left_infl = super().field_edge_idx(side=LEFT)
+        right_infl = super().field_edge_idx(side=RIGHT)
+        window = (right_infl - left_infl) * self.hill_window_ratio
+        edge = left_infl if side == LEFT else right_infl
+        left_idx = self.x_idx_at_x(edge - window)
+        right_idx = self.x_idx_at_x(edge + window)
+        hill = Hill.fit(self.x_values[left_idx: right_idx + 1],
+                        self.values[left_idx: right_idx + 1])
+        return hill.inflection_idx()["index (exact)"]
+
+    def as_resampled(self, interpolation_factor: float = 10, order: int = 3):
+        return ProfileBase.as_resampled(
+            self, interpolation_factor=interpolation_factor, order=order,
+            edge_smoothing_ratio=self.edge_smoothing_ratio,
+            hill_window_ratio=self.hill_window_ratio)
+
+
+class PhysicalProfileMixin:
+    """Physical (mm) x values for a profile of known ``dpmm``."""
+
+    def __init__(self, dpmm: float | None):
+        self.dpmm = dpmm
+        self.implicit_dpmm = np.mean(np.diff(self.x_values)) if dpmm is None else dpmm
+
+    @property
+    def physical_x_values(self) -> np.ndarray:
+        """Pixel centres in mm (x / dpmm plus half a pixel)."""
+        if self.dpmm is None:
+            return self.x_values
+        return self.x_values / self.dpmm + 0.5 / self.dpmm
+
+    @cached_property
+    def field_width_mm(self) -> float:
+        return self.field_width_px / self.implicit_dpmm
+
+    def gamma(self, evaluation_profile, dose_to_agreement: float = 3,
+              distance_to_agreement: float = 3, gamma_cap_value: float = 2,
+              dose_threshold: float = 5, fill_value: float = np.nan,
+              return_profiles: bool = False):
+        """The geometric 1D gamma against another physical profile, both
+        centred on their geometric centres, on the CPU (the profiles live
+        there, as in the JAX package)."""
+        if not isinstance(evaluation_profile, PhysicalProfileMixin):
+            raise ValueError("The evaluation profile must also be a physical profile.")
+        reference = copy.deepcopy(self)
+        evaluation = copy.deepcopy(evaluation_profile)
+        reference.x_values = reference.x_values - reference.geometric_center_idx
+        evaluation.x_values = evaluation.x_values - evaluation.geometric_center_idx
+        g = gamma_geometric(
+            reference=np.asarray(reference.values, np.float32),
+            reference_coordinates=np.asarray(reference.physical_x_values, np.float32),
+            evaluation=np.asarray(evaluation.values, np.float32),
+            evaluation_coordinates=np.asarray(evaluation.physical_x_values, np.float32),
+            dose_to_agreement=dose_to_agreement, distance_to_agreement=distance_to_agreement,
+            gamma_cap_value=gamma_cap_value, dose_threshold=dose_threshold,
+            fill_value=fill_value, device="cpu").numpy()
+        if return_profiles:
+            return g, reference, evaluation
+        return g
+
+    def as_resampled(self, interpolation_resolution_mm: float = 0.1,
+                     order: int = 3, **kwargs):
+        """A profile of the same type at ``interpolation_resolution_mm``,
+        its x values kept half-pixel-correct."""
+        new_y = zoom1d(np.asarray(self.values, np.float32),
+                       (1 / interpolation_resolution_mm) / self.dpmm, order=order)
+        n_new = len(new_y)
+        offset = 0.5 - 1 / (2 * (n_new / len(self.values)))
+        new_x = np.linspace(self.x_values[0] - offset, self.x_values[-1] + offset, n_new)
+        return self.__class__(values=new_y, x_values=new_x,
+                              dpmm=1 / interpolation_resolution_mm, **kwargs)
+
+
+class FWXMProfilePhysical(PhysicalProfileMixin, FWXMProfile):
+    def __init__(self, values, dpmm: float | None = None, x_values=None,
+                 ground: bool = False, normalization=Normalization.NONE,
+                 fwxm_height: float = 50, **kwargs):
+        FWXMProfile.__init__(self, values=values, x_values=x_values, ground=ground,
+                             normalization=normalization, fwxm_height=fwxm_height)
+        PhysicalProfileMixin.__init__(self, dpmm=dpmm)
+
+    def as_resampled(self, interpolation_resolution_mm: float = 0.1, order: int = 3):
+        return PhysicalProfileMixin.as_resampled(
+            self, interpolation_resolution_mm=interpolation_resolution_mm,
+            order=order, fwxm_height=self.fwxm_height)
+
+
+class InflectionDerivativeProfilePhysical(PhysicalProfileMixin, InflectionDerivativeProfile):
+    def __init__(self, values, dpmm: float | None = None, x_values=None,
+                 ground: bool = False, normalization=Normalization.NONE,
+                 edge_smoothing_ratio: float = 0.003, **kwargs):
+        InflectionDerivativeProfile.__init__(
+            self, values=values, x_values=x_values, ground=ground,
+            normalization=normalization, edge_smoothing_ratio=edge_smoothing_ratio)
+        PhysicalProfileMixin.__init__(self, dpmm=dpmm)
+
+    def as_resampled(self, interpolation_resolution_mm: float = 0.1, order: int = 3):
+        return PhysicalProfileMixin.as_resampled(
+            self, interpolation_resolution_mm=interpolation_resolution_mm,
+            order=order, edge_smoothing_ratio=self.edge_smoothing_ratio)
+
+
+class HillProfilePhysical(PhysicalProfileMixin, HillProfile):
+    def __init__(self, values, dpmm: float | None = None, x_values=None,
+                 ground: bool = False, normalization=Normalization.NONE,
+                 edge_smoothing_ratio: float = 0.003, hill_window_ratio: float = 0.1,
+                 **kwargs):
+        HillProfile.__init__(
+            self, values=values, x_values=x_values, ground=ground,
+            normalization=normalization, edge_smoothing_ratio=edge_smoothing_ratio,
+            hill_window_ratio=hill_window_ratio)
+        PhysicalProfileMixin.__init__(self, dpmm=dpmm)
+
+    def as_resampled(self, interpolation_resolution_mm: float = 0.1, order: int = 3):
+        return PhysicalProfileMixin.as_resampled(
+            self, interpolation_resolution_mm=interpolation_resolution_mm,
+            order=order, edge_smoothing_ratio=self.edge_smoothing_ratio,
+            hill_window_ratio=self.hill_window_ratio)
 
 
 class SingleProfile(ProfileMixin):

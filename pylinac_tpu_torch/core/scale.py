@@ -1,7 +1,8 @@
 """Machine coordinate scales: IEC 61217, Elekta and Varian IEC, Varian
 Standard.
 
-Port of ``pylinac_tpu/core/scale.py`` (``MachineScale`` ``:33``,
+Port of ``pylinac_tpu/core/scale.py`` (``wrap360`` ``:11``, ``wrap180``
+``:16``, ``MachineScale`` ``:33``,
 ``convert`` ``:58``), numpy only.
 """
 
@@ -13,6 +14,11 @@ from enum import Enum
 def wrap360(value):
     """Wrap to [0, 360)."""
     return value % 360
+
+
+def wrap180(value):
+    """Wrap to [-180, 180)."""
+    return wrap360(value + 180) - 180
 
 
 def _noop(value):

@@ -558,13 +558,16 @@ class CTP404CP504(CatPhanModule):
                 if name in self.roi_settings:
                     self.roi_settings[name]["value"] = value
         super()._setup_rois()
+        self._setup_thickness_rois()
+        if len(self.geometry_roi_settings) > 0:
+            self._setup_geometry_rois()
+
+    def _setup_thickness_rois(self) -> None:
         for name, setting in self.thickness_roi_settings.items():
             self.thickness_rois[name] = ThicknessROI.from_phantom_center(
                 self.thickness_image, setting["width_pixels"],
                 setting["height_pixels"], setting["angle_corrected"],
                 setting["distance_pixels"], self.phan_center)
-        if len(self.geometry_roi_settings) > 0:
-            self._setup_geometry_rois()
 
     def _geometry_crop(self) -> tuple[np.ndarray, tuple, tuple]:
         boxsize = self.geometry_roi_size_mm / self.mm_per_pixel

@@ -1,13 +1,15 @@
-"""Synthetic CatPhan 504 CT stacks, numpy only.
+"""Synthetic CatPhan 504 and Quart DVT CT stacks, numpy only.
 
-Port of ``generate_catphan504`` (``pylinac_tpu/imggen/ct.py:56-222``) with
-its helpers, unchanged apart from the DICOM codec (the port's
-``core/dcm.py``): a DICOM CT series emulating a CatPhan 504, a 20 cm water
-cylinder with the CTP404 (HU plugs, air bubbles, wire ramps, geometry
-nodes), CTP486 (uniformity), CTP528 (line-pair gauge) and CTP515
-(low-contrast bubbles) modules at their nominal z-offsets. The same seed
-gives the same pixels as the JAX package's generator. The Quart, Cheese,
-ACR and Helios generators wait for their analyses.
+Port of ``generate_catphan504`` (``pylinac_tpu/imggen/ct.py:56-222``) and
+``generate_quart`` (``:238-320``) with their helpers, unchanged apart from
+the DICOM codec (the port's ``core/dcm.py``): a DICOM CT series emulating
+a CatPhan 504, a 20 cm water cylinder with the CTP404 (HU plugs, air
+bubbles, wire ramps, geometry nodes), CTP486 (uniformity), CTP528
+(line-pair gauge) and CTP515 (low-contrast bubbles) modules at their
+nominal z-offsets; and a Quart DVT, a 16 cm acrylic cylinder with its HU
+inserts, water vial and slice-thickness air wedges. The same seed gives the
+same pixels as the JAX package's generators. The Cheese, ACR and Helios
+generators wait for their analyses.
 
 Two private generators, test and smoke data with no JAX counterpart (the
 JAX package generates neither), write a CatPhan 700 series
@@ -227,6 +229,103 @@ def generate_catphan504(
         ds.InstanceNumber = i + 1
         ds.set_pixel_data(stored)
         path = str(Path(dir_out) / f"ct_{i:03d}.dcm")
+        dcm.dcmwrite(path, ds)
+        paths.append(path)
+    return paths
+
+
+# Quart DVT geometry (``pylinac_tpu_torch/quart.py``)
+QUART_UNIFORMITY_OFFSET = -45
+QUART_GEOMETRY_OFFSET = 45
+QUART_HU_PLUGS = {  # angle (deg, y-down), HU, radius mm
+    "Air": (-90, -1000, 8.0),
+    "Poly": (0, -35, 8.0),
+    "Acrylic": (45, 120, 8.0),
+    "Teflon": (180, 990, 8.0),
+    "Water": (-45, 0, 12.0),
+}
+QUART_PLUG_DIST_MM = 52.5
+
+
+def generate_quart(
+    dir_out: str | Path,
+    num_slices: int = 60,
+    slice_thickness_mm: float = 2.5,
+    mm_per_pixel: float = 0.5,
+    image_size: int = 512,
+    phantom_radius_mm: float = 80,
+    roll_deg: float = 0.0,
+    noise_hu: float = 3.0,
+    seed: int = 1234,
+) -> list[str]:
+    """Write a synthetic Quart DVT series (acrylic body, HU inserts,
+    thickness air wedges); returns the file paths."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(dir_out, exist_ok=True)
+    center = image_size / 2 - 0.5
+    r_phan_px = phantom_radius_mm / mm_per_pixel
+    series_uid = dcm.generate_uid()
+    study_uid = dcm.generate_uid()
+    frame_uid = dcm.generate_uid()
+    paths = []
+    z_positions = (np.arange(num_slices) - num_slices / 2) * slice_thickness_mm
+    roll = np.deg2rad(roll_deg)
+
+    yy, xx = np.mgrid[:image_size, :image_size]
+    in_phantom = (yy - center) ** 2 + (xx - center) ** 2 < r_phan_px**2
+
+    def polar_to_px(angle_deg, dist_mm):
+        a = np.deg2rad(angle_deg) + roll
+        return (center + np.cos(a) * dist_mm / mm_per_pixel,
+                center + np.sin(a) * dist_mm / mm_per_pixel)
+
+    for i, z in enumerate(z_positions):
+        hu = np.full((image_size, image_size), -1000.0)
+        hu[in_phantom] = 120.0  # acrylic body
+
+        if abs(z) <= 14:  # HU module
+            for _name, (angle, value, radius) in QUART_HU_PLUGS.items():
+                px, py = polar_to_px(angle, QUART_PLUG_DIST_MM)
+                _disk(hu, px, py, radius / mm_per_pixel, value)
+            # an extra air insert at +90 (bottom, vertical axis): with the
+            # Air insert at -90 it anchors the roll detection
+            px, py = polar_to_px(90, QUART_PLUG_DIST_MM)
+            _disk(hu, px, py, 8.0 / mm_per_pixel, -1000)
+        if abs(z) <= slice_thickness_mm * 1.6:
+            # thickness air wedges at +-32 mm, inclined 30 degrees: the dark
+            # in-plane segment moves along x by z / 0.577
+            lo_px = (z - slice_thickness_mm / 2) / (0.577 * mm_per_pixel)
+            hi_px = (z + slice_thickness_mm / 2) / (0.577 * mm_per_pixel)
+            t = max(int(round(1.0 / mm_per_pixel)), 1)
+            for angle in (90, -90):
+                px, py = polar_to_px(angle, 32)
+                lo = int(round(px + lo_px))
+                hi = int(round(px + hi_px))
+                hu[int(py) - t: int(py) + t + 1, lo:hi] = -1000
+
+        noise = rng.standard_normal((image_size, image_size))
+        noise = _smooth(_smooth(_smooth(noise)))
+        noise *= noise_hu / max(noise.std(), 1e-9)
+        hu += noise
+
+        stored = np.clip(hu + 1000, 0, 65535).astype(np.uint16)
+        ds = dcm.Dataset()
+        ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+        ds.SOPInstanceUID = dcm.generate_uid()
+        ds.StudyInstanceUID = study_uid
+        ds.SeriesInstanceUID = series_uid
+        ds.FrameOfReferenceUID = frame_uid
+        ds.Modality = "CT"
+        ds.PatientName = "Quart^Synthetic"
+        ds.PatientID = "QUARTDVT"
+        ds.PixelSpacing = [mm_per_pixel, mm_per_pixel]
+        ds.SliceThickness = slice_thickness_mm
+        ds.RescaleSlope = 1.0
+        ds.RescaleIntercept = -1000.0
+        ds.ImagePositionPatient = [0.0, 0.0, float(z)]
+        ds.InstanceNumber = i + 1
+        ds.set_pixel_data(stored)
+        path = str(Path(dir_out) / f"quart_{i:03d}.dcm")
         dcm.dcmwrite(path, ds)
         paths.append(path)
     return paths

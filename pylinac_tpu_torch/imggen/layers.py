@@ -9,8 +9,8 @@ Port of ``pylinac_tpu/imggen/layers.py``: ``Layer`` ``:111``,
 ``:295`` with the helpers they use (``clip_add`` ``:20``,
 ``clip_multiply`` ``:25``, ``even_round`` ``:30``, ``gaussian2d`` ``:35``,
 ``rotate_point`` ``:43``, ``_disk_coords`` ``:49``, ``_polygon_coords``
-``:61``, ``draw_rotated_rectangle`` ``:80``), and ``GaussianFilterLayer``
-``:251``.
+``:61``, ``draw_rotated_rectangle`` ``:80``, ``add_centered_array``
+``:95``), ``GaussianFilterLayer`` ``:251`` and ``ArrayLayer`` ``:309``.
 The blur uses ``scipy.ndimage.gaussian_filter`` (same "reflect" edges and
 truncation as the JAX filter, computed in float64 where the JAX one ran in
 float32, so a pixel may differ by one count after the cast back).
@@ -99,6 +99,24 @@ def draw_rotated_rectangle(shape, center, extent, angle: float):
     center_xy = np.array([center[1], center[0]])
     rotated = (rect - center_xy) @ rotation + center_xy
     return _polygon_coords(rotated[:, 1], rotated[:, 0], shape)
+
+
+def add_centered_array(base_array: np.ndarray, other_array: np.ndarray) -> np.ndarray:
+    """``base_array`` with ``other_array`` added at its centre (each cropped
+    to the other's size), clipped to the base's dtype."""
+    bh, bw = base_array.shape
+    oh, ow = other_array.shape
+    crop_h = min(bh, oh)
+    crop_w = min(bw, ow)
+    oy = (oh - crop_h) // 2
+    ox = (ow - crop_w) // 2
+    cropped = other_array[oy:oy + crop_h, ox:ox + crop_w]
+    by = (bh - crop_h) // 2
+    bx = (bw - crop_w) // 2
+    out = base_array.copy()
+    out[by:by + crop_h, bx:bx + crop_w] = clip_add(
+        base_array[by:by + crop_h, bx:bx + crop_w], cropped, dtype=base_array.dtype)
+    return out
 
 
 class Layer(ABC):
@@ -278,3 +296,13 @@ class SlopeLayer(Layer):
         y_scaling = (1 + self.slope_y * np.arange(nrows) / nrows).reshape(-1, 1)
         x_scaling = (1 + self.slope_x * np.arange(ncols) / ncols).reshape(1, -1)
         return clip_multiply(clip_multiply(image, y_scaling), x_scaling)
+
+
+class ArrayLayer(Layer):
+    """A prepared array added at the centre of the simulator's image."""
+
+    def __init__(self, image: np.ndarray):
+        self.array = image
+
+    def apply(self, image, pixel_size, mag_factor):
+        return add_centered_array(base_array=image, other_array=self.array)

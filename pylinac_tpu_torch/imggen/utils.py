@@ -9,6 +9,13 @@ multi-target generators ``generate_winstonlutz_multi_bb_single_field``
 ``generate_winstonlutz_cone`` (``:304``), and a copy of the starshot test
 image ``make_starshot`` (``tests/models/test_starshot.py:10``), which
 draws the bench's stars (``bench.py:314-331``).
+
+Two private generators, test and smoke data: :func:`_generate_vmat_pair`
+draws an open and a DMLC image of the DRGS and DRMLC tests as
+``tests/models/test_vmat.py:19-74`` draws them, and of the DRCS test (which
+the JAX package's tests do not draw: five segments at 50 mm between six
+collimator spokes); :func:`_generate_dlg` draws the sweeping-gap image of
+``tests/models/test_quart_dlg.py:104-131``.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from ..core import dcm
 from ..core.array_utils import array_to_dicom
 from ..core.geometry import cos as deg_cos, sin as deg_sin
 from ..core.scale import MachineScale, convert
-from .layers import Layer, PerfectBBLayer
+from .layers import ArrayLayer, GaussianFilterLayer, Layer, PerfectBBLayer, PerfectFieldLayer
 from .simulators import Simulator
 
 
@@ -345,3 +352,80 @@ def make_starshot(out_dir, center=(500, 520), n_spokes=5, angles_offset=10.0,
     path = osp.join(str(out_dir), name)
     dcm.dcmwrite(path, ds)
     return path
+
+
+DRGS_OFFSETS_MM = (-60, -40, -20, 0, 20, 40, 60)
+DRMLC_OFFSETS_MM = (-45, -15, 15, 45)
+DRCS_ROI_ANGLES = (-120, -60, 0, 60, 120)
+DRCS_SPOKES = (150, 90, 30, 330, 270, 210)  # the nominal collimator angles
+
+
+def _spoke_layer(image_angle: float, radius_mm: float, length_mm: float, width_mm: float,
+                 alpha: float) -> PerfectFieldLayer:
+    """A ``length_mm`` x ``width_mm`` field centred ``radius_mm`` from the
+    CAX, its long side along ``image_angle`` (degrees of atan2(dy, dx), y
+    down)."""
+    theta = np.deg2rad(image_angle)
+    return PerfectFieldLayer(field_size_mm=(width_mm, length_mm),
+                             cax_offset_mm=(radius_mm * np.sin(theta), radius_mm * np.cos(theta)),
+                             alpha=alpha, rotation=-image_angle)
+
+
+def _generate_vmat_pair(test: str, simulator: Simulator, dir_out: str,
+                        segment_errors: Sequence[float] | None = None,
+                        spoke_offset_deg: float = 0.0) -> list[str]:
+    """Write an open and a DMLC image of the ``test`` ("drgs", "drmlc" or
+    "drcs") into ``dir_out``; returns [open path, DMLC path]. Each segment
+    is drawn ``segment_errors`` % hot (default 0); the DRCS spokes turn by
+    ``spoke_offset_deg``."""
+    sim_open, sim_dmlc = (type(simulator)(sid=simulator.sid) for _ in range(2))
+    if test == "drgs":
+        offsets, open_mm, strip_mm = DRGS_OFFSETS_MM, (150, 170), (150, 15)
+    elif test == "drmlc":
+        offsets, open_mm, strip_mm = DRMLC_OFFSETS_MM, (150, 130), (150, 22)
+    elif test == "drcs":
+        offsets, open_mm = DRCS_ROI_ANGLES, (150, 150)
+    else:
+        raise ValueError(f"Unknown VMAT test {test}")
+    errors = segment_errors or [0] * len(offsets)
+    sim_open.add_layer(PerfectFieldLayer(field_size_mm=open_mm))
+    if test == "drcs":
+        sim_dmlc.add_layer(PerfectFieldLayer(field_size_mm=open_mm, alpha=0.5))
+        for nominal in DRCS_SPOKES:
+            sim_dmlc.add_layer(_spoke_layer(-nominal - 90 - spoke_offset_deg, 50, 60, 2, 0.3))
+        for angle, err in zip(offsets, errors):
+            if err:
+                sim_dmlc.add_layer(_spoke_layer(-angle - 90, 50, 44, 12, 0.5 * err / 100))
+    else:
+        for offset, err in zip(offsets, errors):
+            sim_dmlc.add_layer(PerfectFieldLayer(field_size_mm=strip_mm, cax_offset_mm=(0, offset),
+                                                 alpha=0.5 * (1 + err / 100)))
+    paths = []
+    for sim, name in ((sim_open, "open"), (sim_dmlc, "dmlc")):
+        sim.add_layer(GaussianFilterLayer(sigma_mm=1))
+        path = osp.join(dir_out, f"{test}_{name}.dcm")
+        sim.generate_dicom(path)
+        paths.append(path)
+    return paths
+
+
+def _generate_dlg(simulator: Simulator, path: str,
+                  gaps: Sequence[float] = (-0.4, -0.6, -0.8, -1.0, -1.2),
+                  field_mm: float = 100.0) -> None:
+    """A sweeping-gap image: in each of ``len(gaps)`` bands of the field a
+    dark line at the centre, 300 |gap| deep (the bands in ascending gap
+    order, top first)."""
+    h, w = simulator.shape
+    dpmm = 1 / simulator.pixel_size
+    arr = np.full((h, w), 500.0)
+    roi = field_mm / len(gaps)
+    cy, cx = h / 2, w / 2
+    yy = (np.arange(h) - cy) / dpmm
+    for idx, gap in enumerate(sorted(gaps)):
+        upper = field_mm / 2 - idx * roi
+        lower = field_mm / 2 - (idx + 1) * roi
+        band = (yy > lower) & (yy <= upper)
+        arr[np.ix_(band, np.arange(int(cx - 2), int(cx + 2)))] -= 300 * abs(gap)
+    simulator.add_layer(ArrayLayer((arr * 50).astype(np.uint16)))
+    simulator.add_layer(GaussianFilterLayer(sigma_mm=0.5))
+    simulator.generate_dicom(path)

@@ -1,9 +1,12 @@
-"""Host C++ codecs for compressed DICOM pixel data, bound with ctypes.
+"""Host C++ codecs for compressed DICOM pixel data and Varian .xim images,
+bound with ctypes.
 
-Copies of ``pylinac_tpu/native/jpeg_lossless.cpp``, ``jpegls.cpp`` and
-``jpeg2000.cpp``, with the wrappers of ``pylinac_tpu/native/__init__.py``
-(``jpegls_native`` ``:62``, ``j2k_native`` ``:117``, ``jpeg_lossless_native``
-``:180``). Bitstream decoding is sequential, so it stays on the host.
+Copies of ``pylinac_tpu/native/jpeg_lossless.cpp``, ``jpegls.cpp``,
+``jpeg2000.cpp`` and ``xim_decode.cpp``, with the wrappers of
+``pylinac_tpu/native/__init__.py`` (``jpegls_native`` ``:62``, ``j2k_native``
+``:117``, ``jpeg_lossless_native`` ``:180``) and of
+``pylinac_tpu/core/xim.py:_decode_native`` (``:77``). Bitstream decoding is
+sequential, so it stays on the host.
 
 Each source is compiled by ``g++ -O3 -shared -fPIC`` at first use into
 ``pylinac_tpu_torch/_build/``, named by a hash of the source and flags: to a
@@ -74,6 +77,35 @@ def _sof_capacity(data: bytes, marker: bytes) -> int:
         if rows and cols:
             return rows * cols
     return 8192 * 8192
+
+
+@functools.cache
+def xim_decode_native():
+    """The XIM diff decoder: ``decode(buf, lut, width, height) -> (rc,
+    pixels)``, ``pixels`` (height, width) int32. ``rc`` is 0, or -1 when the
+    diff buffer runs short and -2 when the lookup table does (a truncated
+    file): those are the data's faults, which the caller handles as the JAX
+    package does; a build fault raises here."""
+    fn = load_library("xim_decode").xim_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)]
+
+    def decode(buf: np.ndarray, lut: np.ndarray, width: int, height: int):
+        # the decoder copies W + 1 raw pixels into the H x W output first
+        if width < 1 or height < 2:
+            raise ValueError(f"a compressed XIM image needs at least 2 rows of 1 pixel, "
+                             f"got {height} x {width}")
+        buf = np.ascontiguousarray(buf, np.uint8)
+        lut = np.ascontiguousarray(lut, np.uint8)
+        out = np.empty(height * width, np.int32)
+        rc = fn(buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), buf.nbytes,
+                lut.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), lut.nbytes,
+                width, height, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return rc, out.reshape(height, width)
+
+    return decode
 
 
 @functools.cache

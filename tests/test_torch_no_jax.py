@@ -13,9 +13,11 @@ stars with ``StarshotBatch`` and the single-image ``Starshot``, and the
 picket fence with the single-image ``PicketFence``, and a 2-BB AS500
 multi-target set with ``WinstonLutzMultiTargetMultiField``, a small
 CatPhan 700 from a zip of JPEG Lossless slices (memory-efficient mode), a
-Winston-Lutz test from a small JPEG-LS CBCT, and the single picket fence's
-captured warning, on the CPU: the native codecs build and run without
-either package. The machine with the card has neither package.
+Winston-Lutz test from a small JPEG-LS CBCT, the single picket fence's
+captured warning, a Varian .xim image written and read back through the
+native decoder (``native/xim_decode.cpp``), a DRGS and a DRCS pair, a DLG
+image and a 40-slice Quart DVT, on the CPU: the native codecs build and
+run without either package. The machine with the card has neither package.
 """
 
 import json
@@ -136,7 +138,37 @@ CHILD = textwrap.dedent("""
     img.array = a
     pf_warn = PicketFence(img.save(tempfile.mkdtemp() + "/pf_missing.dcm"), device="cpu")
     pf_warn.analyze(tolerance=0.5)
+    from pylinac_tpu_torch import DLG, DRCS, DRGS, MLC, QuartDVT
+    from pylinac_tpu_torch.core.xim import write_xim
+    from pylinac_tpu_torch.imggen.ct import generate_quart
+    from pylinac_tpu_torch.imggen.utils import _generate_dlg, _generate_vmat_pair
+    xim_path = tempfile.mkdtemp() + "/img.xim"
+    xim_arr = np.random.default_rng(1).integers(0, 60000, (40, 50)).astype(np.int32)
+    write_xim(xim_path, xim_arr, {"PixelWidth": 0.0336, "PixelHeight": 0.0336})
+    xim = timage.load(xim_path)
+    vmat_dir = tempfile.mkdtemp()
+    drgs = DRGS(image_paths=_generate_vmat_pair("drgs", AS500Image(sid=1000), vmat_dir),
+                device="cpu")
+    drgs.analyze()
+    drcs = DRCS(image_paths=_generate_vmat_pair("drcs", AS500Image(sid=1000), vmat_dir),
+                device="cpu")
+    drcs.analyze()
+    dlg_path = tempfile.mkdtemp() + "/dlg.dcm"
+    _generate_dlg(AS500Image(sid=1000), dlg_path)
+    dlg = DLG(dlg_path)
+    dlg.analyze(gaps=(-0.4, -0.6, -0.8, -1.0, -1.2), mlc=MLC.MILLENNIUM)
+    quart_dir = tempfile.mkdtemp()
+    generate_quart(quart_dir, num_slices=40)
+    quart = QuartDVT(quart_dir)
+    quart.analyze(device="cpu")
+    quart_data = quart.results_data()
     print(json.dumps({
+        "xim": [type(xim).__name__, bool((xim.array == xim_arr).all()), round(xim.dpmm, 6)],
+        "vmat": [drgs.results_data().passed, len(drgs.segments), drcs.results_data().passed,
+                 sorted(drcs.results_data().collimator_data)],
+        "dlg": [len(dlg.measured_dlg_per_leaf), dlg.measured_dlg],
+        "quart": [quart_data.phantom_model, quart_data.num_images,
+                  quart_data.geometric_module.distances["horizontal mm"]],
         "cp700": [cp700_data.catphan_model, cp700_data.num_images,
                   type(cp700.dicom_stack).__name__, len(cp700_data.ctp404.hu_rois),
                   cp700_data.ctp528.start_angle_radians],
@@ -193,3 +225,7 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["cbct"][0] == 4 and abs(out["cbct"][1] - 3.61) < 0.2
     assert all(abs(a - b) < 0.2 for a, b in zip(out["cbct"][2], (1.0, -3.0, -2.0)))
     assert out["pf_warnings"] == [["Some leaves were removed fro", "UserWarning"]]
+    assert out["xim"] == ["XIM", True, round(1 / 0.336, 6)]
+    assert out["vmat"] == [True, 7, True, ["A", "B", "C", "D", "E", "F"]]
+    assert out["dlg"][0] > 10 and abs(out["dlg"][1]) < 0.15
+    assert out["quart"][:2] == ["Quart DVT", 40] and abs(out["quart"][2] - 160) < 2
