@@ -114,6 +114,20 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   phantom's bars, card against CPU, warm runs equal, a profile, the
   kernels timed at these shapes with their bounds. Its median launches
   join the median's entry of the kernels line;
+- ACR CT 464, ACR MRI Large, TomoCheese, CIRS 062M and GE Helios: the
+  generated series at the sizes clinics scan (ACR CT 32 x 512x512 at 5 mm;
+  ACR MRI 11 axial 512x512 at 10 mm with the sagittal localiser, and a
+  two-echo copy; TomoCheese 24 x 512x512 and a copy rolled 2 degrees; GE
+  Helios 40 x 512x512) and a CIRS 062M drawn with numpy (20 x 512x512),
+  each through its class's ``analyze`` on the card with the CCL launches
+  (the stack's localisation, the roll slice, the origin-slice searches of
+  Helios and CIRS, the MR low-contrast regions) and the flood launches
+  (the MR fills) counted and every input held bit-equal to the twins; the
+  drawn truths (``tests/models/test_acr.py``, ``test_cheese.py`` and
+  ``test_helios.py``'s bars), the two-echo copy's warning and results,
+  card against CPU, warm runs equal, a profile of a warm ACR MRI run, and
+  the kernels timed at every new shape with their bounds. Its flood
+  launches join the single-image flood entry of the kernels line;
 - multi-target Winston-Lutz: writes the SNC MultiMet session (6 BBs in 6
   fields of 20 mm, 8 AS1200 frames: gantry 0, 45, 135, 180, 225, 315 and
   gantry 0 at couch 45 and 315) and a copy with every BB 1 mm left, runs
@@ -1801,6 +1815,9 @@ def wl_cbct_phase(card: str, ccl) -> list[dict]:
 MTMF_AXES = ((0, 0, 0), (45, 0, 0), (135, 0, 0), (180, 0, 0), (225, 0, 0), (315, 0, 0),
              (0, 0, 45), (0, 0, 315))   # set C: at gantry 90 two fields merge
 MTMF_CPU_FRAMES = (0, 3)  # the 2 frames held against the CPU: gantry 0 and 45
+# 1 warm-up, then the median of 3: a warm 8-frame run takes about 12 s, and
+# the smoke keeps to its time budget as phases are added
+MTMF_WARM_RUNS = 4
 
 
 def write_mtmf_session(d: str, bb_left_mm: float = 0.0) -> str:
@@ -1949,7 +1966,7 @@ def mtmf_phase(card: str, ccl) -> list[dict]:
               f"within {PX_TOL} px, in the 2-frame and the 8-frame card runs")
 
         texts, times = [], []
-        for _ in range(6):
+        for _ in range(MTMF_WARM_RUNS):
             t0 = time.perf_counter()
             texts.append(results_text(analyze(wl)()))
             torch.cuda.synchronize()
@@ -1958,7 +1975,7 @@ def mtmf_phase(card: str, ccl) -> list[dict]:
         t0 = time.perf_counter()
         warm = statistics.median(times[1:])
         print(f"[{card}] warm WinstonLutzMultiTargetMultiField analyze + results_data of "
-              f"{len(wl.images)} frames: median {warm:.1f} ms of 5 runs = "
+              f"{len(wl.images)} frames: median {warm:.1f} ms of {MTMF_WARM_RUNS - 1} runs = "
               f"{len(wl.images) / warm * 1e3:.2f} images/s "
               f"(runs ms: {', '.join(f'{t:.1f}' for t in times[1:])})")
 
@@ -3418,6 +3435,293 @@ def quart_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     return counts["median"], errs.get("median", 0.0), lines
 
 
+ACR_CT_HU = {"Air": -1000, "Poly": -95, "Acrylic": 120, "Bone": 955, "Water": 0}
+TOMO_HU = {"1": -800, "6": 800, "8": 300, "13": -300, "3": 0}
+HU_TOL = 15               # tests/models/test_acr.py, test_cheese.py
+TOMO_ROLL_DEG = 2.0
+# the CIRS 062M's inserts by the names of ``CIRSHUModule.roi_settings``:
+# HU of tissue equivalents (lung inhale and exhale, adipose, breast,
+# muscle, liver, trabecular and dense bone)
+CIRS_HU = {"1": 0, "2": -800, "3": -500, "4": 40, "5": -40, "6": -90, "7": 240,
+           "8": 60, "9": 1250, "10": 900, "11": -800, "12": 200, "13": -500,
+           "14": 60, "15": 40, "16": -90, "17": 800}
+
+
+def draw_cirs062m(dir_out: str, num_slices: int = 20, slice_thickness_mm: float = 2.5,
+                  mm_per_pixel: float = 0.7, image_size: int = 512, roll_deg: float = 0.0,
+                  noise_hu: float = 3.0, seed: int = 62) -> list[str]:
+    """A CIRS 062M series, which neither package generates (the drawing of
+    ``tests/test_torch_cheese.py``): a 330 x 290 mm elliptical water body,
+    50 mm thick, with 24 mm inserts at ``CIRSHUModule.roi_settings``'
+    places, in air; uint16 with intercept -1000."""
+    from pylinac_tpu_torch.cheese import CIRSHUModule
+    from pylinac_tpu_torch.core import dcm
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(dir_out, exist_ok=True)
+    center = image_size / 2 - 0.5
+    yy, xx = np.mgrid[:image_size, :image_size]
+    body = (((xx - center) * mm_per_pixel / 165) ** 2
+            + ((yy - center) * mm_per_pixel / 145) ** 2) < 1
+    uids = [dcm.generate_uid() for _ in range(3)]
+    roll = np.deg2rad(roll_deg)
+    paths = []
+    for i, z in enumerate((np.arange(num_slices) - num_slices / 2) * slice_thickness_mm):
+        hu = np.full((image_size, image_size), -1000.0)
+        if abs(z) <= 25:
+            hu[body] = 0.0
+            for name, s in CIRSHUModule.roi_settings.items():
+                a = np.deg2rad(s["angle"]) + roll
+                px = center + np.cos(a) * s["distance"] / mm_per_pixel
+                py = center + np.sin(a) * s["distance"] / mm_per_pixel
+                hu[(yy - py) ** 2 + (xx - px) ** 2 < (12 / mm_per_pixel) ** 2] = CIRS_HU[name]
+        hu += rng.standard_normal((image_size, image_size)) * noise_hu
+        ds = dcm.Dataset()
+        ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+        ds.SOPInstanceUID = dcm.generate_uid()
+        ds.StudyInstanceUID, ds.SeriesInstanceUID, ds.FrameOfReferenceUID = uids
+        ds.Modality = "CT"
+        ds.PatientName = "CIRS^Synthetic"
+        ds.PatientID = "CIRS062M"
+        ds.PixelSpacing = [mm_per_pixel, mm_per_pixel]
+        ds.SliceThickness = slice_thickness_mm
+        ds.RescaleSlope = 1.0
+        ds.RescaleIntercept = -1000.0
+        ds.ImagePositionPatient = [0.0, 0.0, float(z)]
+        ds.InstanceNumber = i + 1
+        ds.set_pixel_data(np.clip(hu + 1000, 0, 65535).astype(np.uint16))
+        path = os.path.join(dir_out, f"cirs_{i:03d}.dcm")
+        dcm.dcmwrite(path, ds)
+        paths.append(path)
+    return paths
+
+
+def write_two_echo(src: str, dst: str) -> None:
+    """A copy of an MR series with a second echo of every axial slice (the
+    same series, EchoNumbers 2, 0.9 x the signal)."""
+    from pylinac_tpu_torch.core import dcm
+
+    os.makedirs(os.path.join(dst, "echo2"))
+    for name in sorted(os.listdir(src)):
+        ds = dcm.dcmread(os.path.join(src, name))
+        dcm.dcmwrite(os.path.join(dst, name), ds)
+        if name != "mr_sag.dcm":
+            ds.EchoNumbers = 2
+            ds.SOPInstanceUID = dcm.generate_uid()
+            ds.set_pixel_data((ds.pixel_array * 0.9).astype(np.uint16))
+            dcm.dcmwrite(os.path.join(dst, "echo2", name), ds)
+
+
+def check_sibling_results(name: str, data: dict, what: str, roll: float = 0.0) -> None:
+    """The generators' drawn truths, at the bars of ``tests/models/test_acr.py``,
+    ``test_cheese.py`` and ``test_helios.py`` (CIRS: its drawing's inserts)."""
+    bad = {}
+
+    def near(key, got, want, tol):
+        if not abs(got - want) <= tol:
+            bad[key] = got
+
+    if name == "ACRCT":
+        for k, hu in ACR_CT_HU.items():
+            near(k, data["ct_module"]["rois"][k], hu, HU_TOL)
+        for k, v in data["uniformity_module"]["rois"].items():
+            near(f"uniformity {k}", v, 0, 10)
+        rmtf = list(data["spatial_resolution_module"]["lpmm_to_rmtf"].values())
+        if not (data["low_contrast_module"]["cnr"] > 5 and abs(rmtf[0] - 1) < 1e-9
+                and rmtf[-1] < 0.5):
+            bad["cnr, rMTF"] = (data["low_contrast_module"]["cnr"], rmtf)
+        near("roll", data["phantom_roll_deg"], roll, 1)
+    elif name == "ACRMRILarge":
+        for k, p in data["geometric_distortion_module"]["profiles"].items():
+            near(f"width {k}", p["width (mm)"], 200, 4)
+        sag = data["sagittal_localizer_module"]["profiles"]
+        for k, p in sag.items():
+            near(f"sagittal {k}", p["width (mm)"], 148, 3)
+        u = data["uniformity_module"]
+        if len(sag) != 4 or not (u["piu"] > 95 and u["piu_passed"] and u["psg"] < 3):
+            bad["sagittal, PIU, PSG"] = (len(sag), u["piu"], u["psg"])
+        near("thickness", data["slice1"]["measured_slice_thickness_mm"], 5, 1)
+        near("slice 1 shift", data["slice1"]["slice_shift_mm"], 0, 1)
+        near("slice 11 shift", data["slice11"]["slice_shift_mm"], 0, 1)
+        near("low-contrast score", data["low_contrast_multi_slice_module"]["score"], 16, 4)
+        near("roll", data["phantom_roll_deg"], 0, 1.5)
+    elif name == "TomoCheese":
+        for k, hu in TOMO_HU.items():
+            near(f"ROI {k}", data["rois"][k]["median"], hu, HU_TOL)
+        if len(data["rois"]) != 20:
+            bad["ROIs"] = len(data["rois"])
+        near("roll", data["phantom_roll"], roll, 0.7)
+    elif name == "CIRS062M":
+        for k, hu in CIRS_HU.items():
+            near(f"ROI {k}", data["rois"][k]["median"], hu, HU_TOL)
+        near("roll", data["phantom_roll"], roll, 0.7)
+    else:  # GEHeliosCTDaily
+        cs, nu, lc = data["contrast_scale"], data["noise_uniformity"], data["low_contrast"]
+        near("plexiglass", cs["mean_hu_plastic"], 120, 10)
+        near("water", cs["mean_hu_water"], 0, 10)
+        near("difference", cs["hu_difference"], 120, 12)
+        near("centre", nu["center_mean_hu"], 0, 10)
+        near("uniformity", nu["means_diff"], 0, 10)
+        near("noise", nu["noise_center_std"], 5, 5)
+        near("low contrast mean", lc["mean"], 0, 10)
+        near("low contrast std", lc["std"], 5, 5)
+        mtf = list(data["high_contrast"]["mtf_lp_mm"].values())
+        if len(lc["slices"]) != 3 or len(mtf) != 9 or data["phantom_roll_deg"] != 0:
+            bad["slices, MTF, roll"] = (len(lc["slices"]), mtf, data["phantom_roll_deg"])
+    if bad:
+        raise RuntimeError(f"{what}: off the drawn phantom: {bad}")
+    print(f"{what}: inside the drawn phantom's bars")
+
+
+def ct_siblings_phase(card: str, ccl, flood) -> tuple[int, float, list[dict]]:
+    """ACR CT, ACR MRI Large, TomoCheese, CIRS 062M and GE Helios on the
+    card: generated (CIRS drawn) series at the sizes clinics scan, each
+    class's CCL and flood launches counted with every kernel input held
+    bit-equal to its twin, the drawn truths, card against CPU (warnings on
+    message and category), warm runs (1, then 5 timed) equal to the first,
+    a profile of a warm ACR MRI run, and the kernels timed at the new
+    shapes with their bounds. Returns the flood kernel's launches and
+    largest error, and the CCL lines."""
+    from pylinac_tpu_torch import ACRCT, CIRS062M, ACRMRILarge, GEHeliosCTDaily, TomoCheese
+    from pylinac_tpu_torch.imggen.ct import generate_acr_ct, generate_helios, generate_tomocheese
+    from pylinac_tpu_torch.imggen.mri import generate_acr_mri
+    from pylinac_tpu_torch.ops import label as tlabel
+
+    classes = {"ACRCT": ACRCT, "ACRMRILarge": ACRMRILarge, "TomoCheese": TomoCheese,
+               "CIRS062M": CIRS062M, "GEHeliosCTDaily": GEHeliosCTDaily}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_siblings_")
+    try:
+        t0 = time.perf_counter()
+        d = {k: os.path.join(tmp, k) for k in ("acr_ct", "acr_mri", "acr_mri_two_echo", "tomo",
+                                              "tomo_rolled", "cirs", "helios")}
+        generate_acr_ct(d["acr_ct"])
+        generate_acr_mri(d["acr_mri"])
+        write_two_echo(d["acr_mri"], d["acr_mri_two_echo"])
+        generate_tomocheese(d["tomo"])
+        generate_tomocheese(d["tomo_rolled"], roll_deg=TOMO_ROLL_DEG)
+        draw_cirs062m(d["cirs"])
+        generate_helios(d["helios"])
+        print(f"inputs: ACR CT 32 x 512 x 512 at 5 mm; ACR MRI Large 11 axial 512 x 512 at 10 mm "
+              f"and the sagittal localiser, and a two-echo copy; TomoCheese 24 x 512 x 512 and a "
+              f"copy rolled {TOMO_ROLL_DEG} deg; CIRS 062M 20 x 512 x 512 (drawn); GE Helios 40 x "
+              f"512 x 512; in {time.perf_counter() - t0:.1f} s")
+        runs = [("ACRCT", "acr_ct", 0.0), ("ACRMRILarge", "acr_mri", 0.0),
+                ("ACRMRILarge", "acr_mri_two_echo", 0.0), ("TomoCheese", "tomo", 0.0),
+                ("TomoCheese", "tomo_rolled", TOMO_ROLL_DEG), ("CIRS062M", "cirs", 0.0),
+                ("GEHeliosCTDaily", "helios", 0.0)]
+
+        def run(name, key, device="cuda"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                obj = classes[name](d[key])
+                obj.analyze(device=device)
+                data = result_dict(obj)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return obj, data
+
+        entries = ccl_entries() + [(tlabel, "flood_from_border", "flood")]
+        pairs = {**kernel_pairs(ccl),
+                 "flood": (flood.flood_from_border_batch, flood.flood_from_border_reference)}
+        totals, seen_all, worst, card_data = Counter(), [], {}, {}
+        for name, key, roll in runs:
+            ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+            flood.flood_from_border_batch.launches = 0
+            with recording_inputs(entries) as seen:
+                obj, data = run(name, key)
+            counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
+                      "flood": flood.flood_from_border_batch.launches}
+            what = f"{name} on {key}"
+            check_counts(seen, counts, what)
+            needs = ("label", "holes", "flood") if name == "ACRMRILarge" else ("label", "holes")
+            if min(counts[m] for m in needs) < 1:
+                raise RuntimeError(f"the {what} launched a kernel of its path no time: {counts}")
+            errs = check_path_masks(pairs, seen, what)
+            for mode, e in errs.items():
+                worst[mode] = max(worst.get(mode, 0.0), e)
+            totals.update(counts)
+            seen_all += seen
+            print(f"{what}: launches {counts}, inputs "
+                  f"{sorted(Counter(f'{m} {tuple(x.shape)}' for m, x, *_ in seen).items())}")
+            check_sibling_results(name, data, f"card {what}", roll)
+            card_data[key] = obj, data
+        one, two = card_data["acr_mri"][1], card_data["acr_mri_two_echo"][1]
+        echo_warning = [w["message"] for w in two["warnings"]]
+        if echo_warning != ["Multiple echoes found ({1, 2}) and no echo number was passed. "
+                            "Using echo # 1"] or card_data["acr_mri_two_echo"][0]._host_vol.shape[0] != 11:
+            raise RuntimeError(f"the two-echo MR series: warnings {echo_warning}, host volume "
+                               f"{card_data['acr_mri_two_echo'][0]._host_vol.shape}")
+        compare_tree({k: v for k, v in two.items() if k != "warnings"},
+                     {k: v for k, v in one.items() if k != "warnings"},
+                     "two-echo MR against one echo", ct_tol)
+        print("two-echo MR: echo 1 taken once, its warning in results_data(), results equal "
+              "to the one-echo series'")
+        worst_cpu = 0.0
+        for name, key, _ in runs:
+            _, cpu_data = run(name, key, "cpu")
+            data = card_data[key][1]
+            worst_cpu = max(worst_cpu, compare_tree(data, cpu_data, f"{name} {key} card vs CPU",
+                                                    ct_tol))
+            same_warnings(data, cpu_data, f"{name} {key}")
+        print(f"ACR, cheese and Helios card vs CPU: agree (max difference {worst_cpu:.2e})")
+
+        for name, key, _ in runs:
+            if key in ("acr_mri_two_echo", "tomo_rolled"):
+                continue
+            if name == "ACRMRILarge":  # analyze takes the sagittal image out: a new object a run
+                fresh = [classes[name](d[key]) for _ in range(WARM_RUNS)]
+
+                def warm_run():
+                    obj = fresh.pop()
+                    obj.analyze(device="cuda")
+                    data = obj.results_data()
+                    torch.cuda.synchronize()
+                    return data
+            else:
+                obj = card_data[key][0]
+
+                def warm_run(obj=obj):
+                    obj._slice_centroids = None  # a fresh localisation each run
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        obj.analyze(device="cuda")
+                        data = obj.results_data()
+                    torch.cuda.synchronize()
+                    return data
+
+            warm, outs = median_runs(card, f"warm {name} analyze + results_data of {key}",
+                                     warm_run, WARM_RUNS)
+            check_same_texts([results_text(o) for o in outs], f"{name} warm runs")
+            if name == "ACRMRILarge":
+                fresh = [classes[name](d[key])]
+                device_profile(card, "ACR MRI Large analyze", warm_run, warm)
+
+        timed, lines = {}, []
+        for mode in ("label", "holes", "flood"):
+            kernel, twin = pairs[mode]
+            shapes = {}
+            for m, masks, args, kwargs in seen_all:
+                if m == mode:
+                    masks = masks if masks.dim() == 3 else masks[None]
+                    shapes.setdefault(tuple(masks.shape), (masks, args, kwargs))
+            bound_ = ccl_bound if mode != "flood" else functools.partial(flood_bound,
+                                                                          entry="flood")
+            for shape, (masks, args, kwargs) in sorted(shapes.items(),
+                                                       key=lambda kv: -np.prod(kv[0])):
+                timed[mode, shape] = timed_pair(
+                    card, f"ACR/cheese/Helios {mode}", lambda x: kernel(x, *args, **kwargs),
+                    lambda x: twin(x, *args, **kwargs), masks, bound_)
+            if mode != "flood":
+                largest = max((s for m, s in timed if m == mode), key=np.prod)
+                lines.append(ccl_line(f"ccl_{mode}_acr_cheese_helios",
+                                      "pylinac_tpu/ops/pallas_label.py:336", totals[mode],
+                                      worst.get(mode, 0.0), timed[mode, largest]))
+        print(f"ACR, cheese and Helios launches: {dict(totals)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return totals["flood"], worst.get("flood", 0.0), lines
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -3474,6 +3778,13 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], q_err)
     kernels += q_lines
     print(f"Quart DVT phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    s_launches, s_err, s_lines = ct_siblings_phase(card, ccl, flood)
+    single_flood = next(k for k in kernels if k["name"] == "flood_from_border_single")
+    single_flood["launches"] += s_launches
+    single_flood["max_abs_err"] = max(single_flood["max_abs_err"], s_err)
+    kernels += s_lines
+    print(f"ACR, cheese and Helios phase: {time.perf_counter() - t0:.1f} s")
     # last: its profile of an 8-frame run (177,000 launches) left the next
     # phase's profiler with no device events
     t0 = time.perf_counter()

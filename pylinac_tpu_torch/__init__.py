@@ -16,14 +16,20 @@ Winston-Lutz analyses (``WinstonLutz``, also from zips and CBCT scans,
 ``analyze_field_batch``), the starshot analyses (``Starshot``,
 ``StarshotBatch``, ``analyze_star_batch``), the VMAT tests (``DRGS``,
 ``DRMLC``, ``DRCS``), the dosimetric leaf gap (``DLG``), the Quart DVT
-(``QuartDVT``, ``HypersightQuartDVT``) and Varian .xim images (``XIM``).
+(``QuartDVT``, ``HypersightQuartDVT``), the ACR CT and MRI phantoms
+(``ACRCT``, ``ACRMRILarge``), the cheese phantoms (``TomoCheese``,
+``CIRS062M``), the GE Helios daily QA (``GEHeliosCTDaily``) and Varian
+.xim images (``XIM``).
 """
 
+from .acr import ACRCT, ACRMRILarge
+from .cheese import CIRS062M, TomoCheese
 from .core.image import XIM
 from .core.profile import Centering, Edge, Interpolation, Normalization
 from .core.scale import MachineScale
 from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhan700, CatPhanBatch
 from .dlg import DLG
+from .helios import GEHeliosCTDaily
 from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
                              analyze_field_batch)
 from .ops.gamma import gamma_1d, gamma_2d, gamma_2d_batch, gamma_bakai, gamma_geometric
@@ -36,12 +42,13 @@ from .vmat import DRCS, DRGS, DRMLC
 from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
                            WinstonLutzMultiTargetMultiField, WinstonLutzMultiTargetMultiFieldResult)
 
-__all__ = ["BBArrangement", "BBConfig", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
+__all__ = ["ACRCT", "ACRMRILarge", "BBArrangement", "BBConfig", "CIRS062M", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
            "CatPhan700", "CatPhanBatch", "Centering", "DLG", "DRCS", "DRGS", "DRMLC",
-           "DeviceFieldAnalysis", "Edge", "FieldAnalysis", "FieldAnalysisBatch",
+           "DeviceFieldAnalysis", "Edge", "FieldAnalysis", "FieldAnalysisBatch", "GEHeliosCTDaily",
            "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
-           "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "WinstonLutz", "WinstonLutz2D",
+           "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "WinstonLutz",
+           "WinstonLutz2D",
            "WinstonLutzMultiTargetMultiField", "WinstonLutzMultiTargetMultiFieldResult",
            "analyze_batch", "analyze_field_batch", "analyze_star_batch", "gamma_1d",
            "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "XIM", "__version__"]

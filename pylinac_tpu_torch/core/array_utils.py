@@ -4,8 +4,8 @@ Port of ``geometric_center_idx`` (``pylinac_tpu/core/array_utils.py:15``),
 ``geometric_center_value`` (``:20``), ``normalize`` (``:28``), ``invert``
 (``:33``), ``bit_invert`` (``:38``), ``ground`` (``:49``), ``filter`` (``:53``), ``stretch``
 (``:73``), ``get_dtype_info`` (``:85``), ``convert_to_dtype`` (``:92``),
-``array_to_dicom`` (``:143``) and
-``_rt_image_position`` (``:136``), and ``median3x3_array``, the 3x3
+``array_to_dicom`` (``:143``), ``_rt_image_position`` (``:136``),
+``find_nearest_idx`` (``:104``) and ``fill_middle_zeros`` (``:108``), and ``median3x3_array``, the 3x3
 median of an image or a stack through the kernel. ``array_to_dicom``
 stretches a float array over uint16, as the JAX function does (the
 projections of ``WinstonLutz.from_cbct``). ``filter`` and
@@ -104,6 +104,28 @@ _MEDIAN3X3_DTYPES = {np.uint8: torch.float32, np.int8: torch.float32,
                      np.float64: torch.float32, np.int32: torch.int32,
                      np.uint32: torch.int32}
 _TOP_BIT = np.uint32(0x80000000)
+
+
+def find_nearest_idx(array: np.ndarray, value: float) -> int:
+    """The index of the element nearest ``value`` (the first of ties)."""
+    return int((np.abs(array - value)).argmin())
+
+
+def fill_middle_zeros(array: np.ndarray, cutoff_px: int = 0) -> np.ndarray:
+    """A 0/1 profile with the 0s between its first rising and its last
+    falling edge set to 1, after zeroing ``cutoff_px`` samples at each end."""
+    array = array.astype(float)
+    if np.max(array) > 1 or np.min(array) < 0:
+        raise ValueError("Array values must be between 0 and 1")
+    if cutoff_px:
+        array[:cutoff_px] = 0
+        array[-cutoff_px:] = 0
+    edges = np.diff(array)
+    left_edge = np.min(np.where(edges > 0.5)[0])
+    right_edge = np.max(np.where(edges < -0.5)[0])
+    filled = array.copy()
+    filled[left_edge + 1: right_edge + 1] = 1.0
+    return filled
 
 
 def median3x3_array(array: np.ndarray, device=None) -> np.ndarray:

@@ -20,12 +20,15 @@ load, ``save`` (``:548``) with ``_unscale_dicom_values``, ``z_position``,
 file names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid``
 and ``dpmm``), ``z_position`` (``:775``), ``DicomImageStack``
 (``:796-879``: UID filter, z-sort, ``slice_spacing``, ``metadata``,
-``from_zip``), ``LazyDicomImageStack`` (``:881``: paths and metadata kept,
-pixels decoded on each item access), ``LazyZipDicomImageStack`` (``:949``)
-and ``_rescale_dicom_values`` (``:142``). Pixels stay on the host as numpy;
-the analyses stage them on the card. A compressed slice
-(``core/compressed_px.py``) loads as any other. ``FileImage`` (Pillow), the
-MTF classes and ``NMImageStack`` are not ported.
+``from_zip``, ``__delitem__`` ``:874``), ``LazyDicomImageStack`` (``:881``:
+paths and metadata kept, pixels decoded on each item access),
+``LazyZipDicomImageStack`` (``:949``), ``FileImage`` (``:696``: TIFF, PNG
+and JPEG files through Pillow, with ``dpi`` and ``dpmm``), ``NMImageStack``
+(``:963``), ``tiff_to_dicom``, ``load_raw_visionrt`` and
+``load_raw_cyberknife`` (``:991-1010``) and ``_rescale_dicom_values``
+(``:142``). Pixels stay on the host as numpy; the analyses stage them on the
+card. A compressed slice (``core/compressed_px.py``) loads as any other.
+Pillow is imported where a file is opened, never with the module.
 """
 
 from __future__ import annotations
@@ -343,9 +346,20 @@ def _is_xim_file(path) -> bool:
         return False
 
 
+def _is_image_file(path) -> bool:
+    """Whether Pillow opens ``path`` as an image."""
+    try:
+        from PIL import Image as pImage
+
+        with pImage.open(path):
+            return True
+    except Exception:  # no image file, or no Pillow: not an image file, as in JAX
+        return False
+
+
 def load(path, **kwargs) -> BaseImage:
-    """An image from an image object, a numpy array, a DICOM file or a
-    Varian .xim file."""
+    """An image from an image object, a numpy array, a DICOM file, a Varian
+    .xim file or an image file that Pillow reads (TIFF, PNG, JPEG)."""
     if isinstance(path, BaseImage):
         return path
     if isinstance(path, np.ndarray):
@@ -354,8 +368,10 @@ def load(path, **kwargs) -> BaseImage:
         return DicomImage(path, **kwargs)
     if _is_xim_file(path):
         return XIM(path, **kwargs)
+    if _is_image_file(path):
+        return FileImage(path, **kwargs)
     raise TypeError(
-        f"The argument `{path}` was not found to be a valid DICOM file, XIM file or array")
+        f"The argument `{path}` was not found to be a valid DICOM file, Image file, or array")
 
 
 def load_multiples(image_file_list, method: str = "mean", stretch_each: bool = True,
@@ -405,6 +421,53 @@ class ArrayImage(BaseImage):
         if self._dpi is None:
             return None
         return self._dpi if self.sid is None else self._dpi * (self.sid / 1000)
+
+
+class FileImage(BaseImage):
+    """An image from a standard image file (TIFF, PNG, JPEG) read with
+    Pillow; modes other than F, I, I;16, L and P become float32 ("F")."""
+
+    def __init__(self, path, *, dpi: float | None = None, sid: float | None = None,
+                 dtype=None):
+        from PIL import Image as pImage
+
+        super().__init__(path)
+        pil_image = pImage.open(path)
+        if pil_image.mode not in ("F", "I", "I;16", "L", "P"):
+            pil_image = pil_image.convert("F")
+        self.info = pil_image.info
+        if dtype is not None:
+            self.array = np.array(pil_image, dtype=dtype)
+        else:
+            self.array = np.array(pil_image)
+        self._dpi = dpi
+        self.sid = sid
+
+    @property
+    def dpi(self) -> float | None:
+        """The file's DPI tag ("dpi" or "resolution"; below 3 counts as
+        none), else the ``dpi`` given; scaled by SID / 1000 when ``sid`` is
+        given."""
+        dpi = None
+        for key in ("dpi", "resolution"):
+            dpi = self.info.get(key)
+            if dpi is not None:
+                dpi = float(dpi[0])
+                if dpi < 3:
+                    dpi = None
+                break
+        if dpi is None:
+            dpi = self._dpi
+        if self.sid is not None and dpi is not None:
+            dpi *= self.sid / 1000
+        return dpi
+
+    @property
+    def dpmm(self) -> float | None:
+        try:
+            return self.dpi / MM_PER_INCH
+        except TypeError:
+            return None
 
 
 class XIM(BaseImage):
@@ -663,6 +726,9 @@ class DicomImageStack:
     def __getitem__(self, item) -> DicomImage:
         return self.images[item]
 
+    def __delitem__(self, key):
+        del self.images[key]
+
     def __len__(self):
         return len(self.images)
 
@@ -703,7 +769,9 @@ class LazyDicomImageStack(DicomImageStack):
 
     @property
     def metadatas(self) -> list[dcm.Dataset]:
-        return self._metas
+        """Each slice's metadata, as a new list: deleting from it changes
+        nothing, as on the eager stack."""
+        return list(self._metas)
 
     @property
     def images(self) -> list[DicomImage]:
@@ -717,6 +785,11 @@ class LazyDicomImageStack(DicomImageStack):
 
     def __getitem__(self, item) -> DicomImage:
         return DicomImage(self._paths[item], dtype=self._dtype, raw_pixels=self._raw_pixels)
+
+    def __delitem__(self, key):
+        """Drop a slice: its path and its metadata."""
+        del self._paths[key]
+        del self._metas[key]
 
     def __len__(self):
         return len(self._paths)
@@ -732,3 +805,54 @@ class LazyZipDicomImageStack(LazyDicomImageStack):
         obj = cls(tmp.name, dtype=dtype, **kwargs)
         obj._tmp = tmp
         return obj
+
+
+class NMImageStack:
+    """The frames of one multi-frame NM DICOM file, each an
+    :class:`ArrayImage` of float64 sharing the file's metadata."""
+
+    def __init__(self, path):
+        self.path = path
+        self.metadata = dcm.dcmread(path)
+        if self.metadata.get("Modality") != "NM":
+            raise ValueError("The file is not an NM image")
+        arr = self.metadata.pixel_array
+        if arr.ndim == 2:
+            arr = arr[None]
+        self.frames = []
+        for frame in arr:
+            img = ArrayImage(np.asarray(frame, dtype=float))
+            img.metadata = self.metadata  # shared file-level metadata
+            self.frames.append(img)
+        self.images = self.frames
+
+    def as_3d_array(self) -> np.ndarray:
+        return np.stack([f.array for f in self.frames]).astype(np.float32)
+
+    def __len__(self):
+        return len(self.frames)
+
+
+def tiff_to_dicom(tiff_file, sid: float, gantry: float, coll: float, couch: float,
+                  dpi: float | None = None) -> dcm.Dataset:
+    """An RT Image dataset of a TIFF file; raises when neither the file nor
+    ``dpi`` gives a DPI."""
+    from .array_utils import array_to_dicom
+
+    img = FileImage(tiff_file, dpi=dpi)
+    if img.dpi is None:
+        raise ValueError("TIFF file has no DPI tag; pass dpi explicitly")
+    return array_to_dicom(img.array, sid=sid, gantry=gantry, coll=coll, couch=couch,
+                          dpi=img.dpi)
+
+
+def load_raw_visionrt(path: str | Path, shape: tuple[int, int] = (600, 960)) -> ArrayImage:
+    """A raw VisionRT file: float32 little-endian."""
+    arr = np.fromfile(path, dtype="<f4").reshape(shape)
+    return ArrayImage(arr)
+
+
+def load_raw_cyberknife(path: str | Path, shape: tuple[int, int] = (512, 512)) -> ArrayImage:
+    """A raw CyberKnife image file: uint16 little-endian."""
+    arr = np.fromfile(path, dtype="<u2").reshape(shape)
+    return ArrayImage(arr)

@@ -1,11 +1,11 @@
 """Region-of-interest sampling, numpy only.
 
-Port of ``pylinac_tpu/core/roi.py``: ``disk_pixels`` ``:40``, ``DiskROI``
-``:53``, ``LowContrastDiskROI`` ``:125``, ``_polygon_pixels`` ``:257`` and
+Port of ``pylinac_tpu/core/roi.py``: ``bbox_center`` ``:32``,
+``disk_pixels`` ``:40``, ``DiskROI`` ``:53``, ``LowContrastDiskROI``
+``:125``, ``HighContrastDiskROI`` ``:239``, ``_polygon_pixels`` ``:257`` and
 ``RectangleROI`` ``:278``, without their drawing, plot colours and
 NaN-masked arrays. The statistics stay on the host, where the JAX package
-computes them too. ``HighContrastDiskROI`` and ``bbox_center`` wait for a
-caller.
+computes them too.
 """
 
 from __future__ import annotations
@@ -33,6 +33,15 @@ def ratio(arr):
 
 def rms(arr):
     return _rms(np.asarray(arr, dtype=float))
+
+
+def bbox_center(region) -> Point:
+    """The centre of a region's bounding box, ``bbox`` being (min row, min
+    col, max row, max col)."""
+    bbox = region.bbox
+    y = abs(bbox[0] - bbox[2]) / 2 + min(bbox[0], bbox[2])
+    x = abs(bbox[1] - bbox[3]) / 2 + min(bbox[1], bbox[3])
+    return Point(x, y)
 
 
 def disk_pixels(array: np.ndarray, center: Point, radius: float) -> np.ndarray:
@@ -201,6 +210,24 @@ class LowContrastDiskROI(DiskROI):
 
     def percentile(self, percentile: float) -> float:
         return float(np.percentile(self.circle_mask(), percentile))
+
+
+class HighContrastDiskROI(DiskROI):
+    """A disk ROI over a line-pair group, for the MTF: its max and min."""
+
+    @classmethod
+    def from_phantom_center(cls, array, angle, roi_radius, dist_from_center,
+                            phantom_center, contrast_threshold):
+        center = cls._get_shifted_center(angle, dist_from_center, phantom_center)
+        return cls(array=array, radius=roi_radius, center=center,
+                   contrast_threshold=contrast_threshold)
+
+    def __init__(self, array, radius, center, contrast_threshold):
+        super().__init__(array=array, radius=radius, center=center)
+        self.contrast_threshold = contrast_threshold
+
+    def __repr__(self):
+        return f"High-Contrast Disk; max pixel: {self.max}, min pixel: {self.min}"
 
 
 def _polygon_pixels(array: np.ndarray, row_coords, col_coords) -> tuple[np.ndarray, np.ndarray]:

@@ -1,15 +1,18 @@
-"""Synthetic CatPhan 504 and Quart DVT CT stacks, numpy only.
+"""Synthetic CatPhan 504, Quart DVT, TomoCheese, ACR CT and GE Helios CT
+stacks, numpy only.
 
-Port of ``generate_catphan504`` (``pylinac_tpu/imggen/ct.py:56-222``) and
-``generate_quart`` (``:238-320``) with their helpers, unchanged apart from
-the DICOM codec (the port's ``core/dcm.py``): a DICOM CT series emulating
-a CatPhan 504, a 20 cm water cylinder with the CTP404 (HU plugs, air
-bubbles, wire ramps, geometry nodes), CTP486 (uniformity), CTP528
-(line-pair gauge) and CTP515 (low-contrast bubbles) modules at their
-nominal z-offsets; and a Quart DVT, a 16 cm acrylic cylinder with its HU
-inserts, water vial and slice-thickness air wedges. The same seed gives the
-same pixels as the JAX package's generators. The Cheese, ACR and Helios
-generators wait for their analyses.
+Port of ``generate_catphan504`` (``pylinac_tpu/imggen/ct.py:56-222``),
+``generate_quart`` (``:238-320``), ``generate_tomocheese`` (``:322``),
+``generate_acr_ct`` (``:402``) and ``generate_helios`` (``:489``) with their
+helpers, unchanged apart from the DICOM codec (the port's ``core/dcm.py``):
+a DICOM CT series emulating a CatPhan 504, a 20 cm water cylinder with the
+CTP404 (HU plugs, air bubbles, wire ramps, geometry nodes), CTP486
+(uniformity), CTP528 (line-pair gauge) and CTP515 (low-contrast bubbles)
+modules at their nominal z-offsets; a Quart DVT, a 16 cm acrylic cylinder
+with its HU inserts, water vial and slice-thickness air wedges; a
+TomoCheese with its 20 plugs; an ACR CT 464 with its four modules; and a
+GE Helios with its Section 1 and uniform Section 3. The same seed gives the
+same pixels as the JAX package's generators.
 
 Two private generators, test and smoke data with no JAX counterpart (the
 JAX package generates neither), write a CatPhan 700 series
@@ -326,6 +329,269 @@ def generate_quart(
         ds.InstanceNumber = i + 1
         ds.set_pixel_data(stored)
         path = str(Path(dir_out) / f"quart_{i:03d}.dcm")
+        dcm.dcmwrite(path, ds)
+        paths.append(path)
+    return paths
+
+
+def generate_tomocheese(
+    dir_out: str | Path,
+    num_slices: int = 24,
+    slice_thickness_mm: float = 2.5,
+    mm_per_pixel: float = 0.8,
+    image_size: int = 512,
+    phantom_radius_mm: float = 150,
+    roll_deg: float = 0.0,
+    plug_hus: dict[str, float] | None = None,
+    noise_hu: float = 3.0,
+    seed: int = 7,
+) -> list[str]:
+    """Write a synthetic TomoCheese series: solid-water cylinder with the 20
+    plug layout of ``pylinac_tpu_torch.cheese.TomoCheeseModule``."""
+    from ..cheese import TomoCheeseModule
+
+    if plug_hus is None:
+        # include a strong low and high plug on the outer ring so both the
+        # origin-slice finder and the roll finder have signal
+        plug_hus = {name: 0.0 for name in TomoCheeseModule.roi_settings}
+        plug_hus.update({"1": -800, "6": 800, "8": 300, "13": -300,
+                         "2": 50, "9": -50})
+    rng = np.random.default_rng(seed)
+    os.makedirs(dir_out, exist_ok=True)
+    center = image_size / 2 - 0.5
+    r_phan_px = phantom_radius_mm / mm_per_pixel
+    series_uid = dcm.generate_uid()
+    study_uid = dcm.generate_uid()
+    frame_uid = dcm.generate_uid()
+    paths = []
+    z_positions = (np.arange(num_slices) - num_slices / 2) * slice_thickness_mm
+    roll = np.deg2rad(roll_deg)
+    yy, xx = np.mgrid[:image_size, :image_size]
+    in_phantom = (yy - center) ** 2 + (xx - center) ** 2 < r_phan_px**2
+
+    for i, z in enumerate(z_positions):
+        hu = np.full((image_size, image_size), -1000.0)
+        hu[in_phantom] = 0.0  # solid water body
+        for name, setting in TomoCheeseModule.roi_settings.items():
+            a = np.deg2rad(setting["angle"]) + roll
+            px = center + np.cos(a) * setting["distance"] / mm_per_pixel
+            py = center + np.sin(a) * setting["distance"] / mm_per_pixel
+            _disk(hu, px, py, setting["radius"] / mm_per_pixel,
+                  plug_hus[name])
+        noise = rng.standard_normal((image_size, image_size))
+        noise = _smooth(_smooth(_smooth(noise)))
+        noise *= noise_hu / max(noise.std(), 1e-9)
+        hu += noise
+        stored = np.clip(hu + 1000, 0, 65535).astype(np.uint16)
+        ds = dcm.Dataset()
+        ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+        ds.SOPInstanceUID = dcm.generate_uid()
+        ds.StudyInstanceUID = study_uid
+        ds.SeriesInstanceUID = series_uid
+        ds.FrameOfReferenceUID = frame_uid
+        ds.Modality = "CT"
+        ds.PatientName = "Cheese^Synthetic"
+        ds.PatientID = "TOMOCHEESE"
+        ds.PixelSpacing = [mm_per_pixel, mm_per_pixel]
+        ds.SliceThickness = slice_thickness_mm
+        ds.RescaleSlope = 1.0
+        ds.RescaleIntercept = -1000.0
+        ds.ImagePositionPatient = [0.0, 0.0, float(z)]
+        ds.InstanceNumber = i + 1
+        ds.set_pixel_data(stored)
+        path = str(Path(dir_out) / f"cheese_{i:03d}.dcm")
+        dcm.dcmwrite(path, ds)
+        paths.append(path)
+    return paths
+
+
+ACR_CT_PLUGS = {  # angle (deg, y-down), HU
+    "Air": (45, -1000),
+    "Poly": (225, -95),
+    "Acrylic": (135, 120),
+    "Bone": (-45, 955),
+    "Water": (180, 0),
+}
+
+
+def generate_acr_ct(
+    dir_out: str | Path,
+    num_slices: int = 32,
+    slice_thickness_mm: float = 5.0,
+    mm_per_pixel: float = 0.5,
+    image_size: int = 512,
+    phantom_radius_mm: float = 100,
+    roll_deg: float = 0.0,
+    noise_hu: float = 3.0,
+    seed: int = 21,
+) -> list[str]:
+    """Write a synthetic ACR CT-464 series: water cylinder with the four
+    modules of ``pylinac_tpu_torch.acr`` at their nominal offsets."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(dir_out, exist_ok=True)
+    center = image_size / 2 - 0.5
+    r_phan_px = phantom_radius_mm / mm_per_pixel
+    series_uid = dcm.generate_uid()
+    study_uid = dcm.generate_uid()
+    frame_uid = dcm.generate_uid()
+    paths = []
+    # modules: HU @0, LC @30, uniformity @70, spatial res @100
+    z_positions = (np.arange(num_slices) - 4) * slice_thickness_mm
+    roll = np.deg2rad(roll_deg)
+    yy, xx = np.mgrid[:image_size, :image_size]
+    in_phantom = (yy - center) ** 2 + (xx - center) ** 2 < r_phan_px**2
+
+    def polar_to_px(angle_deg, dist_mm):
+        a = np.deg2rad(angle_deg) + roll
+        return (center + np.cos(a) * dist_mm / mm_per_pixel,
+                center + np.sin(a) * dist_mm / mm_per_pixel)
+
+    for i, z in enumerate(z_positions):
+        hu = np.full((image_size, image_size), -1000.0)
+        hu[in_phantom] = 0.0
+
+        if abs(z) <= 9:  # HU module
+            for _name, (angle, value) in ACR_CT_PLUGS.items():
+                px, py = polar_to_px(angle, 63)
+                _disk(hu, px, py, 10 / mm_per_pixel, value)
+            # two air bubbles vertically aligned on the right for roll
+            for dy in (-25, 25):
+                a = roll
+                bx = center + (70 * np.cos(a) - dy * np.sin(a)) / mm_per_pixel
+                by = center + (70 * np.sin(a) + dy * np.cos(a)) / mm_per_pixel
+                _disk(hu, bx, by, 14 / mm_per_pixel, -1000)
+        if abs(z - 30) <= 9:  # low contrast: 30 HU disk + uniform bg
+            px, py = polar_to_px(-90, 60)
+            _disk(hu, px, py, 12 / mm_per_pixel, 30.0)
+        if abs(z - 100) <= 9:  # spatial resolution bar patterns
+            amplitudes = [400, 360, 310, 260, 210, 160, 110, 60]
+            settings = [(-135, 0.4), (-180, 0.5), (135, 0.6), (90, 0.7),
+                        (45, 0.8), (0, 0.9), (-45, 1.0), (-90, 1.2)]
+            for amp, (angle, _lpmm) in zip(amplitudes, settings):
+                px, py = polar_to_px(angle, 70)
+                rr_px = 8 / mm_per_pixel
+                mask = (yy - py) ** 2 + (xx - px) ** 2 <= rr_px**2
+                stripes = np.where((xx // 3) % 2 == 0, amp, -amp)
+                hu[mask] = stripes[mask] + 100
+
+        noise = rng.standard_normal((image_size, image_size))
+        noise = _smooth(_smooth(_smooth(noise)))
+        noise *= noise_hu / max(noise.std(), 1e-9)
+        hu += noise
+        stored = np.clip(hu + 1000, 0, 65535).astype(np.uint16)
+        ds = dcm.Dataset()
+        ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+        ds.SOPInstanceUID = dcm.generate_uid()
+        ds.StudyInstanceUID = study_uid
+        ds.SeriesInstanceUID = series_uid
+        ds.FrameOfReferenceUID = frame_uid
+        ds.Modality = "CT"
+        ds.PatientName = "ACR^Synthetic"
+        ds.PatientID = "ACRCT464"
+        ds.PixelSpacing = [mm_per_pixel, mm_per_pixel]
+        ds.SliceThickness = slice_thickness_mm
+        ds.RescaleSlope = 1.0
+        ds.RescaleIntercept = -1000.0
+        ds.ImagePositionPatient = [0.0, 0.0, float(z)]
+        ds.InstanceNumber = i + 1
+        ds.set_pixel_data(stored)
+        path = str(Path(dir_out) / f"acrct_{i:03d}.dcm")
+        dcm.dcmwrite(path, ds)
+        paths.append(path)
+    return paths
+
+
+def generate_helios(
+    dir_out: str | Path,
+    num_slices: int = 40,
+    slice_thickness_mm: float = 2.5,
+    mm_per_pixel: float = 0.6,
+    image_size: int = 512,
+    phantom_radius_mm: float = 107.5,
+    noise_hu: float = 3.0,
+    seed: int = 11,
+) -> list[str]:
+    """Write a synthetic GE Helios daily-QA series: water cylinder with the
+    Section-1 Plexiglass block + bar patterns at z=0 and uniform water at
+    Section 3 (+60mm)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(dir_out, exist_ok=True)
+    center = image_size / 2 - 0.5
+    r_phan_px = phantom_radius_mm / mm_per_pixel
+    series_uid = dcm.generate_uid()
+    study_uid = dcm.generate_uid()
+    frame_uid = dcm.generate_uid()
+    paths = []
+    z_positions = (np.arange(num_slices) - 8) * slice_thickness_mm
+    yy, xx = np.mgrid[:image_size, :image_size]
+    in_phantom = (yy - center) ** 2 + (xx - center) ** 2 < r_phan_px**2
+
+    def polar_to_px(angle_deg, dist_mm):
+        a = np.deg2rad(angle_deg)
+        return (center + np.cos(a) * dist_mm / mm_per_pixel,
+                center + np.sin(a) * dist_mm / mm_per_pixel)
+
+    # physical bar blocks: one material (+400 HU) against water, bar width =
+    # the nominal size; the measured michelson MTF then declines with spatial
+    # frequency through the reconstruction blur below, exactly like the real
+    # phantom (bipolar ±amp bars would put max+min ≈ 0 and make the
+    # michelson denominator noise — the MTF ordering was random).
+    bar_settings = [(-53, 42, 8, 1.6), (-62, 21, 7, 1.3),
+                    (-120, 5, 6, 1.0), (146, 16, 5, 0.8)]
+    bar_hu = 400.0
+    for i, z in enumerate(z_positions):
+        hu = np.full((image_size, image_size), -1000.0)
+        hu[in_phantom] = 0.0  # water
+
+        if abs(z) <= 6:  # Section 1
+            # Plexiglass block at -135deg 35mm
+            px, py = polar_to_px(-135, 35)
+            half = 8 / mm_per_pixel
+            hu[int(py - half):int(py + half), int(px - half):int(px + half)] = 120
+            # anti-aliased bar coverage (2x subpixel supersampling along the
+            # stripe axis; periods are 2.7-5.3 px at 0.6 mm/px)
+            for angle, dist, size, bar in bar_settings:
+                px, py = polar_to_px(angle, dist)
+                # block 1.5x the sampling ROI so the ROI reads pure bar
+                # pattern — if the block boundary (bar-to-water ramp) falls
+                # inside the ROI, roi.min pins near 0 and the michelson MTF
+                # floor never decays no matter the blur
+                half = size * 1.5 / 2 / mm_per_pixel
+                region = (slice(int(py - half), int(py + half)),
+                          slice(int(px - half), int(px + half)))
+                period_px = 2 * bar / mm_per_pixel
+                cov = np.zeros_like(xx, dtype=float)
+                for ox in (-0.25, 0.25):
+                    cov += 0.5 * (np.sin(2 * np.pi * (xx + ox) / period_px) > 0)
+                hu[region] = bar_hu * cov[region]
+            # finite scanner resolution: two binomial passes attenuate the
+            # 0.8 mm bars (f=0.375 cyc/px) ~20x more than the 1.6 mm bars —
+            # a declining, monotonic MTF whose 10% point falls inside the
+            # 0.31-0.63 lp/mm bar range, so relative_resolution(10..90)
+            # interpolates instead of warning about extrapolation
+            hu = _smooth(_smooth(hu))
+        noise = rng.standard_normal((image_size, image_size))
+        noise = _smooth(_smooth(_smooth(noise)))
+        noise *= noise_hu / max(noise.std(), 1e-9)
+        hu += noise
+        stored = np.clip(hu + 1000, 0, 65535).astype(np.uint16)
+        ds = dcm.Dataset()
+        ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"
+        ds.SOPInstanceUID = dcm.generate_uid()
+        ds.StudyInstanceUID = study_uid
+        ds.SeriesInstanceUID = series_uid
+        ds.FrameOfReferenceUID = frame_uid
+        ds.Modality = "CT"
+        ds.PatientName = "Helios^Synthetic"
+        ds.PatientID = "HELIOS"
+        ds.PixelSpacing = [mm_per_pixel, mm_per_pixel]
+        ds.SliceThickness = slice_thickness_mm
+        ds.RescaleSlope = 1.0
+        ds.RescaleIntercept = -1000.0
+        ds.ImagePositionPatient = [0.0, 0.0, float(z)]
+        ds.InstanceNumber = i + 1
+        ds.set_pixel_data(stored)
+        path = str(Path(dir_out) / f"helios_{i:03d}.dcm")
         dcm.dcmwrite(path, ds)
         paths.append(path)
     return paths

@@ -7,8 +7,9 @@ and ``_solve_tridiagonal`` (``:183``), ``spline_filter1d`` (``:32``, the
 cubic B-spline prefilter), ``_cubic_bspline_weights`` (``:98``),
 ``map_coordinates1d_cubic`` (``:125``),
 ``zoom1d`` (``:139``, mode "nearest", the one ``as_resampled`` takes) and
-``map_coordinates`` (``:173``, order 1 and mode "constant", what
-``BaseImage.rotate`` takes of ``jax.scipy.ndimage.map_coordinates``). The profiles are a few hundred to a
+``map_coordinates`` (``:173``, order 1 in mode "constant", what
+``BaseImage.rotate`` takes of ``jax.scipy.ndimage.map_coordinates``, and
+in mode "mirror", what ACR MRI's diagonal profiles take). The profiles are a few hundred to a
 few thousand points on the host. The Thomas algorithm and the prefilter's
 recursions are sequential scans, as the JAX functions' ``lax.scan``: here
 Python loops over float32 scalars, each step rounded to float32.
@@ -167,23 +168,44 @@ def zoom1d(values: np.ndarray, zoom_factor: float, order: int = 3) -> np.ndarray
     raise ValueError(f"Unsupported spline order {order}")
 
 
-def map_coordinates(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def _mirror_index(index: torch.Tensor, size: int) -> torch.Tensor:
+    """jax's index fixer of mode "mirror" (``d c b | a b c d | c b a``): a
+    triangular wave of half-period ``size - 1``, so indices more than one
+    period out fold back too."""
+    s = size - 1
+    return torch.remainder(index + s, 2 * s).sub_(s).abs_()
+
+
+def map_coordinates(image: torch.Tensor, coords: torch.Tensor,
+                    mode: str = "constant") -> torch.Tensor:
     """Bilinear samples of a float ``image`` at ``coords`` (one row of
-    coordinates per dim), 0 outside, as ``jax.scipy.ndimage.map_coordinates``
-    with order 1 and mode "constant": each corner's weight product times its
-    pixel, the corners summed in order."""
+    coordinates per dim), as ``jax.scipy.ndimage.map_coordinates`` with
+    order 1 and mode "constant" (0 outside) or "mirror" (indices reflected
+    about the edge pixels): each corner's weight product times its pixel,
+    the corners summed in order, the later ones as fused multiply-adds."""
+    if mode not in ("constant", "mirror"):
+        raise NotImplementedError(f"map_coordinates takes mode constant or mirror, got {mode}")
     nodes = []
     for coordinate, size in zip(coords, image.shape):
         lower = torch.floor(coordinate)
         upper_weight = coordinate - lower
         idx = lower.to(torch.int64)
+        if mode == "mirror":
+            nodes.append([(_mirror_index(i, size), torch.ones_like(i, dtype=torch.bool), w)
+                          for i, w in ((idx, 1 - upper_weight), (idx + 1, upper_weight))])
+            continue
         nodes.append([(i.clamp(0, size - 1), (i >= 0) & (i < size), w)
                       for i, w in ((idx, 1 - upper_weight), (idx + 1, upper_weight))])
     out = None
     for corner in itertools.product(*nodes):
         value = image[tuple(i for i, _, _ in corner)]
         valid = functools.reduce(operator.and_, (v for _, v, _ in corner))
-        term = (functools.reduce(operator.mul, (w for _, _, w in corner))
-                * torch.where(valid, value, torch.zeros((), dtype=image.dtype)))
-        out = term if out is None else out + term
+        weight = functools.reduce(operator.mul, (w for _, _, w in corner))
+        value = torch.where(valid, value, torch.zeros((), dtype=image.dtype))
+        if out is None:
+            out = weight * value
+        else:
+            # XLA's CPU fusion adds each later corner as one fused
+            # multiply-add; float64 holds the float32 product exactly
+            out = (weight.double() * value.double() + out.double()).to(out.dtype)
     return out

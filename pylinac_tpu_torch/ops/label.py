@@ -2,8 +2,8 @@
 
 Port of ``pylinac_tpu/ops/label.py``: ``Regions`` ``:156``,
 ``_perimeter_image`` ``:200``, ``fill_holes`` ``:224``, ``regionprops``
-``:258``, ``_props_from_label`` ``:326``, ``clear_border`` ``:559`` and
-``regionprops_batch`` ``:628``. Labels and hole roots come from the CCL
+``:258``, ``_props_from_label`` ``:326``, ``clear_border`` ``:559``,
+``regionprops_batch`` ``:628`` and ``keep_largest`` ``:664``. Labels and hole roots come from the CCL
 kernel (:mod:`pylinac_tpu_torch.ops.ccl`), the border flood of
 :func:`fill_holes` from the flood kernel (:mod:`pylinac_tpu_torch.ops.flood`);
 everything else here is plain PyTorch on the tensors' device.
@@ -32,7 +32,8 @@ device gives the same bits.
 
 Not ported: ``pack_regions`` and ``regions_to_host`` (``:694-725``), which
 worked around the TPU link; :meth:`Regions.to_numpy` takes their place.
-``label`` and ``keep_largest`` wait for the slices that use them.
+``label`` has no caller of its own: :func:`keep_largest` labels through
+the batch entry.
 """
 
 from __future__ import annotations
@@ -358,3 +359,27 @@ def regionprops(mask: torch.Tensor, intensity: torch.Tensor | None = None,
                                 K=K, connectivity=connectivity, hull=hull,
                                 minmax=minmax, moments=moments)
     return Regions(*[f[0] for f in regions])
+
+
+def keep_largest(mask: torch.Tensor, K: int = 64, min_area: int = 1,
+                 connectivity: int = 1) -> torch.Tensor:
+    """Keep only the K largest connected components of one (H, W) mask, by
+    pixel count; ties with the K-th largest count keep every tied region,
+    as JAX's ``counts >= max(kth, min_area)`` does.
+
+    One label through :func:`ccl.label_batch` at B = 1 (``csrc/ccl.cu`` on
+    the card), then float32 counts per root. JAX caps its XLA label at
+    ``max_iter`` = 64 rounds; the kernel and its twin reach the fixpoint,
+    which that label reaches too on the masks of the paths."""
+    h, w = mask.shape
+    mask = mask.to(torch.bool).contiguous()
+    lab = label_batch(mask[None], connectivity)[0]
+    flat = lab.reshape(-1).to(torch.int64)
+    idx = torch.where(flat >= 0, flat, h * w)
+    counts = torch.zeros(h * w + 1, dtype=torch.float32, device=mask.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    counts[h * w] = 0.0
+    # the K-th largest count is the cut; ties may keep a few extra regions
+    kth = torch.sort(counts).values[-min(K, h * w)]
+    keep = (counts >= torch.clamp(kth, min=float(min_area))) & (counts > 0)
+    return mask & keep[idx].reshape(h, w)

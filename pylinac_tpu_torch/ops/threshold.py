@@ -1,13 +1,16 @@
-"""Otsu's threshold, batched.
+"""Otsu's threshold, batched, and Li's and Yen's thresholds on the host.
 
 Port of ``otsu_threshold`` (``pylinac_tpu/ops/threshold.py:13-67``) with
 its host branch: the histogram is a ``scatter_add_`` of float32 weights,
 where the JAX TPU branch used a one-hot matmul. Weights are 0 or 1, so the
-counts are exact in any order of adds.
+counts are exact in any order of adds. ``threshold_li`` (``:75``) and
+``threshold_yen`` (``:104``) are host numpy in both packages, copied as
+they are.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -54,3 +57,45 @@ def otsu_threshold(image: torch.Tensor, nbins: int = 256,
     :func:`otsu_threshold_batch`)."""
     return otsu_threshold_batch(image[None], nbins,
                                 None if mask is None else mask[None])[0]
+
+
+def threshold_li(image, tolerance: float | None = None) -> float:
+    """Li's iterative minimum cross-entropy threshold
+    (skimage.filters.threshold_li semantics), on the host."""
+    arr = np.asarray(image, dtype=float).ravel()
+    arr = arr[np.isfinite(arr)]
+    offset = arr.min()
+    arr = arr - offset  # means must be positive for the log
+    eps = arr[arr > 0].min() / 2 if np.any(arr > 0) else 1e-6
+    arr = arr + eps
+    tolerance = tolerance or np.ptp(arr) / 2 ** 10
+    t_next = arr.mean()
+    t_curr = -2 * tolerance
+    while abs(t_next - t_curr) > tolerance:
+        t_curr = t_next
+        fore = arr > t_curr
+        if not np.any(fore) or np.all(fore):
+            break
+        mean_fore = arr[fore].mean()
+        mean_back = arr[~fore].mean()
+        t_next = ((mean_back - mean_fore)
+                  / (np.log(mean_back) - np.log(mean_fore)))
+    return float(t_next - eps + offset)
+
+
+def threshold_yen(image, nbins: int = 256) -> float:
+    """Yen's maximum-correlation threshold (skimage.filters.threshold_yen
+    semantics), on the host."""
+    arr = np.asarray(image, dtype=float).ravel()
+    arr = arr[np.isfinite(arr)]
+    counts, bin_edges = np.histogram(arr, bins=nbins)
+    bin_centers = (bin_edges[:-1] + bin_edges[1:]) / 2
+    pmf = counts.astype(float) / max(counts.sum(), 1)
+    p1 = np.cumsum(pmf)
+    p1_sq = np.cumsum(pmf**2)
+    p2_sq = np.cumsum(pmf[::-1] ** 2)[::-1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        crit = np.log(((p1_sq[:-1] * p2_sq[1:]) ** -1)
+                      * (p1[:-1] * (1.0 - p1[:-1])) ** 2)
+    crit = np.where(np.isfinite(crit), crit, -np.inf)
+    return float(bin_centers[:-1][np.argmax(crit)])

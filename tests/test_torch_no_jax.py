@@ -162,7 +162,40 @@ CHILD = textwrap.dedent("""
     quart = QuartDVT(quart_dir)
     quart.analyze(device="cpu")
     quart_data = quart.results_data()
+    import warnings
+    from PIL import Image
+    from pylinac_tpu_torch import ACRCT, ACRMRILarge, GEHeliosCTDaily, TomoCheese
+    from pylinac_tpu_torch.imggen.ct import generate_acr_ct, generate_helios, generate_tomocheese
+    from pylinac_tpu_torch.imggen.mri import generate_acr_mri
+    small = {}
+    for name, gen, cls, kw in (
+            ("acr_ct", generate_acr_ct, ACRCT,
+             {"num_slices": 28, "image_size": 256, "mm_per_pixel": 1.0}),
+            ("acr_mri", generate_acr_mri, ACRMRILarge, {"image_size": 256, "mm_per_pixel": 1.0}),
+            ("tomo", generate_tomocheese, TomoCheese,
+             {"num_slices": 12, "image_size": 256, "mm_per_pixel": 1.6}),
+            ("helios", generate_helios, GEHeliosCTDaily,
+             {"num_slices": 24, "slice_thickness_mm": 5, "image_size": 256,
+              "mm_per_pixel": 1.0})):
+        series = tempfile.mkdtemp()
+        gen(series, **kw)
+        obj = cls(series)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            obj.analyze(device="cpu")
+            small[name] = obj.results_data(as_dict=True)
+    png = tempfile.mkdtemp() + "/img.png"
+    Image.fromarray(np.arange(48, dtype=np.uint8).reshape(6, 8)).save(png, dpi=(100, 100))
+    png_img = timage.load(png)
     print(json.dumps({
+        "acr_ct": [small["acr_ct"]["phantom_model"], small["acr_ct"]["ct_module"]["rois"]["Air"]],
+        "acr_mri": [small["acr_mri"]["num_images"],
+                    len(small["acr_mri"]["sagittal_localizer_module"]["profiles"]),
+                    small["acr_mri"]["geometric_distortion_module"]["profiles"]["horizontal"][
+                        "width (mm)"]],
+        "tomo": [small["tomo"]["num_images"], small["tomo"]["rois"]["6"]["median"]],
+        "helios": [small["helios"]["phantom_model"], small["helios"]["origin_slice"]],
+        "png": [type(png_img).__name__, int(png_img.array.sum()), round(png_img.dpi, 3)],
         "xim": [type(xim).__name__, bool((xim.array == xim_arr).all()), round(xim.dpmm, 6)],
         "vmat": [drgs.results_data().passed, len(drgs.segments), drcs.results_data().passed,
                  sorted(drcs.results_data().collimator_data)],
@@ -229,3 +262,8 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["vmat"] == [True, 7, True, ["A", "B", "C", "D", "E", "F"]]
     assert out["dlg"][0] > 10 and abs(out["dlg"][1]) < 0.15
     assert out["quart"][:2] == ["Quart DVT", 40] and abs(out["quart"][2] - 160) < 2
+    assert out["acr_ct"][0] == "ACR CT 464" and abs(out["acr_ct"][1] + 1000) < 15
+    assert out["acr_mri"][:2] == [11, 4] and abs(out["acr_mri"][2] - 200) < 4
+    assert out["tomo"][0] == 12 and abs(out["tomo"][1] - 800) < 15
+    assert out["helios"] == ["GE Helios CT Daily", 8]
+    assert out["png"] == ["FileImage", sum(range(48)), 100.0]
