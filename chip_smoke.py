@@ -128,6 +128,22 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   card against CPU, warm runs equal, a profile of a warm ACR MRI run, and
   the kernels timed at every new shape with their bounds. Its flood
   launches join the single-image flood entry of the kernels line;
+- planar imaging: a QC-3 drawn on an AS1200 frame (1280x1280, full
+  detection: Canny, the 96 largest edge components, their regions), an
+  FC-2 light/rad frame on AS1200 (150 mm field, the 15 x 15 BB set, every
+  BB near the edge so each goes through the high-pass and a second 3x3
+  median), the 13 long-tail phantoms and the 4 FC-2 variants on AS1000
+  frames by the JAX tests' recipes, and the ACR mammography phantom drawn
+  at 0.07 mm on a 2560x3328 frame, each through ``analyze`` on the card
+  with the median's and the CCL kernel's launches counted and every input
+  held bit-equal to the twins (Canny's hysteresis, ``keep_largest``,
+  ``regionprops``, the BB windows, the fibres); the drawings' bars, card
+  against CPU (mm 0.01, % 0.1, contrast, CNR and rMTF 0.1 %, px 1e-3; the
+  mammography phantom at its 1024x768 test size), warm runs equal, a
+  profile of a warm QC-3, the kernels timed at the new shapes; then
+  ``FieldProfileAnalysis`` of an AS1200 open field under each edge (host
+  code) against the drawn 150 mm. Its median launches join the median's
+  entry of the kernels line;
 - multi-target Winston-Lutz: writes the SNC MultiMet session (6 BBs in 6
   fields of 20 mm, 8 AS1200 frames: gantry 0, 45, 135, 180, 225, 315 and
   gantry 0 at couch 45 and 315) and a copy with every BB 1 mm left, runs
@@ -3722,6 +3738,438 @@ def ct_siblings_phase(card: str, ccl, flood) -> tuple[int, float, list[dict]]:
     return totals["flood"], worst.get("flood", 0.0), lines
 
 
+# the planar phantoms (planar_imaging.py) and the profile-plugin field
+# analysis: the phase's inputs at clinical detector sizes
+PLANAR_FC2_EDGE_MM = 15   # every BB of the 150 mm field within 15 mm of its edge
+MAMMO_DPMM = 1 / 0.07     # a Selenia-class 18 x 24 cm detector at 70 um
+MAMMO_SHAPE = (3328, 2560)
+# a speck's visibility grows with its radius in pixels: the recipe's 400 at
+# 5 px/mm, scaled to the frame's 14.3 (noise-only groups reach 809 there,
+# the drawn specks 1583)
+MAMMO_SPECK_VISIBILITY = 400 * MAMMO_DPMM / 5
+LONGTAIL_BG, LONGTAIL_SCALE, LONGTAIL_NOISE = 0.45, 40000, 0.002
+
+
+def _disk(arr, cy, cx, radius, value) -> None:
+    """``arr[(yy - cy)**2 + (xx - cx)**2 <= radius**2] = value`` over the
+    disk's bounding window only (the same pixels as over the frame)."""
+    h, w = arr.shape
+    r0, r1 = max(int(np.floor(cy - radius)) - 1, 0), min(int(np.ceil(cy + radius)) + 2, h)
+    c0, c1 = max(int(np.floor(cx - radius)) - 1, 0), min(int(np.ceil(cx + radius)) + 2, w)
+    if r0 >= r1 or c0 >= c1:
+        return
+    yy, xx = np.mgrid[r0:r1, c0:c1]
+    window = arr[r0:r1, c0:c1]
+    window[(yy - cy) ** 2 + (xx - cx) ** 2 <= radius ** 2] = value
+
+
+def draw_qc3(path: str, sim) -> str:
+    """The QC-3 of ``tests/models/test_planar_imaging.py:27`` on ``sim``'s
+    frame: a rectangle rotated 45 degrees whose bbox is the class's 168 mm,
+    contrast disks and high-contrast stripes at the class's ROI places."""
+    from pylinac_tpu_torch import StandardImagingQC3
+    from pylinac_tpu_torch.imggen.layers import ArrayLayer
+
+    h, w = sim.shape
+    dpmm = 1 / sim.pixel_size
+    arr = np.zeros((h, w), np.float64)
+    cy, cx = h / 2, w / 2
+    side = 168 * dpmm
+    b = side * np.sqrt(2) / 2.25
+    a = 1.25 * b
+    theta = np.deg2rad(45)
+    yy, xx = np.mgrid[:h, :w]
+    u = (xx - cx) * np.cos(theta) + (yy - cy) * np.sin(theta)
+    v = -(xx - cx) * np.sin(theta) + (yy - cy) * np.cos(theta)
+    arr[(np.abs(u) <= a / 2) & (np.abs(v) <= b / 2)] = 500.0
+    radius = side * 0.0896
+    for stng in StandardImagingQC3.low_contrast_roi_settings.values():
+        ang = np.deg2rad(45 + stng["angle"])
+        dist = radius * stng["distance from center"]
+        _disk(arr, cy + np.sin(ang) * dist, cx + np.cos(ang) * dist,
+              radius * stng["roi radius"], 560.0)
+    for amp, stng in zip([200, 150, 100, 60, 30],
+                         StandardImagingQC3.high_contrast_roi_settings.values()):
+        ang = np.deg2rad(45 + stng["angle"])
+        dist = radius * stng["distance from center"]
+        mask = ((yy - (cy + np.sin(ang) * dist)) ** 2 + (xx - (cx + np.cos(ang) * dist)) ** 2
+                <= (radius * stng["roi radius"]) ** 2)
+        arr[mask] = np.where((xx // 3) % 2 == 0, 500 + amp, 500 - amp)[mask]
+    arr += np.random.default_rng(42).normal(0, 2, arr.shape)
+    sim.add_layer(ArrayLayer((arr.clip(0) * 40).astype(np.uint16)))
+    sim.generate_dicom(path)
+    return path
+
+
+def longtail_specs():
+    """``tests/models/test_planar_longtail.py``'s 13 phantoms: (class,
+    angle, disk sign, outline, methods patched out, extra blocks)."""
+    import pylinac_tpu_torch as p
+
+    return [(p.LasVegas, 0, 1, "rect", ("_preprocess",), ()),
+            (p.ElektaLasVegas, 0, 1, "rect", ("_preprocess",), ()),
+            (p.PTWEPIDQC, 0, -1, "rect", (), ()),
+            (p.IBAPrimusA, 0, 1, "rect", (), ("plate",)),
+            (p.StandardImagingQC3, 45, 1, "rect", (), ()),
+            (p.StandardImagingQCkV, 45, 1, "rect", (), ()),
+            (p.SNCkV, 135, 1, "rect", (), ()),
+            (p.SNCMV, 45, 1, "rect", (), ()),
+            (p.SNCMV12510, 45, 1, "rect", (), ()),
+            (p.LeedsTOR, 0, 1, "circle", ("_preprocess", "_check_inversion"), ("leeds_block",)),
+            (p.LeedsTORBlue, 0, 1, "circle", ("_preprocess", "_check_inversion"),
+             ("leeds_block",)),
+            (p.DoselabMC2kV, 0, 1, "rect", (), ()),
+            (p.DoselabMC2MV, 0, 1, "rect", (), ())]
+
+
+def draw_longtail(spec, path: str) -> float:
+    """One phantom of ``tests/models/test_planar_longtail.py:95`` on an
+    AS1000 frame (its own ROI tables drawn at its bbox size); returns the
+    ROI radius R the analysis overrides."""
+    from types import SimpleNamespace
+
+    from pylinac_tpu_torch.imggen.layers import ArrayLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1000Image
+
+    cls, angle, sign, shape, _, extra = spec
+    sim = AS1000Image(sid=1000)
+    h, w = sim.shape
+    dpmm = 1 / sim.pixel_size
+    cy, cx = h / 2, w / 2
+    bg = LONGTAIL_BG
+    arr = np.zeros((h, w), np.float64)
+    side = np.sqrt(cls.phantom_bbox_size_mm2) * dpmm
+    if shape == "circle":
+        _disk(arr, cy, cx, side / 2, bg)
+    else:
+        arr[int(cy - side / 2):int(cy + side / 2), int(cx - side / 2):int(cx + side / 2)] = bg
+    stub = SimpleNamespace(phantom_ski_region=SimpleNamespace(bbox_area=side * side))
+    settings = (list(cls.low_contrast_roi_settings.values())
+                + list(cls.low_contrast_background_roi_settings.values())
+                + list(cls.high_contrast_roi_settings.values()))
+    ext = max(s["distance from center"] + s["roi radius"] for s in settings)
+    R = min(cls._phantom_radius_calc(stub), 0.92 * (min(h, w) / 2) / ext)
+    if "plate" in extra:
+        _disk(arr, cy, cx, (ext + 0.3) * R, bg)
+        arr[int(cy - side / 2):int(cy + side / 2), int(cx - side / 2):int(cx + side / 2)] = bg + 0.08
+    if "leeds_block" in extra:
+        bh = np.sqrt(0.23) * side / 2
+        arr[int(cy - bh):int(cy + bh), int(cx - bh):int(cx + bh)] = bg + 0.08
+    n = len(cls.low_contrast_roi_settings)
+    for i, stng in enumerate(cls.low_contrast_roi_settings.values()):
+        ang = np.deg2rad(angle + stng["angle"])
+        d = R * stng["distance from center"]
+        _disk(arr, cy + np.sin(ang) * d, cx + np.cos(ang) * d, R * stng["roi radius"] + 2,
+              bg + sign * (0.05 + 0.25 * (i + 1) / n) * bg)
+    n_hc = len(cls.high_contrast_roi_settings)
+    base = bg + 0.08 if "leeds_block" in extra else bg
+    yy, xx = np.mgrid[:h, :w]
+    for i, stng in enumerate(cls.high_contrast_roi_settings.values()):
+        amp = 0.25 * bg * (1 - 0.8 * i / max(n_hc - 1, 1))
+        ang = np.deg2rad(angle + stng["angle"])
+        d, rr = R * stng["distance from center"], R * stng["roi radius"]
+        mask = ((yy - (cy + np.sin(ang) * d)) ** 2 + (xx - (cx + np.cos(ang) * d)) ** 2
+                <= (rr + 2) ** 2)
+        half_period = int(np.clip(rr / 2, 1, 4))
+        arr[mask] = np.where((xx // half_period) % 2 == 0, base + amp, base - amp)[mask]
+    arr += np.random.default_rng(7).normal(0, LONGTAIL_NOISE, arr.shape)
+    sim.add_layer(ArrayLayer((arr.clip(0) * LONGTAIL_SCALE).astype(np.uint16)))
+    sim.generate_dicom(path)
+    return R
+
+
+def draw_mammo(path: str, dpmm: float, shape: tuple[int, int]) -> str:
+    """``tests/models/test_acr_mammo.py:13``'s phantom at ``dpmm`` on a
+    ``shape`` frame: a bright 70 x 130 mm block, 4 strong masses of 6, 3
+    groups of bright specks of 6, 4 long fibres (10 mm) and 2 short ones
+    (3 mm); every size in mm, as the recipe's."""
+    from pylinac_tpu_torch import ACRDigitalMammography as ACR
+    from pylinac_tpu_torch.core import dcm
+    from pylinac_tpu_torch.core.array_utils import array_to_dicom
+
+    rng = np.random.default_rng(3)
+    h, w = shape
+    cy, cx = h / 2, w / 2
+    arr = np.full((h, w), 100.0)
+    arr[int(cy - 65 * dpmm):int(cy + 65 * dpmm), int(cx - 35 * dpmm):int(cx + 35 * dpmm)] = 500.0
+    for idx, stng in enumerate(ACR.low_contrast_roi_settings.values()):
+        a = np.deg2rad(stng["angle"])
+        _disk(arr, cy + np.sin(a) * stng["distance from center"] * dpmm,
+              cx + np.cos(a) * stng["distance from center"] * dpmm,
+              stng["roi radius"] * dpmm * 1.8, 500 + (400 if idx < 4 else 0))
+    for g_idx, grp in enumerate(ACR.speck_group_roi_settings.values()):
+        if g_idx >= 3:
+            continue
+        gx, gy = cx + grp["x offset"] * dpmm, cy + grp["y offset"] * dpmm
+        for stng in ACR.speck_roi_settings.values():
+            a = np.deg2rad(stng["angle"])
+            _disk(arr, gy + np.sin(a) * stng["distance from center"] * dpmm,
+                  gx + np.cos(a) * stng["distance from center"] * dpmm, 0.4 * dpmm, 30000)
+    for f_idx, stng in enumerate(ACR.fibers_roi_settings.values()):
+        fx, fy = cx + stng["x offset"] * dpmm, cy + stng["y offset"] * dpmm
+        length = 10 if f_idx < 4 else 3
+        a = np.deg2rad(stng["fiber_orientation"])
+        ts = np.linspace(-length / 2 * dpmm, length / 2 * dpmm, 200)
+        width = max(stng["fiber_diameter"] * dpmm / 2, 1.0)
+        for t in ts:
+            _disk(arr, fy + t * np.cos(a), fx + t * np.sin(a), width, 1200)
+    arr += rng.normal(0, 1.0, arr.shape)
+    ds = array_to_dicom(arr.clip(0).astype(np.uint16), sid=1000, gantry=0, coll=0, couch=0,
+                        dpi=25.4 * dpmm)
+    dcm.dcmwrite(path, ds)
+    return path
+
+
+def planar_tol(path: str, a: float) -> float:
+    """The planar bars, card against CPU: mm 0.01, % 0.1, contrast, CNR and
+    rMTF 0.1 % of the value, px (and degrees) 1e-3."""
+    key = path.rsplit("/", 1)[-1]
+    if "mm" in key:
+        return MM_TOL
+    if "percent" in key or "%" in key:
+        return PCT_TOL
+    if "contrast" in key or "cnr" in key or path.startswith("/mtf"):
+        return 1e-3 * abs(a)
+    return PX_TOL
+
+
+def check_planar_results(name: str, obj, data: dict, what: str) -> None:
+    """Each input against its drawing, at the JAX tests' bars."""
+    bad = {}
+    if name == "StandardImagingQC3":
+        h, w = obj.image.shape
+        if not (abs(obj.phantom_angle - 45) < 0.1 and abs(obj.phantom_center.x - w / 2) < 5
+                and abs(obj.phantom_center.y - h / 2) < 5):
+            bad["angle, centre"] = (obj.phantom_angle, obj.phantom_center)
+        mtfs = list(obj.mtf.norm_mtfs.values())
+        if not (data["num_contrast_rois_seen"] == 5 and data["median_contrast"] > 0.01
+                and abs(mtfs[0] - 1) < 1e-9 and mtfs[-1] < mtfs[0]):
+            bad["seen, contrast, MTF"] = (data["num_contrast_rois_seen"],
+                                          data["median_contrast"], mtfs)
+    elif "field_size_x_mm" in data:
+        size = 150 if name == "StandardImagingFC2" else 100
+        if not (abs(data["field_size_x_mm"] - size) < 1.5
+                and abs(data["field_size_y_mm"] - size) < 1.5
+                and abs(data["field_epid_offset_x_mm"]) < 0.5
+                and abs(data["field_epid_offset_y_mm"]) < 0.5
+                and abs(data["field_bb_offset_x_mm"]) < 1.0
+                and abs(data["field_bb_offset_y_mm"]) < 1.0):
+            bad["field, offsets"] = {k: v for k, v in data.items() if k.endswith("_mm")}
+    elif name == "ACRDigitalMammography":
+        lengths = [r["fiber_length"] for r in data["fiber_rois"][:4]]
+        if not (data["mass_score"] == 4 and data["speck_group_score"] == 3
+                and data["fiber_score"] == 4 and all(abs(x - 12) < 4 for x in lengths)):
+            bad["masses, specks, fibres"] = (data["mass_score"], data["speck_group_score"],
+                                             data["fiber_score"], lengths)
+    elif data.get("analysis_type") != obj.common_name:
+        bad["analysis type"] = data.get("analysis_type")
+    if bad:
+        raise RuntimeError(f"{what}: off the drawn phantom: {bad}")
+
+
+def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
+    """The planar phantoms on the card: a QC-3 on an AS1200 frame (full
+    detection), an FC-2 on AS1200 (150 mm field, the 15 x 15 BB set, every
+    BB through the high-pass), the 13 long-tail classes and the 4 FC-2
+    variants on AS1000 frames by the JAX tests' recipes, and the ACR
+    mammography phantom on a 2560 x 3328 detector at 0.07 mm; the 3x3
+    median's and the CCL kernel's launches counted with every input held
+    bit-equal to the twins (Canny's hysteresis, ``keep_largest``,
+    ``regionprops``, the BB windows, the fibres), the drawings, card against
+    CPU (the mammography phantom on the CPU at its test size, 1024 x 768 at
+    0.2 mm: the plain twins take minutes at 8.5 M pixels), warm runs equal
+    (QC-3 1 + 5, FC-2 and mammography 1 + 3), a profile of a warm QC-3, the kernels timed at the new shapes; then
+    ``FieldProfileAnalysis`` of an AS1200 open field under each edge (host
+    code) against the drawn width. Returns the median's launches and
+    largest error, and the CCL lines."""
+    import pylinac_tpu_torch as p
+    from pylinac_tpu_torch.imggen.layers import FilteredFieldLayer, GaussianFilterLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1000Image, AS1200Image
+    from pylinac_tpu_torch.imggen.utils import generate_lightrad
+    from pylinac_tpu_torch.ops import edges as tedges
+    from pylinac_tpu_torch.ops import filters as tfilters
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_planar_")
+    try:
+        t0 = time.perf_counter()
+        paths = {"qc3": draw_qc3(os.path.join(tmp, "qc3.dcm"), AS1200Image(sid=1000)),
+                 "fc2": os.path.join(tmp, "fc2.dcm"),
+                 "mammo": draw_mammo(os.path.join(tmp, "mammo.dcm"), MAMMO_DPMM, MAMMO_SHAPE),
+                 "mammo_small": draw_mammo(os.path.join(tmp, "mammo_small.dcm"), 5.0, (1024, 768))}
+        generate_lightrad(AS1200Image(sid=1000), file_out=paths["fc2"], field_size_mm=(150, 150),
+                          bb_size_mm=4, bb_positions=((-65, -65), (-65, 65), (65, -65), (65, 65)),
+                          final_layers=[GaussianFilterLayer(sigma_mm=1)])
+        fc2_variants = [("IMTLRad", ((0, 0),), 3),
+                        ("DoselabRLf", ((-45, -17), (17, -45), (-17, 45), (45, 17)), 4),
+                        ("IsoAlign", ((0, 0), (-25, 0), (25, 0), (0, -25), (0, 25)), 4),
+                        ("SNCFSQA", ((-40, 40),), 4)]
+        for name, bbs, size in fc2_variants:
+            paths[name] = os.path.join(tmp, f"{name}.dcm")
+            generate_lightrad(AS1000Image(sid=1000), file_out=paths[name],
+                              field_size_mm=(100, 100), bb_size_mm=size, bb_positions=bbs,
+                              final_layers=[GaussianFilterLayer(sigma_mm=1)])
+        overrides = {}
+        for spec in longtail_specs():
+            key = f"lt_{spec[0].__name__}"
+            paths[key] = os.path.join(tmp, f"{key}.dcm")
+            overrides[key] = draw_longtail(spec, paths[key])
+        fpa_path = os.path.join(tmp, "open.dcm")
+        sim = AS1200Image(sid=1000)
+        sim.add_layer(FilteredFieldLayer(field_size_mm=(150, 150)))
+        sim.add_layer(GaussianFilterLayer(sigma_mm=1))
+        sim.generate_dicom(fpa_path)
+        print(f"inputs: QC-3 and FC-2 on AS1200 (1280 x 1280), 13 long-tail phantoms and 4 FC-2 "
+              f"variants on AS1000 (768 x 1024), ACR mammography {MAMMO_SHAPE[1]} x "
+              f"{MAMMO_SHAPE[0]} at 0.07 mm and 768 x 1024 at 0.2 mm, an AS1200 open field; "
+              f"in {time.perf_counter() - t0:.1f} s")
+
+        specs = {f"lt_{s[0].__name__}": s for s in longtail_specs()}
+        runs = ([("StandardImagingQC3", "qc3", {}),
+                 ("StandardImagingFC2", "fc2", {"bb_edge_threshold_mm": PLANAR_FC2_EDGE_MM}),
+                 ("ACRDigitalMammography", "mammo",
+                  {"invert": False, "low_contrast_visibility_threshold": 400,
+                   "speck_group_visibility_threshold": MAMMO_SPECK_VISIBILITY})]
+                + [(name, name, {}) for name, _, _ in fc2_variants]
+                + [(specs[k][0].__name__, k, {"ssd": 1000, "angle_override": specs[k][1],
+                                             "size_override": overrides[k]}) for k in specs])
+
+        def run(name, key, analyze, device="cuda"):
+            cls = getattr(p, name)
+            patch = specs[key][4] if key in specs else ()
+            saved = {a: cls.__dict__.get(a) for a in patch}
+            for a in patch:
+                setattr(cls, a, lambda self: None)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    obj = cls(paths[key])
+                    kw = dict(analyze)
+                    if key in specs:
+                        h, w = obj.image.shape
+                        kw["center_override"] = (w / 2, h / 2)
+                    obj.analyze(device=device, **kw)
+                    data = result_dict(obj)
+            finally:
+                for a in patch:
+                    if saved[a] is None:
+                        delattr(cls, a)
+                    else:
+                        setattr(cls, a, saved[a])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return obj, data
+
+        entries = ccl_entries() + [(tedges, "label_batch", "label"),
+                                   (tfilters, "median3x3", "median")]
+        pairs = {**kernel_pairs(ccl), "median": (median.median3x3, median.median3x3_reference)}
+        totals, seen_all, worst, card_data = Counter(), [], {}, {}
+        for name, key, analyze in runs:
+            median.median3x3.launches = 0
+            ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+            with recording_inputs(entries) as seen:
+                obj, data = run(name, key, analyze)
+            counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
+                      "median": median.median3x3.launches}
+            what = f"{name} on {key}"
+            check_counts(seen, counts, what)
+            detects = key in ("qc3", "mammo") or name in ("LasVegas", "ElektaLasVegas",
+                                                          "PTWEPIDQC")
+            needs = (("median", "label") if "field_size_x_mm" in data
+                     else ("label", "holes") if detects else ())
+            if any(counts[m] < 1 for m in needs):
+                raise RuntimeError(f"the {what} launched a kernel of its path no time: {counts}")
+            if seen:
+                for mode, e in check_path_masks(pairs, seen, what).items():
+                    worst[mode] = max(worst.get(mode, 0.0), e)
+            totals.update(counts)
+            seen_all += seen
+            print(f"{what}: launches {counts}")
+            check_planar_results(name, obj, data, f"card {what}")
+            card_data[key] = data
+        if totals["median"] < 1 + 4:
+            raise RuntimeError(f"the FC-2 family's medians: {totals['median']} launches")
+
+        worst_cpu = 0.0
+        for name, key, analyze in runs:
+            if key == "mammo":  # at the recipe's size and bars
+                key, analyze = "mammo_small", {**analyze, "speck_group_visibility_threshold": 400}
+                obj, data = run(name, key, analyze)
+                check_planar_results(name, obj, data, f"card {name} on {key}")
+            else:
+                data = card_data[key]
+            _, cpu_data = run(name, key, analyze, "cpu")
+            worst_cpu = max(worst_cpu, compare_tree(data, cpu_data, f"{name} {key} card vs CPU",
+                                                    planar_tol))
+            same_warnings(data, cpu_data, f"{name} {key}")
+        print(f"planar card vs CPU: agree on {len(runs)} inputs (max difference "
+              f"{worst_cpu:.2e})")
+
+        for name, key, analyze in runs[:3]:
+            n_warm = WARM_RUNS if key == "qc3" else 4  # 1 + 3 for the slower two
+            fresh = [getattr(p, name)(paths[key]) for _ in range(n_warm)]
+
+            def warm_run(analyze=analyze):
+                obj = fresh.pop()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    obj.analyze(device="cuda", **analyze)
+                    data = obj.results_data()
+                torch.cuda.synchronize()
+                return data
+
+            warm, outs = median_runs(card, f"warm {name} analyze + results_data of {key}",
+                                     warm_run, n_warm)
+            check_same_texts([results_text(o) for o in outs], f"{name} warm runs")
+            if name == "StandardImagingQC3":
+                fresh = [getattr(p, name)(paths[key])]
+                device_profile(card, "QC-3 analyze (AS1200)", warm_run, warm)
+
+        timed, lines = {}, []
+        for mode in ("label", "holes", "median"):
+            kernel, twin = pairs[mode]
+            shapes = {}
+            for m, masks, args, kwargs in seen_all:
+                if m == mode:
+                    shapes.setdefault(tuple(masks.shape), (masks, args, kwargs))
+            for shape in sorted(shapes, key=lambda s: -np.prod(s))[:3]:
+                masks, args, kwargs = shapes[shape]
+                if mode == "median":
+                    x = masks.to(torch.float32)
+                    kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference,
+                                                    x, 50, 3)
+                    bound_ms, bound_by = bound(8 * x.numel(), 21 * x.numel(), F32_INSTR_PER_S)
+                    print(f"[{card}] median3x3 at {tuple(x.shape)}, the FC-2 frame: kernel "
+                          f"{kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound "
+                          f"{bound_ms:.5f} ms ({bound_by})")
+                    continue
+                timed[mode, shape] = timed_pair(
+                    card, f"planar ccl {mode}", lambda x: kernel(x, *args, **kwargs),
+                    lambda x: twin(x, *args, **kwargs), masks, ccl_bound)
+            if mode != "median":
+                largest = max((s for m, s in timed if m == mode), key=np.prod)
+                lines.append(ccl_line(f"ccl_{mode}_planar", "pylinac_tpu/ops/pallas_label.py:"
+                                      + ("127" if mode == "label" else "289"),
+                                      totals[mode], worst.get(mode, 0.0), timed[mode, largest]))
+
+        widths = {}
+        for edge in ("FWHM", "Inflection Derivative", "Inflection Hill"):
+            t1 = time.perf_counter()
+            fpa = p.FieldProfileAnalysis(fpa_path)
+            fpa.analyze(edge_type=edge)
+            data = fpa.results_data(as_dict=True)
+            ms = (time.perf_counter() - t1) * 1e3
+            widths[edge] = (data["x_metrics"]["Field Width (mm)"],
+                            data["y_metrics"]["Field Width (mm)"])
+            if not all(abs(w - 150) < 1.0 for w in widths[edge]):
+                raise RuntimeError(f"FieldProfileAnalysis {edge}: widths {widths[edge]}, drawn 150")
+            print(f"[{card}] FieldProfileAnalysis {edge} on the AS1200 open field (host): "
+                  f"{ms:.1f} ms, widths {widths[edge]} mm")
+        print(f"planar launches: {dict(totals)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return totals["median"], worst.get("median", 0.0), lines
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -3785,6 +4233,12 @@ def main() -> int:
     single_flood["max_abs_err"] = max(single_flood["max_abs_err"], s_err)
     kernels += s_lines
     print(f"ACR, cheese and Helios phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    p_launches, p_err, p_lines = planar_phase(card, median, ccl)
+    kernels[0]["launches"] += p_launches
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], p_err)
+    kernels += p_lines
+    print(f"planar imaging and field profile phase: {time.perf_counter() - t0:.1f} s")
     # last: its profile of an 8-frame run (177,000 launches) left the next
     # phase's profiler with no device events
     t0 = time.perf_counter()

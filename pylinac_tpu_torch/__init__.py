@@ -18,8 +18,12 @@ Winston-Lutz analyses (``WinstonLutz``, also from zips and CBCT scans,
 ``DRMLC``, ``DRCS``), the dosimetric leaf gap (``DLG``), the Quart DVT
 (``QuartDVT``, ``HypersightQuartDVT``), the ACR CT and MRI phantoms
 (``ACRCT``, ``ACRMRILarge``), the cheese phantoms (``TomoCheese``,
-``CIRS062M``), the GE Helios daily QA (``GEHeliosCTDaily``) and Varian
-.xim images (``XIM``).
+``CIRS062M``), the GE Helios daily QA (``GEHeliosCTDaily``), Varian
+.xim images (``XIM``), the profile-plugin field analysis
+(``FieldProfileAnalysis``) and the planar imaging phantoms (Leeds TOR, the
+Standard Imaging QC-3, QC-kV and FC-2, Las Vegas, PTW EPID QC, IBA Primus
+A, the SNC kV and MV phantoms, the Doselab MC2 and RLf, IMT L-Rad, PTW
+Iso-Align, SNC FSQA and the ACR digital mammography phantom).
 """
 
 from .acr import ACRCT, ACRMRILarge
@@ -32,6 +36,11 @@ from .dlg import DLG
 from .helios import GEHeliosCTDaily
 from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
                              analyze_field_batch)
+from .field_profile_analysis import FieldProfileAnalysis
+from .planar_imaging import (PTWEPIDQC, SNCFSQA, SNCMV, SNCMV12510, ACRDigitalMammography,
+                             DoselabMC2kV, DoselabMC2MV, DoselabRLf, ElektaLasVegas, IBAPrimusA,
+                             IMTLRad, IsoAlign, LasVegas, LeedsTOR, LeedsTORBlue, SNCkV,
+                             StandardImagingFC2, StandardImagingQC3, StandardImagingQCkV)
 from .ops.gamma import gamma_1d, gamma_2d, gamma_2d_batch, gamma_bakai, gamma_geometric
 from .starshot import Starshot, StarshotBatch, StarshotResults, analyze_star_batch
 from .picketfence import (MLC, MLCArrangement, Orientation, PFResult, PicketFence,
@@ -42,9 +51,13 @@ from .vmat import DRCS, DRGS, DRMLC
 from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
                            WinstonLutzMultiTargetMultiField, WinstonLutzMultiTargetMultiFieldResult)
 
-__all__ = ["ACRCT", "ACRMRILarge", "BBArrangement", "BBConfig", "CIRS062M", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
+__all__ = ["ACRCT", "ACRDigitalMammography", "ACRMRILarge", "BBArrangement", "BBConfig", "CIRS062M", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
            "CatPhan700", "CatPhanBatch", "Centering", "DLG", "DRCS", "DRGS", "DRMLC",
-           "DeviceFieldAnalysis", "Edge", "FieldAnalysis", "FieldAnalysisBatch", "GEHeliosCTDaily",
+           "DeviceFieldAnalysis", "DoselabMC2MV", "DoselabMC2kV", "DoselabRLf", "Edge",
+           "ElektaLasVegas", "FieldAnalysis", "FieldAnalysisBatch", "FieldProfileAnalysis",
+           "GEHeliosCTDaily", "IBAPrimusA", "IMTLRad", "IsoAlign", "LasVegas", "LeedsTOR",
+           "LeedsTORBlue", "PTWEPIDQC", "SNCFSQA", "SNCMV", "SNCMV12510", "SNCkV",
+           "StandardImagingFC2", "StandardImagingQC3", "StandardImagingQCkV",
            "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
            "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "WinstonLutz",

@@ -592,7 +592,8 @@ class MRLowContrastModule(CatPhanModule):
         """The slice's edge mask on the analysis device: Scharr, a sigma-1
         Gaussian, Otsu x 0.8."""
         dev = torch.as_tensor(self.image.array.astype(np.float32), device=self.device)
-        edges = gaussian_filter(scharr(dev), 1.0)
+        # JAX's two jitted graphs' sums (ops/filters docstring)
+        edges = gaussian_filter(scharr(dev, fused=True), 1.0, fused=True)
         thres = otsu_threshold(edges) * 0.8
         return edges > thres
 

@@ -18,13 +18,14 @@ half-pixel offset, normalisation, the memo cache, ``fwxm_data``,
 ``penumbra``, ``field_calculation``), ``MultiProfile.find_peaks``,
 ``.find_valleys`` and ``.find_fwxm_peaks`` (``:994-1040``),
 ``CircleProfile`` with ``roll`` and ``CollapsedCircleProfile``
-(``:1043-1200``), without plots. Peaks come from
-:mod:`pylinac_tpu_torch.ops.peaks`, the smoothing from
+(``:1043-1200``), ``ProfileBase.compute`` (``:265``, the metrics of
+:mod:`pylinac_tpu_torch.metrics.profile`), ``SingleProfile.resample``
+(``:584``) and ``SingleProfile.gamma`` (``:965``), without plots. Peaks
+come from :mod:`pylinac_tpu_torch.ops.peaks`, the smoothing from
 :mod:`pylinac_tpu_torch.ops.filters`, the spline and the zoom from
-:mod:`pylinac_tpu_torch.ops.interp` and the profile gamma from
+:mod:`pylinac_tpu_torch.ops.interp` and the profile gammas from
 :mod:`pylinac_tpu_torch.ops.gamma`, all on the CPU, where the profiles
-live. ``ProfileBase.compute`` waits for ``metrics/profile.py`` and
-``SingleProfile.gamma`` for the slice that uses them.
+live.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from .geometry import Circle, Point
 from .hill import Hill
 from .utilities import convert_to_enum
 from ..ops import filters
-from ..ops.gamma import gamma_geometric
+from ..ops.gamma import gamma_1d, gamma_geometric
 from ..ops.interp import cubic_spline_interp, zoom1d
 from ..ops.peaks import find_peaks
 
@@ -268,6 +269,28 @@ class ProfileBase(ProfileMixin):
         else:
             output_type = self.__class__
         return output_type(values=target_y, x_values=np.asarray(target_x, dtype=float))
+
+    def compute(self, metrics):
+        """Run a metric or a list of them on this profile: one value, or a
+        dict by name; a name taken already gets the suffix 2, 3, ..."""
+        from ..metrics.profile import ProfileMetric
+
+        values = {}
+        if isinstance(metrics, ProfileMetric):
+            metrics = [metrics]
+        for metric in metrics:
+            metric.inject_profile(self)
+            self.metrics.append(metric)
+            key = metric.full_name
+            suffix = 1
+            while key in values or key in self.metric_values:
+                suffix += 1
+                key = f"{metric.full_name}{suffix}"
+            values[key] = metric.calculate()
+        self.metric_values.update(values)
+        if len(values) == 1:
+            return values[key]
+        return values
 
 
 class FWXMProfile(ProfileBase):
@@ -523,6 +546,21 @@ class SingleProfile(ProfileMixin):
             start = max(0, stop - 3)
         x_samples = self.x_indices[start:stop]
         return x_samples, self._y_original_to_interp(x_samples)
+
+    def resample(self, interpolation_factor: int = 10,
+                 interpolation_resolution_mm: float = 0.1) -> "SingleProfile":
+        """A new profile of these (already resampled) values at a new factor
+        or resolution, with this one's settings."""
+        dpmm = 1 / self._interpolation_res if self.dpmm else None
+        return SingleProfile(
+            values=self.values, x_values=self.x_indices, dpmm=dpmm,
+            interpolation=self._interp_method, ground=self._ground,
+            interpolation_resolution_mm=interpolation_resolution_mm,
+            interpolation_factor=interpolation_factor,
+            normalization_method=self._norm_method,
+            edge_detection_method=self._edge_method,
+            edge_smoothing_ratio=self._edge_smoothing_ratio,
+            hill_window_ratio=self._hill_window_ratio)
 
     @staticmethod
     def _interpolate(values, x_values, dpmm, interpolation_resolution,
@@ -889,6 +927,27 @@ class SingleProfile(ProfileMixin):
         if calculation == "min":
             return vals.min()
         raise ValueError(f"Unknown calculation {calculation}")
+
+    def gamma(self, evaluation_profile: "SingleProfile", distance_to_agreement: int = 1,
+              dose_to_agreement: float = 1, gamma_cap_value: float = 2,
+              dose_threshold: float = 5, global_dose: bool = True,
+              fill_value: float = np.nan) -> np.ndarray:
+        """Low's 1D gamma of ``evaluation_profile`` against this profile,
+        over their x indices, on the CPU (``ops.gamma.gamma_1d``)."""
+        if not self.dpmm or not evaluation_profile.dpmm:
+            raise ValueError(
+                "At least one profile does not have the dpmm attribute. "
+                "Set it before gamma analysis.")
+        g, _, _ = gamma_1d(
+            reference=np.asarray(self.values, np.float32),
+            evaluation=np.asarray(evaluation_profile.values, np.float32),
+            reference_coordinates=np.asarray(self.x_indices, np.float32),
+            evaluation_coordinates=np.asarray(evaluation_profile.x_indices, np.float32),
+            dose_to_agreement=dose_to_agreement,
+            distance_to_agreement=distance_to_agreement,
+            gamma_cap_value=gamma_cap_value, global_dose=global_dose,
+            dose_threshold=dose_threshold, fill_value=fill_value, device="cpu")
+        return g.numpy()
 
 
 class MultiProfile(ProfileMixin):

@@ -5,7 +5,8 @@ Port of ``pylinac_tpu/imggen/layers.py``: ``Layer`` ``:111``,
 ``PerfectConeLayer`` ``:119``, ``FilterFreeConeLayer`` ``:148``,
 ``PerfectFieldLayer`` ``:170``,
 ``FilteredFieldLayer`` ``:198``, ``FilterFreeFieldLayer`` ``:221``,
-``PerfectBBLayer`` ``:242``, ``RandomNoiseLayer`` ``:270``, ``SlopeLayer``
+``PerfectBBLayer`` ``:242``, ``RandomNoiseLayer`` ``:270``, ``ConstantLayer``
+``:285``, ``SlopeLayer``
 ``:295`` with the helpers they use (``clip_add`` ``:20``,
 ``clip_multiply`` ``:25``, ``even_round`` ``:30``, ``gaussian2d`` ``:35``,
 ``rotate_point`` ``:43``, ``_disk_coords`` ``:49``, ``_polygon_coords``
@@ -282,6 +283,16 @@ class RandomNoiseLayer(Layer):
         rng = np.random.default_rng(self.seed)
         noise = rng.normal(self.mean, normalized_sigma, size=image.shape)
         return clip_add(image, noise, dtype=image.dtype)
+
+
+class ConstantLayer(Layer):
+    """A constant background or scatter offset (``imggen/layers.py:285``)."""
+
+    def __init__(self, constant: float):
+        self.constant = constant
+
+    def apply(self, image, pixel_size, mag_factor):
+        return clip_add(image, np.full(image.shape, self.constant), dtype=image.dtype)
 
 
 class SlopeLayer(Layer):

@@ -2,7 +2,8 @@
 Winston-Lutz set and the starshot.
 
 Port of ``generate_picketfence`` (``pylinac_tpu/imggen/utils.py:28``),
-``generate_winstonlutz`` (``:67-131``), ``pixel_align`` (``:155``),
+``generate_winstonlutz`` (``:67-131``), ``generate_lightrad`` (``:134``),
+``pixel_align`` (``:155``),
 ``_clean_make_dir`` (``:161``), ``_bb_offset_lui`` (``:170``) and the
 multi-target generators ``generate_winstonlutz_multi_bb_single_field``
 (``:182``), ``generate_winstonlutz_multi_bb_multi_field`` (``:236``) and
@@ -32,7 +33,14 @@ from ..core import dcm
 from ..core.array_utils import array_to_dicom
 from ..core.geometry import cos as deg_cos, sin as deg_sin
 from ..core.scale import MachineScale, convert
-from .layers import ArrayLayer, GaussianFilterLayer, Layer, PerfectBBLayer, PerfectFieldLayer
+from .layers import (
+    ArrayLayer,
+    FilteredFieldLayer,
+    GaussianFilterLayer,
+    Layer,
+    PerfectBBLayer,
+    PerfectFieldLayer,
+)
 from .simulators import Simulator
 
 
@@ -136,6 +144,26 @@ def generate_winstonlutz(
                                   table_angle=couch, tags=tags)
         file_names.append(file_name)
     return file_names
+
+
+def generate_lightrad(
+    simulator: Simulator,
+    field_layer=FilteredFieldLayer,
+    file_out: str = "lightrad.dcm",
+    final_layers: list[Layer] | None = None,
+    field_size_mm: tuple[float, float] = (150, 150),
+    cax_offset_mm: tuple[float, float] = (0, 0),
+    bb_size_mm: float = 3,
+    bb_positions=((-40, -40), (-40, 40), (40, -40), (40, 40)),
+) -> None:
+    """A light/rad image: an open field and fiducial BBs."""
+    simulator.add_layer(field_layer(field_size_mm=field_size_mm, cax_offset_mm=cax_offset_mm))
+    for bb in bb_positions:
+        simulator.add_layer(PerfectBBLayer(bb_size_mm=bb_size_mm, cax_offset_mm=bb))
+    if final_layers is not None:
+        for layer in final_layers:
+            simulator.add_layer(layer)
+    simulator.generate_dicom(file_out)
 
 
 def pixel_align(pixel_size: float, length_mm: float) -> float:

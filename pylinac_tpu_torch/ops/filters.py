@@ -11,12 +11,28 @@ the hand-written kernel (:func:`pylinac_tpu_torch.ops.median.median3x3`);
 any other size to the stack-and-sort form, as in the JAX package, where
 only size 3 had a Pallas kernel.
 
-The correlations are written as JAX writes them, a reflect pad and then a
-sum of weighted shifted slices in the same order, with no convolution (so
-no TF32 on the card). Each multiply and add rounds to float32 on its own,
-on the CPU and on the card alike, so the port's two devices agree bit for
-bit. Jitted JAX differs in the last bit at some pixels: XLA fuses the sum
-and contracts some steps into fused multiply-adds.
+The correlations are written as JAX writes them, a pad and then a sum of
+weighted shifted slices in the same order, with no convolution (so no
+TF32 on the card). By default each multiply and add rounds to float32 on
+its own, on the CPU and on the card alike. ``fused=True`` gives the sums
+as a jitted JAX graph gives them on the CPU instead. Inside a loop
+fusion, XLA's CPU backend (LLVM) contracts each ``add`` that has a
+``multiply`` operand of one use into a fused multiply-add; where both
+operands are products it takes the first, after its reassociation pass
+has put the deeper operand first. So a tap chain ``w0*s0 + w1*s1 + ... +
+wn*sn`` becomes ``fma(sn, wn, ... fma(s2, w2, fma(s0, w0, w1*s1)))``, and
+Scharr's ``h*h + v*v`` becomes ``fma(h, h, v*v)``; ``/ sqrt(2)`` is a
+multiply by the float32 reciprocal. Which adds are contracted depends on
+the fusion boundaries of the whole graph. This form reproduces
+every vmapped JAX graph of the CT mask stage bit for bit (its edges, and
+the Otsu thresholds of :mod:`.threshold`). An unvmapped 2D graph computes
+the reflect-padded border columns of its second pass in fusions of their
+own, where LLVM shares the product of a symmetric tap between
+neighbouring rows and does not contract it; there the port differs in
+the last bit at some border pixels. An FMA is taken as
+:func:`.stats.fma_f32` takes it, a float64 product plus the addend
+rounded once, the same on the CPU and on the card; square roots are
+:func:`.stats.sqrt_f32`'s correctly rounded ones.
 """
 
 from __future__ import annotations
@@ -27,6 +43,7 @@ import numpy as np
 import torch
 
 from .median import median3x3
+from .stats import fma_f32, sqrt_f32
 
 
 def _reflect_index(n: int, pad: int) -> np.ndarray:
@@ -76,15 +93,35 @@ def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def correlate1d(x: torch.Tensor, kernel: np.ndarray, dim: int = -1) -> torch.Tensor:
-    """Correlate along one dim with "reflect" edges (scipy semantics), in
-    float32: the running sum plus ``w * slice`` for each tap in order."""
+def _padded(x: torch.Tensor, pad: int, dim: int, mode: str) -> torch.Tensor:
+    """``x`` in float32 padded by ``pad`` on each side of ``dim``: scipy
+    "reflect", or zeros for "constant" (``jnp.pad``)."""
+    n = x.shape[dim]
+    x = x.to(torch.float32)
+    if mode == "reflect":
+        return x.index_select(dim, torch.as_tensor(_reflect_index(n, pad), device=x.device))
+    shape = list(x.shape)
+    shape[dim] = pad
+    zeros = x.new_zeros(shape)
+    return torch.cat([zeros, x, zeros], dim=dim)
+
+
+def correlate1d(x: torch.Tensor, kernel: np.ndarray, dim: int = -1,
+                fused: bool = False, mode: str = "reflect") -> torch.Tensor:
+    """Correlate along one dim with "reflect" (scipy semantics) or zero
+    ("constant") edges, in float32: the running sum plus ``w * slice`` for
+    each tap in order, each op rounded, or with ``fused`` in XLA's
+    contracted form (module docstring)."""
     k = np.asarray(kernel, dtype=np.float32)
     pad = (len(k) - 1) // 2
     dim = dim % x.dim()
     n = x.shape[dim]
-    index = torch.as_tensor(_reflect_index(n, pad), device=x.device)
-    xp = x.to(torch.float32).index_select(dim, index)
+    xp = _padded(x, pad, dim, mode)
+    if fused and len(k) > 1:
+        out = fma_f32(xp.narrow(dim, 0, n), float(k[0]), xp.narrow(dim, 1, n) * float(k[1]))
+        for i in range(2, len(k)):
+            out = fma_f32(xp.narrow(dim, i, n), float(k[i]), out)
+        return out
     out = torch.zeros_like(xp.narrow(dim, 0, n))
     for i, w in enumerate(k):
         out = out + float(w) * xp.narrow(dim, i, n)
@@ -92,19 +129,21 @@ def correlate1d(x: torch.Tensor, kernel: np.ndarray, dim: int = -1) -> torch.Ten
 
 
 def gaussian_filter1d(x: torch.Tensor, sigma: float, dim: int = -1,
-                      truncate: float = 4.0) -> torch.Tensor:
+                      truncate: float = 4.0, fused: bool = False) -> torch.Tensor:
     if sigma <= 0:
         return x.to(torch.float32)
-    return correlate1d(x, gaussian_kernel1d(sigma, truncate), dim=dim)
+    return correlate1d(x, gaussian_kernel1d(sigma, truncate), dim=dim, fused=fused)
 
 
 def gaussian_filter(x: torch.Tensor, sigma: float, truncate: float = 4.0,
-                    dims: tuple[int, ...] | None = None) -> torch.Tensor:
+                    dims: tuple[int, ...] | None = None,
+                    fused: bool = False) -> torch.Tensor:
     """Separable Gaussian over ``dims`` (every dim when None, as
-    scipy.ndimage.gaussian_filter); a batch of images passes ``(-2, -1)``."""
+    scipy.ndimage.gaussian_filter); a batch of images passes ``(-2, -1)``.
+    ``fused`` gives the sums as a jitted JAX graph does (module docstring)."""
     out = x.to(torch.float32)
     for d in range(x.dim()) if dims is None else dims:
-        out = gaussian_filter1d(out, sigma, dim=d, truncate=truncate)
+        out = gaussian_filter1d(out, sigma, dim=d, truncate=truncate, fused=fused)
     return out
 
 
@@ -125,19 +164,27 @@ def sobel(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return out
 
 
-def scharr_component(x: torch.Tensor, dim: int) -> torch.Tensor:
+def scharr_component(x: torch.Tensor, dim: int, fused: bool = False) -> torch.Tensor:
     """Scharr derivative along ``dim`` of the image in the last two dims of
     ``x``, smoothed along the other one."""
     out = x.to(torch.float32)
     dim = dim % x.dim()
     for d in (x.dim() - 2, x.dim() - 1):
-        out = correlate1d(out, _SCHARR_D / 2.0 if d == dim else _SCHARR_S, dim=d)
+        out = correlate1d(out, _SCHARR_D / 2.0 if d == dim else _SCHARR_S, dim=d,
+                          fused=fused)
     return out
 
 
-def scharr(x: torch.Tensor) -> torch.Tensor:
+# XLA folds ``/ sqrt(2)`` into a multiply by the float32 reciprocal
+_INV_SQRT2 = float(np.float32(1.0) / np.float32(math.sqrt(2.0)))
+
+
+def scharr(x: torch.Tensor, fused: bool = False) -> torch.Tensor:
     """Scharr gradient magnitude (skimage.filters.scharr-like) of an (H, W)
-    image or of each image of a (B, H, W) batch."""
-    h = scharr_component(x, -2)
-    v = scharr_component(x, -1)
+    image or of each image of a (B, H, W) batch; ``fused`` as a jitted JAX
+    graph gives it (module docstring)."""
+    h = scharr_component(x, -2, fused)
+    v = scharr_component(x, -1, fused)
+    if fused:
+        return sqrt_f32(fma_f32(h, h, v * v)) * _INV_SQRT2
     return torch.sqrt(h * h + v * v) / math.sqrt(2.0)

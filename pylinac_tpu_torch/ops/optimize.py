@@ -58,6 +58,7 @@ float64, so that the CPU and the card take the same steps.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
@@ -233,7 +234,12 @@ def _jacobian(residual_fn: Callable, p: torch.Tensor, args_n: list[torch.Tensor]
     column; ``args_n`` and ``tangents`` are the stacked arguments and the
     (nP, n) unit tangents."""
     P, n = p.shape
-    with fwAD.dual_level():
+    with fwAD.dual_level(), warnings.catch_warnings():
+        # torch loads its forward-mode decompositions at the first dual
+        # number and newer releases warn there that torch.jit.script is
+        # deprecated: a warning of torch's, not of the analysis
+        warnings.filterwarnings("ignore", message=".*torch.jit.script.*",
+                                category=DeprecationWarning)
         out = residual_fn(fwAD.make_dual(p.repeat(n, 1), tangents), *args_n)
         r, tangent = fwAD.unpack_dual(out)
     return r[:P], tangent.reshape(n, P, -1).permute(1, 2, 0)

@@ -58,11 +58,14 @@ def percentile_exact(values: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
     return lo + w * (hi - lo)
 
 
-def percentile_f32(values: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
+def percentile_f32(values: torch.Tensor, qs: Sequence[float],
+                   fused: bool = False) -> torch.Tensor:
     """``jnp.percentile(item, qs)`` for each item of a (B, ...) batch, as
     float32 of shape (B, len(qs)): q / 100 and the rank q * (n - 1) in
     float32, then ``lo * (1 - w) + hi * w`` in float32
-    (jax ``_src/numpy/reductions.py``, ``_quantile``)."""
+    (jax ``_src/numpy/reductions.py``, ``_quantile``), each op rounded, or
+    with ``fused`` as one fused multiply-add, ``fma(lo, 1 - w, hi * w)``,
+    as a jitted ``jnp.percentile`` gives it on the CPU."""
     n = int(np.prod(values.shape[1:]))
     q = np.asarray(qs, np.float32) / np.float32(100)
     rank = q * (np.float32(n) - np.float32(1))
@@ -72,8 +75,10 @@ def percentile_f32(values: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
     ranks = np.stack([np.clip(low, 0, n - 1), np.clip(high, 0, n - 1)], axis=1).astype(np.int64)
     stats = order_statistics(values, ranks.reshape(-1).tolist())
     lo, hi = stats[:, 0::2], stats[:, 1::2]
-    return (lo * torch.from_numpy(lw).to(values.device)
-            + hi * torch.from_numpy(hw).to(values.device))
+    lw, hw = torch.from_numpy(lw).to(values.device), torch.from_numpy(hw).to(values.device)
+    if fused:
+        return fma_f32(lo, lw, hi * hw)
+    return lo * lw + hi * hw
 
 
 def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -83,6 +88,26 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     from one rounding only when the sum lies within 2**-53 of a float32
     rounding midpoint.)"""
     return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float32 ``x``, as XLA's on the
+    CPU and CUDA's ``__fsqrt_rn``. Torch's CPU ``sqrt`` is not always
+    correctly rounded, in float32 or in float64 (on an AVX-512 host about
+    1 % of float64 roots are off by an ulp, and a process's first call can
+    differ from its later ones), so the float32 root is taken and then
+    moved by at most one ulp by exact float64 tests against the midpoints
+    to its neighbours (a midpoint has 25 bits, so its square is exact and
+    never equals a float32)."""
+    x = x.to(torch.float32)
+    r = torch.sqrt(x)
+    xd = x.to(torch.float64)
+    up = torch.nextafter(r, r.new_tensor(float("inf")))
+    mid = (r.to(torch.float64) + up.to(torch.float64)) * 0.5
+    r = torch.where(xd > mid * mid, up, r)
+    down = torch.nextafter(r, r.new_tensor(float("-inf")))
+    mid = (r.to(torch.float64) + down.to(torch.float64)) * 0.5
+    return torch.where((xd < mid * mid) & (r > 0), down, r)
 
 
 # XLA unrolls linspace's loop up to this many points and then fuses its

@@ -3,15 +3,41 @@
 Port of ``otsu_threshold`` (``pylinac_tpu/ops/threshold.py:13-67``) with
 its host branch: the histogram is a ``scatter_add_`` of float32 weights,
 where the JAX TPU branch used a one-hot matmul. Weights are 0 or 1, so the
-counts are exact in any order of adds. ``threshold_li`` (``:75``) and
-``threshold_yen`` (``:104``) are host numpy in both packages, copied as
-they are.
+counts are exact in any order of adds. The class means' running sums are
+not: XLA's CPU ``jnp.cumsum`` is a blocked reduce-window, which
+:func:`cumsum_f32` adds in the same order, in float32, on either device
+(torch's CPU ``cumsum`` accumulates in float64, its CUDA one in another
+order); where the class variance is flat, its argmax then picks JAX's
+bin. ``threshold_li`` (``:75``) and ``threshold_yen`` (``:104``) are host
+numpy in both packages, copied as they are.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+_SCAN_BLOCK = 16
+
+
+def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 running sum along the last dim in the order of
+    XLA's CPU ``jnp.cumsum``: a reduce-window rewritten in blocks of 16,
+    each block summed in order, the block totals scanned the same way, and
+    each output its block's offset plus its in-block sum."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        cols = [x[..., 0]]
+        for i in range(1, n):
+            cols.append(cols[-1] + x[..., i])
+        return torch.stack(cols, dim=-1)
+    nb = -(-n // _SCAN_BLOCK)
+    pad = x.new_zeros(x.shape[:-1] + (nb * _SCAN_BLOCK - n,))
+    blocks = cumsum_f32(torch.cat([x, pad], dim=-1).reshape(*x.shape[:-1], nb, _SCAN_BLOCK))
+    totals = cumsum_f32(blocks[..., -1])
+    offsets = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]], dim=-1)
+    return (offsets[..., None] + blocks).reshape(*x.shape[:-1], -1)[..., :n]
 
 
 def otsu_threshold_batch(images: torch.Tensor, nbins: int = 256,
@@ -40,9 +66,9 @@ def otsu_threshold_batch(images: torch.Tensor, nbins: int = 256,
     bins = torch.arange(nbins, dtype=torch.float32, device=flat.device)
     bin_centers = vmin + (bins + 0.5) * span / nbins
 
-    w1 = torch.cumsum(hist, dim=1)
+    w1 = cumsum_f32(hist)
     w2 = w1[:, -1:] - w1
-    mu_cum = torch.cumsum(hist * bin_centers, dim=1)
+    mu_cum = cumsum_f32(hist * bin_centers)
     mu1 = mu_cum / w1.clamp(min=1e-20)
     mu2 = (mu_cum[:, -1:] - mu_cum) / w2.clamp(min=1e-20)
     between = w1 * w2 * (mu1 - mu2) ** 2

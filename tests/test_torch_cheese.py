@@ -44,18 +44,21 @@ CIRS_HU = {"1": 0, "2": -800, "3": -500, "4": 40, "5": -40, "6": -90, "7": 240,
 
 def draw_cirs062m(dir_out, num_slices: int = 20, slice_thickness_mm: float = 2.5,
                   mm_per_pixel: float = 0.7, image_size: int = 512,
-                  roll_deg: float = 0.0, noise_hu: float = 3.0, seed: int = 62) -> list[str]:
-    """A CIRS 062M series: a 330 x 290 mm elliptical water body, 50 mm
-    thick, with 24 mm inserts at ``CIRSHUModule.roi_settings``' places, in
-    air; uint16 with intercept -1000."""
+                  roll_deg: float = 0.0, noise_hu: float = 3.0, seed: int = 62,
+                  body_mm: tuple[float, float] = (330.0, 290.0),
+                  insert_mm: float = 24.0) -> list[str]:
+    """A CIRS 062M series: a ``body_mm`` (width, height) elliptical water
+    body, 50 mm thick, with ``insert_mm`` inserts at
+    ``CIRSHUModule.roi_settings``' places, in air; uint16 with intercept
+    -1000."""
     from pylinac_tpu_torch.cheese import CIRSHUModule
 
     rng = np.random.default_rng(seed)
     os.makedirs(dir_out, exist_ok=True)
     center = image_size / 2 - 0.5
     yy, xx = np.mgrid[:image_size, :image_size]
-    body = (((xx - center) * mm_per_pixel / 165) ** 2
-            + ((yy - center) * mm_per_pixel / 145) ** 2) < 1
+    body = (((xx - center) * mm_per_pixel / (body_mm[0] / 2)) ** 2
+            + ((yy - center) * mm_per_pixel / (body_mm[1] / 2)) ** 2) < 1
     uids = [tdcm.generate_uid() for _ in range(3)]
     roll = np.deg2rad(roll_deg)
     paths = []
@@ -67,7 +70,7 @@ def draw_cirs062m(dir_out, num_slices: int = 20, slice_thickness_mm: float = 2.5
                 a = np.deg2rad(s["angle"]) + roll
                 px = center + np.cos(a) * s["distance"] / mm_per_pixel
                 py = center + np.sin(a) * s["distance"] / mm_per_pixel
-                hu[(yy - py) ** 2 + (xx - px) ** 2 < (12 / mm_per_pixel) ** 2] = CIRS_HU[name]
+                hu[(yy - py) ** 2 + (xx - px) ** 2 < (insert_mm / 2 / mm_per_pixel) ** 2] = CIRS_HU[name]
         hu += rng.standard_normal((image_size, image_size)) * noise_hu
         ds = tdcm.Dataset()
         ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.2"

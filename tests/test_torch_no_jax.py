@@ -16,8 +16,9 @@ CatPhan 700 from a zip of JPEG Lossless slices (memory-efficient mode), a
 Winston-Lutz test from a small JPEG-LS CBCT, the single picket fence's
 captured warning, a Varian .xim image written and read back through the
 native decoder (``native/xim_decode.cpp``), a DRGS and a DRCS pair, a DLG
-image and a 40-slice Quart DVT, on the CPU: the native codecs build and
-run without either package. The machine with the card has neither package.
+image and a 40-slice Quart DVT, a small QC-3 and FC-2 (AS500) and a
+``FieldProfileAnalysis`` of an AS500 open field, on the CPU: the native
+codecs build and run without either package. The machine with the card has neither package.
 """
 
 import json
@@ -187,7 +188,29 @@ CHILD = textwrap.dedent("""
     png = tempfile.mkdtemp() + "/img.png"
     Image.fromarray(np.arange(48, dtype=np.uint8).reshape(6, 8)).save(png, dpi=(100, 100))
     png_img = timage.load(png)
+
+    from pylinac_tpu_torch.imggen.layers import FilteredFieldLayer
+    from pylinac_tpu_torch.imggen.utils import generate_lightrad
+    from tests.test_torch_planar import draw_qc3
+    qc3 = pylinac_tpu_torch.StandardImagingQC3(
+        draw_qc3(tempfile.mkdtemp() + "/qc3.dcm", sim=AS500Image(sid=1000)))
+    qc3.analyze(device="cpu")
+    fc2_path = tempfile.mkdtemp() + "/fc2.dcm"
+    generate_lightrad(AS500Image(sid=1000), file_out=fc2_path, field_size_mm=(100, 100),
+                      bb_size_mm=4, final_layers=[GaussianFilterLayer(sigma_mm=1)])
+    fc2 = pylinac_tpu_torch.StandardImagingFC2(fc2_path)
+    fc2.analyze(bb_edge_threshold_mm=15, device="cpu")
+    fpa_path = tempfile.mkdtemp() + "/open.dcm"
+    sim = AS500Image(sid=1000)
+    sim.add_layer(FilteredFieldLayer(field_size_mm=(100, 100)))
+    sim.add_layer(GaussianFilterLayer(sigma_mm=1))
+    sim.generate_dicom(fpa_path)
+    fpa = pylinac_tpu_torch.FieldProfileAnalysis(fpa_path)
+    fpa.analyze(edge_type="FWHM")
     print(json.dumps({
+        "qc3": [len(qc3.results_data().low_contrast_rois), round(qc3.phantom_angle, 3)],
+        "fc2": [fc2.results_data().field_size_x_mm, fc2.results_data().field_bb_offset_y_mm],
+        "fpa": fpa.results_data().x_metrics["Field Width (mm)"],
         "acr_ct": [small["acr_ct"]["phantom_model"], small["acr_ct"]["ct_module"]["rois"]["Air"]],
         "acr_mri": [small["acr_mri"]["num_images"],
                     len(small["acr_mri"]["sagittal_localizer_module"]["profiles"]),
@@ -267,3 +290,6 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["tomo"][0] == 12 and abs(out["tomo"][1] - 800) < 15
     assert out["helios"] == ["GE Helios CT Daily", 8]
     assert out["png"] == ["FileImage", sum(range(48)), 100.0]
+    assert out["qc3"] == [5, 45]
+    assert abs(out["fc2"][0] - 100) < 1.5 and abs(out["fc2"][1]) < 1.0
+    assert abs(out["fpa"] - 100) < 1.0
