@@ -3977,7 +3977,9 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     bit-equal to the twins (Canny's hysteresis, ``keep_largest``,
     ``regionprops``, the BB windows, the fibres), the drawings, card against
     CPU (the mammography phantom on the CPU at its test size, 1024 x 768 at
-    0.2 mm: the plain twins take minutes at 8.5 M pixels), warm runs equal
+    0.2 mm: at 8.5 M pixels the CPU run takes about 200 s, so
+    ``scripts/planar_mammo_cpu.py`` compares that size; the fibres'
+    closings of the full frame are held card against CPU here), warm runs equal
     (QC-3 1 + 5, FC-2 and mammography 1 + 3), a profile of a warm QC-3, the kernels timed at the new shapes; then
     ``FieldProfileAnalysis`` of an AS1200 open field under each edge (host
     code) against the drawn width. Returns the median's launches and
@@ -3986,8 +3988,10 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     from pylinac_tpu_torch.imggen.layers import FilteredFieldLayer, GaussianFilterLayer
     from pylinac_tpu_torch.imggen.simulators import AS1000Image, AS1200Image
     from pylinac_tpu_torch.imggen.utils import generate_lightrad
+    from pylinac_tpu_torch import planar_imaging as tplanar
     from pylinac_tpu_torch.ops import edges as tedges
     from pylinac_tpu_torch.ops import filters as tfilters
+    from pylinac_tpu_torch.ops import morphology as tmorph
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_planar_")
     try:
@@ -4061,13 +4065,16 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
 
         entries = ccl_entries() + [(tedges, "label_batch", "label"),
                                    (tfilters, "median3x3", "median")]
+        closings = []
         pairs = {**kernel_pairs(ccl), "median": (median.median3x3, median.median3x3_reference)}
         totals, seen_all, worst, card_data = Counter(), [], {}, {}
         for name, key, analyze in runs:
             median.median3x3.launches = 0
             ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
-            with recording_inputs(entries) as seen:
+            with recording_inputs(entries) as seen, \
+                    recording_inputs([(tplanar, "binary_closing", "closing")]) as closed:
                 obj, data = run(name, key, analyze)
+            closings += closed
             counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
                       "median": median.median3x3.launches}
             what = f"{name} on {key}"
@@ -4088,6 +4095,15 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
             card_data[key] = data
         if totals["median"] < 1 + 4:
             raise RuntimeError(f"the FC-2 family's medians: {totals['median']} launches")
+        # the fibres' binary counts are a cuDNN convolution on the card
+        for _, mask, args, _ in closings:
+            if not torch.equal(tmorph.binary_closing(mask, *args).cpu(),
+                               tmorph.binary_closing(mask.cpu(), *args)):
+                raise RuntimeError(f"binary_closing at {tuple(mask.shape)}: card != CPU")
+        if len(closings) < 6:
+            raise RuntimeError(f"the fibres ran {len(closings)} closings")
+        print(f"fibre closings: {len(closings)} at "
+              f"{sorted({tuple(m.shape) for _, m, _, _ in closings})}, card equal to CPU")
 
         worst_cpu = 0.0
         for name, key, analyze in runs:

@@ -593,7 +593,7 @@ class MRLowContrastModule(CatPhanModule):
         Gaussian, Otsu x 0.8."""
         dev = torch.as_tensor(self.image.array.astype(np.float32), device=self.device)
         # JAX's two jitted graphs' sums (ops/filters docstring)
-        edges = gaussian_filter(scharr(dev, fused=True), 1.0, fused=True)
+        edges = gaussian_filter(scharr(dev), 1.0)
         thres = otsu_threshold(edges) * 0.8
         return edges > thres
 

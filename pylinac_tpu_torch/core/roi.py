@@ -3,11 +3,11 @@
 Port of ``pylinac_tpu/core/roi.py``: ``bbox_center`` ``:32``,
 ``disk_pixels`` ``:40``, ``DiskROI`` ``:53``, ``LowContrastDiskROI``
 ``:125``, ``HighContrastDiskROI`` ``:239``, ``_polygon_pixels`` ``:257`` and
-``RectangleROI`` ``:278``, without their drawing and plot colours;
-``DiskROI.masked_array`` (``:100``) is ported, and the mammography specks
-take its argmax over the disk's bounding window (``masked_argmax``, the
-same pixel without a full-frame array a speck); the rectangle's is not
-ported. The statistics stay on the host, where the JAX package
+``RectangleROI`` ``:278``, without their drawing and plot colours. The
+mammography specks take the argmax of ``DiskROI.masked_array`` (``:100``)
+over the disk's bounding window (``masked_argmax``, the same pixel without
+a full-frame array a speck); the masked arrays themselves are not ported.
+The statistics stay on the host, where the JAX package
 computes them too.
 """
 
@@ -108,9 +108,10 @@ class DiskROI(Circle):
         return disk_pixels(self._array, self.center, self.radius)
 
     def masked_argmax(self) -> Point:
-        """The pixel of the ROI's maximum, the first in row-major order:
-        ``np.nanargmax(self.masked_array())`` over the ROI's bounding window
-        only (the window keeps the image's order of pixels)."""
+        """The pixel of the ROI's maximum, the first in row-major order: the
+        ``np.nanargmax`` of JAX's full-frame ``masked_array``, taken over the
+        ROI's bounding window only (the window keeps the image's order of
+        pixels)."""
         h, w = self._array.shape
         r = self.radius
         r0 = max(int(np.floor(self.center.y - r)) - 1, 0)
@@ -123,16 +124,6 @@ class DiskROI(Circle):
         img[mask] = self._array[r0:r1, c0:c1][mask]
         row, col = np.unravel_index(np.nanargmax(img), img.shape)
         return Point(int(col + c0), int(row + r0))
-
-    def masked_array(self) -> np.ndarray:
-        """An array of the image's shape, NaN outside the ROI."""
-        h, w = self._array.shape
-        yy, xx = np.mgrid[:h, :w]
-        mask = (((yy - self.center.y) / self.radius) ** 2
-                + ((xx - self.center.x) / self.radius) ** 2 < 1)
-        img = np.full((h, w), np.nan, dtype=float)
-        img[mask] = self._array[mask]
-        return img
 
     def as_dict(self) -> dict:
         data = super().as_dict()

@@ -205,8 +205,7 @@ def _mask_batch(arrs: torch.Tensor, centers_yx: tuple[float, float] | None,
     b, h, w = arrs.shape
     dev = arrs.device
     # the sums as the vmapped JAX graphs give them (ops/filters docstring)
-    edges = gaussian_filter(scharr(arrs.to(torch.float32), fused=True), 1.0,
-                            dims=(-2, -1), fused=True)
+    edges = gaussian_filter(scharr(arrs.to(torch.float32)), 1.0, dims=(-2, -1))
     if centers_yx is not None:
         cy, cx = _f32(centers_yx[0], dev), _f32(centers_yx[1], dev)
         r = _f32(radius, dev)
@@ -304,7 +303,7 @@ def _stack_phantom_regions(raw_vol: torch.Tensor, K: int, clear_borders: bool,
                                        minmax=False)
     if clear_borders:
         regions = tlabel.clear_border(regions)
-    return regions, scharr(vol, fused=True).amax(dim=(1, 2))
+    return regions, scharr(vol).amax(dim=(1, 2))
 
 
 def combine_surrounding_slices(dicomstack, nominal_slice_num: int,
@@ -376,7 +375,7 @@ class Slice:
     def phantom_roi(self) -> RegionView:
         """The region matching the phantom's expected size."""
         dev = torch.as_tensor(np.asarray(self.image.array, np.float32), device=self.device)
-        if float(scharr(dev, fused=True).max()) < 0.1:
+        if float(scharr(dev).max()) < 0.1:
             raise ValueError("No edges were found in the image that look like the phantom")
         if self.clip_in_localization:
             clipped = np.clip(self.image.array, a_min=-1000, a_max=1000)

@@ -13,26 +13,29 @@ only size 3 had a Pallas kernel.
 
 The correlations are written as JAX writes them, a pad and then a sum of
 weighted shifted slices in the same order, with no convolution (so no
-TF32 on the card). By default each multiply and add rounds to float32 on
-its own, on the CPU and on the card alike. ``fused=True`` gives the sums
-as a jitted JAX graph gives them on the CPU instead. Inside a loop
-fusion, XLA's CPU backend (LLVM) contracts each ``add`` that has a
-``multiply`` operand of one use into a fused multiply-add; where both
-operands are products it takes the first, after its reassociation pass
-has put the deeper operand first. So a tap chain ``w0*s0 + w1*s1 + ... +
-wn*sn`` becomes ``fma(sn, wn, ... fma(s2, w2, fma(s0, w0, w1*s1)))``, and
-Scharr's ``h*h + v*v`` becomes ``fma(h, h, v*v)``; ``/ sqrt(2)`` is a
-multiply by the float32 reciprocal. Which adds are contracted depends on
-the fusion boundaries of the whole graph. This form reproduces
-every vmapped JAX graph of the CT mask stage bit for bit (its edges, and
-the Otsu thresholds of :mod:`.threshold`). An unvmapped 2D graph computes
-the reflect-padded border columns of its second pass in fusions of their
-own, where LLVM shares the product of a symmetric tap between
+TF32 on the card). Their sums are those a jitted JAX graph gives on the
+CPU. Inside a loop fusion, XLA's CPU backend (LLVM) contracts each
+``add`` that has a ``multiply`` operand of one use into a fused
+multiply-add; where both operands are products it takes the first, after
+its reassociation pass has put the deeper operand first. So a tap chain
+``w0*s0 + w1*s1 + ... + wn*sn`` becomes ``fma(sn, wn, ... fma(s2, w2,
+fma(s0, w0, w1*s1)))``, and Scharr's ``h*h + v*v`` becomes ``fma(h, h,
+v*v)``; ``/ sqrt(2)`` is a multiply by the float32 reciprocal.
+:func:`gaussian_filter`, :func:`scharr_component` and :func:`scharr` always
+take this form: it reproduces JAX's jitted ``gaussian_filter`` (1D and 2D)
+and every vmapped JAX graph of the CT mask stage bit for bit (its edges,
+and the Otsu thresholds of :mod:`.threshold`). An unvmapped 2D ``scharr``
+computes the reflect-padded border columns of its second pass in fusions
+of their own, where LLVM shares the product of a symmetric tap between
 neighbouring rows and does not contract it; there the port differs in
-the last bit at some border pixels. An FMA is taken as
-:func:`.stats.fma_f32` takes it, a float64 product plus the addend
-rounded once, the same on the CPU and on the card; square roots are
-:func:`.stats.sqrt_f32`'s correctly rounded ones.
+the last bit at some border pixels. :func:`correlate1d` and
+:func:`gaussian_filter1d` round each multiply and add on its own unless
+the caller passes ``fused=True``: which adds a graph contracts depends on
+its fusion boundaries, so a 1D pass inside a larger JAX graph is the
+caller's to match. An FMA is taken as :func:`.stats.fma_f32` takes it, a
+float64 product plus the addend rounded once, the same on the CPU and on
+the card; square roots are :func:`.stats.sqrt_f32`'s correctly rounded
+ones.
 """
 
 from __future__ import annotations
@@ -136,14 +139,13 @@ def gaussian_filter1d(x: torch.Tensor, sigma: float, dim: int = -1,
 
 
 def gaussian_filter(x: torch.Tensor, sigma: float, truncate: float = 4.0,
-                    dims: tuple[int, ...] | None = None,
-                    fused: bool = False) -> torch.Tensor:
+                    dims: tuple[int, ...] | None = None) -> torch.Tensor:
     """Separable Gaussian over ``dims`` (every dim when None, as
     scipy.ndimage.gaussian_filter); a batch of images passes ``(-2, -1)``.
-    ``fused`` gives the sums as a jitted JAX graph does (module docstring)."""
+    The sums are XLA's contracted ones (module docstring)."""
     out = x.to(torch.float32)
     for d in range(x.dim()) if dims is None else dims:
-        out = gaussian_filter1d(out, sigma, dim=d, truncate=truncate, fused=fused)
+        out = gaussian_filter1d(out, sigma, dim=d, truncate=truncate, fused=True)
     return out
 
 
@@ -164,14 +166,14 @@ def sobel(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return out
 
 
-def scharr_component(x: torch.Tensor, dim: int, fused: bool = False) -> torch.Tensor:
+def scharr_component(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Scharr derivative along ``dim`` of the image in the last two dims of
-    ``x``, smoothed along the other one."""
+    ``x``, smoothed along the other one, in XLA's contracted sums."""
     out = x.to(torch.float32)
     dim = dim % x.dim()
     for d in (x.dim() - 2, x.dim() - 1):
         out = correlate1d(out, _SCHARR_D / 2.0 if d == dim else _SCHARR_S, dim=d,
-                          fused=fused)
+                          fused=True)
     return out
 
 
@@ -179,12 +181,10 @@ def scharr_component(x: torch.Tensor, dim: int, fused: bool = False) -> torch.Te
 _INV_SQRT2 = float(np.float32(1.0) / np.float32(math.sqrt(2.0)))
 
 
-def scharr(x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+def scharr(x: torch.Tensor) -> torch.Tensor:
     """Scharr gradient magnitude (skimage.filters.scharr-like) of an (H, W)
-    image or of each image of a (B, H, W) batch; ``fused`` as a jitted JAX
-    graph gives it (module docstring)."""
-    h = scharr_component(x, -2, fused)
-    v = scharr_component(x, -1, fused)
-    if fused:
-        return sqrt_f32(fma_f32(h, h, v * v)) * _INV_SQRT2
-    return torch.sqrt(h * h + v * v) / math.sqrt(2.0)
+    image or of each image of a (B, H, W) batch, as a jitted JAX graph
+    gives it (module docstring)."""
+    h = scharr_component(x, -2)
+    v = scharr_component(x, -1)
+    return sqrt_f32(fma_f32(h, h, v * v)) * _INV_SQRT2

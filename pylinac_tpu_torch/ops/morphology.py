@@ -7,10 +7,11 @@ Port of ``pylinac_tpu/ops/morphology.py``: ``_disk_kernel`` ``:19``,
 ``:125``, ``binary_erosion`` ``:131``, ``binary_closing`` ``:137``,
 ``rotate_footprint`` ``:142``.
 
-The binary convolutions count pixels: a float32 ``conv2d`` of 0/1 values,
-integers below 2**24 and exact in any order, with TF32 off on the card
-(TF32 would round nothing here, but no convolution of the port runs with
-it). Labels come from :func:`.ccl.label_batch` at B = 1 (``csrc/ccl.cu``
+The binary convolutions count pixels: a float32 ``conv2d`` of 0/1 values
+with TF32 off on the card, rounded to the nearest integer. A direct sum of
+such counts is exact in any order, but cuDNN may pick an FFT or Winograd
+algorithm for a shape, whose counts come back a few ulps off (8.9999995,
+1e-7); the rounding makes them exact whatever the algorithm. Labels come from :func:`.ccl.label_batch` at B = 1 (``csrc/ccl.cu``
 on the card). ``block_reduce`` and ``rotate_footprint`` are host numpy in
 both packages.
 """
@@ -41,12 +42,13 @@ def _no_tf32(device: torch.device):
 
 def _correlate_counts(x: torch.Tensor, kernel: np.ndarray, pads: tuple[int, int, int, int],
                       value: float = 0.0) -> torch.Tensor:
-    """Float32 (H', W') correlation of a float32 (H, W) 0/1 image with a 0/1
-    kernel after a constant pad (left, right, top, bottom)."""
+    """Counts of the (H', W') correlation of a float32 (H, W) 0/1 image with a
+    0/1 kernel after a constant pad (left, right, top, bottom), as whole
+    float32 numbers."""
     k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
     xp = F.pad(x[None, None], pads, value=value)
     with _no_tf32(x.device):
-        return F.conv2d(xp, k[None, None])[0, 0]
+        return torch.round(F.conv2d(xp, k[None, None])[0, 0])
 
 
 def isotropic_erosion(mask: torch.Tensor, radius: float) -> torch.Tensor:

@@ -187,9 +187,12 @@ def _onehot_sums(values: torch.Tensor, slot: torch.Tensor, k: int) -> torch.Tens
     on one card), over pieces of ``_SPLIT`` pixels whose partial sums a
     float64 ``sum`` adds, rounded once to float32. Float32 values times the
     0/1 one-hot are exact in float64, so sums of integers below 2**53
-    (counts, coordinates, their squares and products) come out exact, and
-    the other sums differ from float32 sums in pixel order only in
-    float32's last bits."""
+    (counts, coordinates, their squares and products) come out exact. The
+    CPU's float32 running sums of such integers are exact only below
+    2**24: past it (the second moments of a region in a window of some
+    hundreds of pixels) the two devices' sums differ by more than float32's
+    last bit, and the CPU's, like JAX's, are the inexact ones. The other
+    sums differ from float32 sums in pixel order in float32's last bits."""
     b, n, c = values.shape
     pad = -n % _SPLIT
     v = torch.nn.functional.pad(values.to(torch.float64), (0, 0, 0, pad))

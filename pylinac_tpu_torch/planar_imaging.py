@@ -17,8 +17,8 @@ Detection runs on ``analyze``'s ``device`` (``None`` means CUDA):
 :func:`.ops.edges.canny` on the frame, then ``keep_largest`` (K = 96,
 8-connected) and ``regionprops`` (K = 128, no hull), which label through
 ``csrc/ccl.cu``. The FC-2 family's 3x3 medians run ``csrc/median3x3.cu``
-on the frame, its high-pass Gaussian the fused correlation of
-:mod:`.ops.filters`; the mammography fibres run :func:`.ops.vesselness.frangi`,
+on the frame, its high-pass Gaussian in XLA's contracted sums
+(:mod:`.ops.filters`); the mammography fibres run :func:`.ops.vesselness.frangi`,
 a binary closing and ``regionprops`` on the device. ROI sampling, MTF and
 contrast are host numpy, as in JAX; the circle profiles stay on the CPU.
 The class-level ROI lists are shared between instances, as in JAX.
@@ -639,8 +639,8 @@ class StandardImagingFC2(ImagePhantomBase):
                 arr = self.image.array.astype(np.float32)
                 bb_radius_px = self.bb_size_mm / 2 * self.image.dpmm
                 bg = gaussian_filter(torch.from_numpy(arr).to(device),
-                                     float(bb_radius_px * self.kernel_size_multiplier),
-                                     fused=True).cpu().numpy()
+                                     float(bb_radius_px * self.kernel_size_multiplier)
+                                     ).cpu().numpy()
                 self.image.array = arr - bg
                 self.image.filter(size=3, kind="median", device=device)
             points = self.image.compute(

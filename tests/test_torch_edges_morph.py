@@ -16,7 +16,10 @@ kept by both, and the analyses agree). The morphology is exact (masks equal); ``
 takes ``exp`` in float64 where XLA has its own float32 polynomial, so its
 values agree within 2 ulp of 1 (2.4e-7) and the Yen masks of the fibre
 test images are equal. The Hough transform and its peaks are host numpy
-in both packages and equal.
+in both packages and equal. The ``cuda`` test holds the binary
+morphology on the card against the CPU at the fibre ROIs' footprint and
+window shapes: ``python -m pytest --noconftest -m cuda
+tests/test_torch_edges_morph.py``.
 """
 
 import numpy as np
@@ -256,6 +259,29 @@ def test_rotated_footprint_closing(jax_cpu, mask, angle):
         j = np.asarray(getattr(jm, name)(jnp.asarray(mask), fp))
         t = getattr(tmorph, name)(torch.from_numpy(mask), fp).numpy()
         np.testing.assert_array_equal(t, j, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", [45, -45])
+def test_card_morphology_equals_cpu(angle):
+    """The binary counts on the card (cuDNN picks the convolution's
+    algorithm) against the CPU's, with the fibre ROIs' footprint at 0.07 mm
+    (``rotate_footprint(ones((5, 29)), -angle)``, ``max_gap`` 4 mm) at the
+    fibre windows' shapes, on sparse ridge-like and dense masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fp = tmorph.rotate_footprint(np.ones((5, int(np.ceil(4.0 * 0.5 / 0.07)))), -angle)
+    rng = np.random.default_rng(angle % 97)
+    for shape in [(279, 279), (280, 281), (286, 286), (97, 103)]:
+        for density in (0.02, 0.5):
+            m = torch.from_numpy(rng.random(shape) < density)
+            for name in ("binary_dilation", "binary_erosion", "binary_closing"):
+                got = getattr(tmorph, name)(m.cuda(), fp).cpu()
+                np.testing.assert_array_equal(got, getattr(tmorph, name)(m, fp),
+                                              err_msg=f"{name} {shape} {density}")
+            for radius in (1.5, 3, 7.5):
+                np.testing.assert_array_equal(tmorph.isotropic_erosion(m.cuda(), radius).cpu(),
+                                              tmorph.isotropic_erosion(m, radius))
 
 
 def test_block_reduce(mask):

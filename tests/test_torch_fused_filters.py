@@ -1,4 +1,4 @@
-"""The port's filter sums against XLA's on the CPU: the fused forms of
+"""The port's filter sums against XLA's on the CPU: the contracted forms of
 ``pylinac_tpu_torch.ops.filters`` and the Otsu running sums of
 ``ops.threshold`` against the jitted JAX graphs they stand for.
 
@@ -15,6 +15,8 @@ of its second pass in fusions of their own (``ops/filters`` docstring):
 there the port holds every interior pixel and differs only in those two
 columns. ``canny`` is in ``test_torch_edges_morph.py``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -108,13 +110,30 @@ def test_cirs_watch_list_threshold_and_masks_equal_jax(jax_cpu, cirs_vol):
     np.testing.assert_array_equal(t_masks.numpy(), j_masks)
 
 
+def _unfused_edges(x):
+    """Scharr then a sigma-1 Gaussian over the last two dims with each
+    multiply and add rounded on its own: the port's sums before they took
+    XLA's contractions."""
+    def comp(dim):
+        out = x
+        for d in (x.dim() - 2, x.dim() - 1):
+            out = tf.correlate1d(out, tf._SCHARR_D / 2.0 if d == dim else tf._SCHARR_S, dim=d)
+        return out
+
+    h, v = comp(x.dim() - 2), comp(x.dim() - 1)
+    out = torch.sqrt(h * h + v * v) / math.sqrt(2.0)
+    for d in (-2, -1):
+        out = tf.gaussian_filter1d(out, 1.0, dim=d)
+    return out
+
+
 def test_cirs_watch_list_unfused_sums_flip_the_bin(cirs_vol):
     """The fault the fused forms close: with each op rounded and torch's
     float64-accumulated ``cumsum``, slice 1 gets 83.213486."""
     ds, vol = cirs_vol
     n, h, w = vol.shape
     pooled = torch.from_numpy(vol).reshape(n, h // ds, ds, w // ds, ds).mean(dim=(2, 4))
-    edges = tf.gaussian_filter(tf.scharr(pooled.clamp(-1000, 1000)), 1.0, dims=(-2, -1))
+    edges = _unfused_edges(pooled.clamp(-1000, 1000))
     flat = edges[1].reshape(-1)
     vmin, vmax = flat.min(), flat.max()
     span = vmax - vmin
@@ -165,12 +184,12 @@ def test_fused_scharr_equals_jax_vmapped(jax_cpu, shape):
     x = (rng.random(shape) * 3000 - 1000).astype(np.float32)
     j_s = np.asarray(jax_cpu.jit(jax_cpu.vmap(scharr))(x))
     j_e = np.asarray(jax_cpu.jit(jax_cpu.vmap(lambda s: gaussian_filter(scharr(s), 1.0)))(x))
-    t_s = tf.scharr(torch.from_numpy(x), fused=True)
+    t_s = tf.scharr(torch.from_numpy(x))
     np.testing.assert_array_equal(t_s.numpy(), j_s)
-    t_e = tf.gaussian_filter(t_s, 1.0, dims=(-2, -1), fused=True)
+    t_e = tf.gaussian_filter(t_s, 1.0, dims=(-2, -1))
     np.testing.assert_array_equal(t_e.numpy(), j_e)
-    # the unfused form, kept for the other callers, is not XLA's
-    assert (tf.scharr(torch.from_numpy(x)).numpy() != j_s).any()
+    # each op rounded on its own is not XLA's
+    assert (_unfused_edges(torch.from_numpy(x)).numpy() != j_e).any()
 
 
 @pytest.mark.parametrize("shape", [(64, 80), (131, 97)])
@@ -181,21 +200,25 @@ def test_fused_scharr_2d_graph_differs_only_in_border_columns(jax_cpu, shape):
     rng = np.random.default_rng(shape[0])
     x = (rng.random(shape) * 3000 - 1000).astype(np.float32)
     j = np.asarray(scharr(x))
-    t = tf.scharr(torch.from_numpy(x), fused=True).numpy()
+    t = tf.scharr(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(t[:, 1:-1], j[:, 1:-1])
     assert (t != j).mean() < 0.02
 
 
 @pytest.mark.parametrize("sigma", [0.5, 1.0, 2.0, 3.0])
 def test_fused_gaussian_equals_jax_2d(jax_cpu, sigma):
-    """The standalone jitted ``gaussian_filter`` (the FC-2 high-pass)."""
+    """The standalone jitted ``gaussian_filter`` (the FC-2 high-pass,
+    ``array_utils.filter(kind="gaussian")``, the CT wire-ramp blur), in 2D
+    and on a 1D profile."""
     from pylinac_tpu.ops.filters import gaussian_filter
 
     rng = np.random.default_rng(int(sigma * 10))
     x = (rng.random((90, 110)) * 1000).astype(np.float32)
     j = np.asarray(gaussian_filter(x, sigma))
-    t = tf.gaussian_filter(torch.from_numpy(x), sigma, fused=True)
+    t = tf.gaussian_filter(torch.from_numpy(x), sigma)
     np.testing.assert_array_equal(t.numpy(), j)
+    np.testing.assert_array_equal(tf.gaussian_filter(torch.from_numpy(x[7]), sigma).numpy(),
+                                  np.asarray(gaussian_filter(x[7], sigma)))
 
 
 @pytest.mark.parametrize("n", [1, 7, 16, 17, 100, 256, 300, 1000])
