@@ -144,6 +144,31 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   ``FieldProfileAnalysis`` of an AS1200 open field under each edge (host
   code) against the drawn 150 mm. Its median launches join the median's
   entry of the kernels line;
+- nuclear medicine: a two-frame 1024x1024 intrinsic flood at 0.56 mm
+  (30 M counts a frame; NEMA bins it by 8), 120 COR projections of
+  128x128 at 4.8 mm (the axis 0.5 px off the frame's centre), a 128^3
+  reconstructed point source and a 128-slice Jaszczak cylinder with six
+  cold spheres at 4.42 mm, four-bar and quadrant-bar frames of 1024x1024,
+  a 120-frame dynamic series and sensitivity frames, all drawn with numpy
+  and written as NM DICOM, through the nine classes of ``nuclear.py`` on
+  the card: the CCL launches counted (128 + 128 for the cylinder's slice
+  search) and every input held bit-equal to the twins, the drawn truths,
+  card against CPU at the bars (the binary frames and FOVs equal), warm
+  runs equal; the kernel timed at the phase's (1, 128, 128). Its lines
+  join the kernels line as ``ccl_label_nuclear`` and ``ccl_holes_nuclear``;
+- machine logs: one VMAT arc as a 4000-snapshot trajectory log (20 ms)
+  and as a 1600-snapshot dynalog pair (50 ms), 120 Millennium leaves:
+  the card's fluence equal over 11 runs and to the CPU's within 1e-6 of
+  its maximum, gamma and RMS card against CPU, warm ms of ``calc_map``,
+  its equal-aspect 4000x4000 form and the gamma; ``interval_fluence``
+  timed at (60, 4001); a folder of 10 trajectory logs and 10 dynalog pairs
+  through ``MachineLogs.avg_gamma`` and ``avg_gamma_pct`` against the CPU;
+  ``PicketFence(path, log=...)`` on an AS1200 picket fence and its
+  delivery log against the CPU, warm runs equal (this path launches the
+  median kernel only if the de-spike fires);
+- stage tables: one warm run each of the PF batch, the CatPhan batch and
+  ACR CT under ``profiling.collect()``, and the launch and copy counts of
+  a warm CatPhan batch under ``profiling.count_dispatches()``;
 - multi-target Winston-Lutz: writes the SNC MultiMet session (6 BBs in 6
   fields of 20 mm, 8 AS1200 frames: gantry 0, 45, 135, 180, 225, 315 and
   gantry 0 at couch 45 and 315) and a copy with every BB 1 mm left, runs
@@ -862,6 +887,8 @@ def picket_fence_phase(card: str, median) -> dict:
         print(f"[{card}] warm analyze + results_data of {N_FRAMES} frames: "
               f"median {warm * 1e3:.1f} ms of 5 runs = {N_FRAMES / warm:.1f} frames/s "
               f"(runs ms: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])})")
+        stage_table(card, f"PicketFenceBatch of {N_FRAMES} frames",
+                    lambda: (batch.analyze(tolerance=0.5, device="cuda"), batch.results_data()))
 
         frames = batch._stage_cache[1].to(torch.float32)
         kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference,
@@ -965,6 +992,13 @@ def catphan_phase(card: str, ccl) -> list[dict]:
               f"{n_slices / warm:.1f} slices/s "
               f"(runs ms: {', '.join(f'{t * 1e3:.1f}' for t in times[1:])})")
         device_profile(card, "CatPhan", warm_batch, warm * 1e3)
+        stage_table(card, f"CatPhanBatch of {CT_SCANS} scans", warm_batch)
+        from pylinac_tpu_torch import profiling
+
+        with profiling.count_dispatches() as counts:
+            warm_batch()
+        print(f"[{card}] count_dispatches of a warm CatPhanBatch of {CT_SCANS} scans: "
+              f"{json.dumps(counts.as_dict())}")
 
         # every distinct input of the batch run in each mode: the pooled
         # localisation slices (240, 256, 256), the roll slices (4, 512, 512)
@@ -1482,6 +1516,24 @@ def same_warnings(card_data: dict, cpu_data: dict, what: str) -> None:
         raise RuntimeError(f"{what}: the card's warnings {proj(card_data)} are not the CPU's "
                            f"{proj(cpu_data)}")
     print(f"{what}: card and CPU warnings equal on (message, category): {proj(card_data)}")
+
+
+def stage_table(card: str, what: str, run) -> None:
+    """One warm ``run()`` under ``profiling.collect()``: its stage table
+    (the JAX package's stage names, host wall clock; a stage ends where
+    its code does, so queued device work is charged to whichever stage
+    next waits for it)."""
+    from pylinac_tpu_torch import profiling
+
+    with profiling.collect() as times:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if not times.stages:
+        raise RuntimeError(f"the {what} run timed no stage")
+    print(f"[{card}] stage table of a warm {what} run (wall {wall:.1f} ms):")
+    print(times.report())
 
 
 def median_runs(card: str, what: str, run, n: int = WARM_RUNS) -> tuple[float, list]:
@@ -3708,6 +3760,8 @@ def ct_siblings_phase(card: str, ccl, flood) -> tuple[int, float, list[dict]]:
             warm, outs = median_runs(card, f"warm {name} analyze + results_data of {key}",
                                      warm_run, WARM_RUNS)
             check_same_texts([results_text(o) for o in outs], f"{name} warm runs")
+            if name == "ACRCT":
+                stage_table(card, "ACRCT of 32 slices", warm_run)
             if name == "ACRMRILarge":
                 fresh = [classes[name](d[key])]
                 device_profile(card, "ACR MRI Large analyze", warm_run, warm)
@@ -4186,6 +4240,491 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     return totals["median"], worst.get("median", 0.0), lines
 
 
+# the nuclear-medicine suite (nuclear.py): the phase's inputs at clinical
+# sizes; the planar frames at 0.56 mm, the largest pixel NEMA bins by 8
+# (0.55 mm would bin by 16: 8 x 0.55 = 4.4 mm < 4.48 mm)
+NM_PLANAR_MM = 0.56
+NM_PLANAR_SHAPE = (1024, 1024)
+NM_FLOOD_COUNTS = 30e6          # counts a frame (NEMA NU 1 intrinsic flood)
+NM_SPECT_MM = 4.42
+NM_SPECT_SIZE = 128
+NM_COR_MM = 4.8
+NM_COR_AXIS_PX = 64.5           # the axis of rotation 0.5 px off the frame's centre
+NM_COR_RADIUS_PX = 15
+NM_COR_STEP = 3.0               # degrees: 120 projections over 360
+NM_POINT_XYZ = (64.3, 63.6, 64.4)   # near the centre, where the fit starts
+NM_POINT_SIGMA = (1.8, 2.2)     # px in-plane and along z
+NM_CYLINDER_SLICES = (40, 82)   # a 186 mm Jaszczak cylinder of 216 mm
+NM_SPHERE_SLICE = 70
+NM_SPHERES = ((-10, 38), (-70, 31.8), (-130, 25.4), (-190, 19.1), (110, 15.9), (50, 12.7))
+NM_LSF_FWHM_MM = 3.5            # the bars' drawn line spread
+NM_BAR_SEPARATION_MM = 100
+NM_BAR_WIDTHS = (3.5, 3.0, 2.5, 2.0)
+NM_MCR_FRAMES = 120
+NM_MCR_PEAK = 72
+NM_CLASSES_WITH_CCL = ("PlanarUniformity", "TomographicUniformity", "TomographicContrast")
+
+
+def write_nm(path: str, frames, pixel_spacing: float, extra: dict | None = None) -> str:
+    """A multi-frame NM DICOM of uint16 ``frames``, written with the port's
+    DICOM writer."""
+    from pylinac_tpu_torch.core import dcm
+
+    ds = dcm.Dataset()
+    ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.20"
+    ds.SOPInstanceUID = dcm.generate_uid()
+    ds.StudyInstanceUID = dcm.generate_uid()
+    ds.SeriesInstanceUID = dcm.generate_uid()
+    ds.Modality = "NM"
+    ds.PatientName = "NM^Smoke"
+    ds.PatientID = "NM1"
+    ds.PixelSpacing = [pixel_spacing, pixel_spacing]
+    for k, v in (extra or {}).items():
+        setattr(ds, k, v)
+    ds.set_pixel_data(np.clip(np.asarray(frames), 0, 65535).astype(np.uint16))
+    dcm.dcmwrite(path, ds)
+    return path
+
+
+def _gauss(shape, centre, sigma, amp):
+    grids = np.ogrid[tuple(slice(0, n) for n in shape)]
+    r2 = sum(((g - c) / s) ** 2 for g, c, s in zip(grids, centre, sigma))
+    return amp * np.exp(-r2 / 2)
+
+
+def nuclear_inputs(tmp: str) -> dict[str, str]:
+    """The phase's NM files, drawn with numpy from seed 16: the flood, the
+    COR projections, the point source, the Jaszczak cylinder, the four-bar
+    and quadrant frames, the dynamic series and the sensitivity frames."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(16)
+    h, w = NM_PLANAR_SHAPE
+    rows, cols = int(400 / NM_PLANAR_MM), int(540 / NM_PLANAR_MM)   # a 540 x 400 mm UFOV
+    r0, c0 = (h - rows) // 2, (w - cols) // 2
+    mean = NM_FLOOD_COUNTS / (rows * cols)
+    floods = []
+    for dip in (0.0, 0.05):   # the second frame has a 5 % cold spot
+        lam = np.zeros((h, w))
+        lam[r0:r0 + rows, c0:c0 + cols] = mean
+        lam *= 1 - dip * np.exp(-(((np.arange(h)[:, None] - 400) ** 2
+                                   + (np.arange(w)[None, :] - 600) ** 2) / (2 * 30 ** 2)))
+        floods.append(rng.poisson(lam))
+    files = {"flood": write_nm(f"{tmp}/flood.dcm", floods, NM_PLANAR_MM)}
+
+    rot = _nm_rotation("CW", 0.0, NM_COR_STEP)
+    n = int(round(360 / NM_COR_STEP))
+    cor = [rng.poisson(_gauss((NM_SPECT_SIZE,) * 2,
+                              (60.0, NM_COR_AXIS_PX + NM_COR_RADIUS_PX
+                               * np.sin(np.radians(-NM_COR_STEP * i))), (1.5, 1.5), 2000.0))
+           for i in range(n)]
+    files["cor"] = write_nm(f"{tmp}/cor.dcm", cor, NM_COR_MM,
+                            {"RotationInformationSequence": rot})
+
+    x, y, z = NM_POINT_XYZ
+    sxy, sz = NM_POINT_SIGMA
+    point = rng.poisson(_gauss((NM_SPECT_SIZE,) * 3, (z, y, x), (sz, sxy, sxy), 5000.0))
+    files["point"] = write_nm(f"{tmp}/point.dcm", point, NM_SPECT_MM,
+                              {"SpacingBetweenSlices": NM_SPECT_MM})
+    files["jaszczak"] = write_nm(f"{tmp}/jaszczak.dcm", draw_jaszczak(rng), NM_SPECT_MM,
+                                 {"SpacingBetweenSlices": NM_SPECT_MM})
+
+    sigma_px = NM_LSF_FWHM_MM / 2.3548 / NM_PLANAR_MM
+    yy, xx = np.mgrid[:h, :w]
+    bars = np.full((h, w), 20.0)
+    for off in (-1, 1):
+        c = h / 2 + off * NM_BAR_SEPARATION_MM / 2 / NM_PLANAR_MM
+        bars += 400 * np.exp(-((xx - c) ** 2) / (2 * sigma_px ** 2))
+        bars += 400 * np.exp(-((yy - c) ** 2) / (2 * sigma_px ** 2))
+    files["fourbar"] = write_nm(f"{tmp}/fourbar.dcm", [rng.poisson(bars)], NM_PLANAR_MM,
+                                {"Rows": h, "Columns": w})
+    quad = np.zeros((h, w))
+    for angle, width in zip((45, -45, -135, 135), NM_BAR_WIDTHS):
+        rows_q = (yy >= h / 2) if np.sin(np.radians(angle)) > 0 else (yy < h / 2)
+        cols_q = (xx >= w / 2) if np.cos(np.radians(angle)) > 0 else (xx < w / 2)
+        stripes = (np.floor(xx * NM_PLANAR_MM / width) % 2 == 0)
+        quad[rows_q & cols_q & stripes] = 400.0
+    quad = gaussian_filter(quad, sigma_px) + 100.0
+    files["quad"] = write_nm(f"{tmp}/quad.dcm", [rng.poisson(quad)], NM_PLANAR_MM,
+                             {"Rows": h, "Columns": w})
+
+    xr = (np.arange(NM_MCR_FRAMES) + 1) / (NM_MCR_PEAK + 1)
+    rate = 200 * xr * np.exp(1 - xr)   # a paralysable camera: the peak at frame 72
+    files["mcr"] = write_nm(f"{tmp}/mcr.dcm",
+                            rng.poisson(rate[:, None, None] * np.ones((1, 128, 128))), 4.8)
+    files["sens"] = write_nm(f"{tmp}/sens.dcm", [rng.poisson(np.full((128, 128), 80.0))], 4.8,
+                             {"ActualFrameDuration": 60000})
+    files["sens_bg"] = write_nm(f"{tmp}/sens_bg.dcm", rng.poisson(np.full((3, 128, 128), 2.0)),
+                                4.8, {"ActualFrameDuration": 60000})
+    return files
+
+
+def _nm_rotation(direction: str, start: float, step: float) -> list:
+    from pylinac_tpu_torch.core import dcm
+
+    item = dcm.Dataset()
+    item.RotationDirection = direction
+    item.StartAngle = start
+    item.AngularStep = step
+    return [item]
+
+
+def nm_sphere_centres() -> list[tuple[float, float]]:
+    """The drawn spheres' (x, y) px: at 0.65 of the eroded FOV's radius,
+    where the analysis starts its search."""
+    c = NM_SPECT_SIZE / 2
+    radius = 108 / NM_SPECT_MM
+    dist = (radius - round(0.2 * 2 * radius) / 2) * 0.65
+    return [(c + np.cos(np.radians(a)) * dist, c + np.sin(np.radians(a)) * dist)
+            for a, _ in NM_SPHERES]
+
+
+def draw_jaszczak(rng) -> np.ndarray:
+    """A reconstructed Jaszczak cylinder (216 mm, 186 mm tall) in a 128-slice
+    volume, its radius jittered a little by slice as a reconstruction's is,
+    with the six cold spheres on one slice."""
+    n, c = NM_SPECT_SIZE, NM_SPECT_SIZE / 2
+    radius = 108 / NM_SPECT_MM
+    yy, xx = np.mgrid[:n, :n]
+    vol = np.zeros((n, n, n))
+    z0, z1 = NM_CYLINDER_SLICES
+    for z in range(z0, z1):
+        vol[z] = np.where((yy - c) ** 2 + (xx - c) ** 2 < (radius + rng.uniform(-0.3, 0.3)) ** 2,
+                          1000.0, 0.0)
+    vol += rng.normal(0, 5, vol.shape).clip(-20, 20) * (vol > 0)
+    zz, yy3, xx3 = np.ogrid[:n, :n, :n]
+    for (cx, cy), (_, diam) in zip(nm_sphere_centres(), NM_SPHERES):
+        r = diam / (2 * NM_SPECT_MM)
+        vol[(xx3 - cx) ** 2 + (yy3 - cy) ** 2 + (zz - NM_SPHERE_SLICE) ** 2 <= r ** 2] = 300.0
+    return vol.clip(0)
+
+
+def nm_tol(path: str, a: float) -> float:
+    """The parity bars: mm 0.01 and % 0.1, other floats 1e-6 relative."""
+    key = path.rsplit("/", 1)[-1]
+    if any(s in key for s in ("uniformity", "difference", "contrast")) or key == "mtf":
+        return PCT_TOL
+    if any(s in key for s in ("fwhm", "fwtm", "deviation", "pixel_size")) or \
+            key in ("x", "y", "z", "radius", "spacing"):
+        return MM_TOL
+    return 1e-6 * max(abs(a), 1.0)
+
+
+def nm_make(name: str, files: dict):
+    from pylinac_tpu_torch import nuclear
+
+    if name == "SimpleSensitivity":
+        return nuclear.SimpleSensitivity(files["sens"], background_path=files["sens_bg"])
+    return getattr(nuclear, name)(files[NM_RUNS[name][0]])
+
+
+def nm_check(name: str, obj, data: dict, what: str) -> None:
+    """The drawn geometry and counts each analysis must find."""
+    sigma_mm = NM_LSF_FWHM_MM / 2.3548
+    if name == "PlanarUniformity":
+        f1, f2 = data["Frame 1"], data["Frame 2"]
+        ok = (0 < f1["ufov_integral_uniformity"] < 5
+              and f2["ufov_integral_uniformity"] > f1["ufov_integral_uniformity"]
+              and obj.frame_results["1"]["binned_frame"].shape == (128, 128))
+    elif name == "CenterOfRotation":
+        axis_mm = NM_COR_AXIS_PX * NM_COR_MM + NM_COR_MM / 2
+        ok = (abs(obj.cor_x["a"] - axis_mm) < 0.05
+              and abs(abs(obj.cor_x["b"]) - NM_COR_RADIUS_PX * NM_COR_MM) < 0.1
+              and data["x_deviation_mm"] < 0.5 and data["y_deviation_mm"] < 0.5)
+    elif name == "TomographicResolution":
+        sxy, sz = NM_POINT_SIGMA
+        ok = (abs(data["x_fwhm"] / (2.3548 * sxy * NM_SPECT_MM) - 1) < 0.05
+              and abs(data["y_fwhm"] / (2.3548 * sxy * NM_SPECT_MM) - 1) < 0.05
+              and abs(data["z_fwhm"] / (2.3548 * sz * NM_SPECT_MM) - 1) < 0.05)
+    elif name == "TomographicUniformity":
+        ok = data["ufov_integral_uniformity"] < 10 and abs(data["center_border_ratio"] - 1) < 0.05
+    elif name == "TomographicContrast":
+        spheres = data["spheres"]
+        # the four spheres of 19 mm and more found at their drawn centres;
+        # the search may miss the two smallest (3.6 and 2.9 voxels across)
+        ok = (len(spheres) == 6 and spheres["1"]["mean_contrast"] > 40
+              and all(np.hypot(s["x"] - cx, s["y"] - cy) < 1.5
+                      and abs(s["z"] - NM_SPHERE_SLICE) <= 1
+                      for s, (cx, cy) in zip(list(spheres.values())[:4], nm_sphere_centres())))
+    elif name == "FourBarResolution":
+        ok = all(abs(data[f"{a}_measured_pixel_size"] / NM_PLANAR_MM - 1) < 0.01
+                 and abs(data[f"{a}_fwhm"] / (2.3548 * sigma_mm) - 1) < 0.1 for a in "xy")
+    elif name == "QuadrantResolution":
+        mtfs = [q["mtf"] for q in data["quadrants"].values()]
+        ok = all(a > b for a, b in zip(mtfs, mtfs[1:]))
+    elif name == "MaxCountRate":
+        ok = abs(data["max_frame"] - NM_MCR_PEAK) <= 10
+    else:   # SimpleSensitivity: the counts a second of the files, by numpy
+        from pylinac_tpu_torch.core import dcm
+
+        cps = float(dcm.dcmread(obj.phantom_path).pixel_array.sum()) / 60
+        bg = float(dcm.dcmread(obj.background_path).pixel_array.astype(np.float32)
+                   .mean(axis=0).sum()) / 60
+        ok = abs(data["phantom_cps"] - cps) < 1e-6 * cps and abs(data["background_cps"] - bg) < 1e-3
+    if not ok:
+        raise RuntimeError(f"{what}: the drawn truth is not met: {json.dumps(data)[-900:]}")
+
+
+# class -> (file, analyze arguments)
+NM_RUNS = {
+    "PlanarUniformity": ("flood", {}),
+    "CenterOfRotation": ("cor", {}),
+    "TomographicResolution": ("point", {}),
+    "TomographicUniformity": ("jaszczak", {"first_frame": 44, "last_frame": 64}),
+    "TomographicContrast": ("jaszczak", {}),
+    "FourBarResolution": ("fourbar", {"separation_mm": NM_BAR_SEPARATION_MM}),
+    "QuadrantResolution": ("quad", {"bar_widths": NM_BAR_WIDTHS}),
+    "MaxCountRate": ("mcr", {"frame_duration": 0.5}),
+    "SimpleSensitivity": ("sens", {"activity_mbq": 370.0}),
+}
+
+
+def nm_analyze(name: str, obj, device: str) -> dict:
+    from pylinac_tpu_torch.nuclear import Nuclide
+
+    kwargs = dict(NM_RUNS[name][1])
+    if name == "SimpleSensitivity":
+        kwargs["nuclide"] = Nuclide.Tc99m
+    obj.analyze(**kwargs, device=device)
+    data = obj.results_data(as_dict=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return data
+
+
+def nuclear_phase(card: str, ccl) -> list[dict]:
+    """The nine nuclear-medicine classes on the card at clinical sizes: each
+    analysis's CCL launches counted (the region searches of ``get_fov`` and
+    of every ``slice_data`` slice, the small-object and small-hole removal;
+    128 + 128 for the 128-slice cylinder) and every input held bit-equal to
+    the twins, the drawn truths, card against CPU at the bars, warm runs (1,
+    then 5 timed, each on a fresh object) equal; the kernels timed at the
+    phase's mask shape. Returns the CCL lines."""
+    from pylinac_tpu_torch.ops import morphology as tmorph
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nm_")
+    try:
+        t0 = time.perf_counter()
+        files = nuclear_inputs(tmp)
+        print(f"inputs: a 2 x {NM_PLANAR_SHAPE[0]} x {NM_PLANAR_SHAPE[1]} flood at "
+              f"{NM_PLANAR_MM} mm ({NM_FLOOD_COUNTS:.0e} counts a frame), 120 COR projections "
+              f"of 128 x 128 at {NM_COR_MM} mm, a 128^3 point source and a 128-slice Jaszczak "
+              f"cylinder at {NM_SPECT_MM} mm, four-bar and quadrant frames, a 120-frame series, "
+              f"sensitivity frames; in {time.perf_counter() - t0:.1f} s")
+        entries = ccl_entries() + [(tmorph, "label_batch", "label")]
+        pairs = kernel_pairs(ccl)
+        totals, worst, seen_all = Counter(), {}, []
+        for name in NM_RUNS:
+            what = f"nuclear {name}"
+            ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+            obj = nm_make(name, files)
+            with recording_inputs(entries) as seen:
+                data = nm_analyze(name, obj, "cuda")
+            counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches}
+            check_counts(seen, counts, what)
+            if name in NM_CLASSES_WITH_CCL and min(counts.values()) < 1:
+                raise RuntimeError(f"the {what} path launched a CCL mode no time: {counts}")
+            if name == "TomographicContrast" and counts != {"label": 128, "holes": 128}:
+                raise RuntimeError(f"the {what} slice search launched {counts}, not 128 + 128")
+            if seen:
+                for mode, e in check_path_masks(pairs, seen, what).items():
+                    worst[mode] = max(worst.get(mode, 0.0), e)
+            totals.update(counts)
+            seen_all += seen
+            nm_check(name, obj, data, f"card {what}")
+            cpu_obj = nm_make(name, files)
+            cpu_data = nm_analyze(name, cpu_obj, "cpu")
+            diff = compare_tree(data, cpu_data, f"{what} card vs CPU", nm_tol)
+            if name in ("PlanarUniformity", "TomographicUniformity"):
+                for key, r in cpu_obj.frame_results.items():
+                    for part in ("binned_frame", "ufov", "cfov"):
+                        a, b = obj.frame_results[key][part], r[part]
+                        a, b = (a, b) if part == "binned_frame" else (a.fov, b.fov)
+                        if not np.array_equal(a, b):
+                            raise RuntimeError(f"{what}: the card's {part} differs from the CPU's")
+            fresh = [nm_make(name, files) for _ in range(WARM_RUNS)]
+            warm, outs = median_runs(card, f"warm {name} analyze + results_data",
+                                     lambda: nm_analyze(name, fresh.pop(), "cuda"))
+            check_same_texts([results_text(o) for o in outs], f"{name} warm runs")
+            print(f"{what}: launches {counts}, card vs CPU max difference {diff:.2e}, "
+                  f"warm {warm:.1f} ms")
+        lines = []
+        for mode in ("label", "holes"):
+            kernel, twin = pairs[mode]
+            masks, args, kwargs = largest_record(seen_all, mode)
+            masks = masks if masks.dim() == 3 else masks[None]
+            timed = timed_pair(card, f"nuclear {mode}", lambda x: kernel(x, *args, **kwargs),
+                               lambda x: twin(x, *args, **kwargs), masks, ccl_bound)
+            lines.append(ccl_line(f"ccl_{mode}_nuclear", "pylinac_tpu/ops/pallas_label.py:336",
+                                  totals[mode], worst.get(mode, 0.0), timed))
+        print(f"nuclear launches: {dict(totals)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+# the machine-log analyzer (log_analyzer.py): a 120-leaf Millennium VMAT arc
+LOG_TLOG_SNAPSHOTS = 4000       # 80 s at 20 ms
+LOG_DLOG_SNAPSHOTS = 1600       # 80 s at 50 ms
+LOG_FOLDER_PAIRS = 10           # 10 trajectory logs and 10 dynalog pairs
+LOG_FLUENCE_REL = 1e-6          # card against CPU, of the map's maximum
+LOG_PICKETS_MM = tuple(range(-90, 91, 20))
+
+
+def log_phase(card: str, median) -> int:
+    """The log analyzer on the card: a trajectory log and a dynalog pair of
+    one VMAT arc, a folder of 20 logs, and ``PicketFence(log=)``. The
+    fluence maps card against CPU within 1e-6 of the maximum and bit-equal
+    between card runs, RMS and gamma card against CPU, warm ms a log for
+    ``calc_map`` and for the gamma, ``interval_fluence`` timed at the
+    arc's (60, 4001) and the equal-aspect map's. Returns the median
+    launches of ``PicketFence(log=)`` (its de-spike), each input held to
+    the twin."""
+    from pylinac_tpu_torch import log_analyzer as tl
+    from pylinac_tpu_torch.imggen.layers import GaussianFilterLayer, PerfectFieldLayer
+    from pylinac_tpu_torch.imggen.logs import (
+        write_picket_tlog, write_vmat_dynalog_pair, write_vmat_tlog)
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.imggen.utils import generate_picketfence
+    from pylinac_tpu_torch.ops import filters as tfilters
+    from pylinac_tpu_torch.ops.fluence import interval_fluence
+    from pylinac_tpu_torch.picketfence import PicketFence
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_logs_")
+    try:
+        t0 = time.perf_counter()
+        folder = os.path.join(tmp, "logs")
+        os.makedirs(folder)
+        tlog = write_vmat_tlog(os.path.join(tmp, "T_arc.bin"), LOG_TLOG_SNAPSHOTS, seed=0)
+        dlog = write_vmat_dynalog_pair(tmp, LOG_DLOG_SNAPSHOTS, seed=1)["A"]
+        for i in range(LOG_FOLDER_PAIRS):
+            write_vmat_tlog(os.path.join(folder, f"T{i}_arc.bin"), LOG_TLOG_SNAPSHOTS,
+                            seed=10 + i)
+            write_vmat_dynalog_pair(folder, LOG_DLOG_SNAPSHOTS, seed=30 + i, name=f"{i}_arc")
+        pf_img = os.path.join(tmp, "pf.dcm")
+        generate_picketfence(simulator=AS1200Image(sid=1000), field_layer=PerfectFieldLayer,
+                             file_out=pf_img, final_layers=[GaussianFilterLayer(sigma_mm=1)],
+                             pickets=len(LOG_PICKETS_MM), picket_spacing_mm=20,
+                             picket_width_mm=3)
+        pf_log = write_picket_tlog(os.path.join(tmp, "PF_log.bin"), list(LOG_PICKETS_MM))
+        print(f"inputs: a {LOG_TLOG_SNAPSHOTS}-snapshot trajectory log and a "
+              f"{LOG_DLOG_SNAPSHOTS}-snapshot dynalog pair of one VMAT arc (120 leaves), a "
+              f"folder of {LOG_FOLDER_PAIRS} of each, an AS1200 picket fence and its log; in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        for what, path in (("trajectory log", tlog), ("dynalog", dlog)):
+            card_log = tl.load_log(path, device="cuda")
+            cpu_log = tl.load_log(path, device="cpu")
+            maps = [card_log.fluence.actual.calc_map()]
+            for _ in range(REPEATS):
+                card_log.fluence.actual._cache_key = None
+                maps.append(card_log.fluence.actual.calc_map())
+            if not all(np.array_equal(m, maps[0]) for m in maps):
+                raise RuntimeError(f"the {what}'s card fluence changed between runs")
+            cpu_map = cpu_log.fluence.actual.calc_map()
+            err = float(np.abs(maps[0] - cpu_map).max())
+            if err > LOG_FLUENCE_REL * float(np.abs(cpu_map).max()):
+                raise RuntimeError(f"the {what}'s card fluence is {err} off the CPU's")
+            g_card = card_log.fluence.gamma.calc_map()
+            g_cpu = cpu_log.fluence.gamma.calc_map()
+            gerr = float(np.abs(g_card - g_cpu).max())
+            gc, gp = card_log.fluence.gamma, cpu_log.fluence.gamma
+            if gerr > 1e-5 or abs(gc.pass_prcnt - gp.pass_prcnt) > PCT_TOL \
+                    or abs(gc.avg_gamma - gp.avg_gamma) > 1e-5:
+                raise RuntimeError(f"the {what}'s card gamma is off the CPU's: max {gerr}, "
+                                   f"pass {gc.pass_prcnt} vs {gp.pass_prcnt}")
+            mlc = card_log.axis_data.mlc
+            rms = (mlc.get_RMS_avg(), mlc.get_RMS_max(), mlc.get_error_percentile(95))
+            if rms != (cpu_log.axis_data.mlc.get_RMS_avg(), cpu_log.axis_data.mlc.get_RMS_max(),
+                       cpu_log.axis_data.mlc.get_error_percentile(95)) or not 0 < rms[0] < 0.05:
+                raise RuntimeError(f"the {what}'s RMS: {rms}")
+            print(f"{what}: fluence {maps[0].shape} equal in {REPEATS + 1} card runs, "
+                  f"{err:.2e} off the CPU (max {np.abs(cpu_map).max():.4g}); gamma {gerr:.2e} "
+                  f"off, avg {gc.avg_gamma:.5f}, pass {gc.pass_prcnt:.2f} %; RMS avg "
+                  f"{rms[0] * 10:.4f} mm, max {rms[1] * 10:.4f} mm, 95th error "
+                  f"{rms[2] * 10:.4f} mm; treatment {card_log.treatment_type}")
+
+            def fluence_run(eq=False):
+                card_log.fluence.actual._cache_key = None
+                return card_log.fluence.actual.calc_map(equal_aspect=eq)
+
+            def gamma_run():
+                card_log.fluence.gamma._cache_key = None
+                return card_log.fluence.gamma.calc_map()
+
+            median_runs(card, f"warm {what} calc_map (60 x 4000 at 0.1 mm)", fluence_run)
+            median_runs(card, f"warm {what} gamma (calc_map of the cached maps)", gamma_run)
+            median_runs(card, f"warm {what} calc_map(equal_aspect=True) (4000 x 4000)",
+                        lambda: fluence_run(True))
+
+        # interval_fluence alone at the arc's shape, by CUDA events
+        log = tl.load_log(tlog, device="cuda")
+        mlc = log.axis_data.mlc
+        snaps = np.asarray(mlc.snapshot_idx)
+        P, S = mlc.num_pairs, len(snaps)
+        rng = np.random.default_rng(3)
+        left = torch.as_tensor(rng.integers(0, 2000, (P, S)), dtype=torch.int32, device="cuda")
+        right = (left + torch.as_tensor(rng.integers(0, 2000, (P, S)), dtype=torch.int32,
+                                        device="cuda")).clamp(max=4000)
+        mu = torch.rand(S, device="cuda")
+        blocked = torch.zeros(P, dtype=torch.bool, device="cuda")
+        ms = time_ms(lambda _: interval_fluence(left, right, mu, blocked, 4000), left, 20)
+        print(f"[{card}] interval_fluence at ({P}, {S}) snapshots -> ({P}, 4001): {ms:.3f} ms "
+              f"a call (CUDA events, mean of 20)")
+
+        logs = tl.MachineLogs(folder, device="cuda")
+        cpu_logs = tl.MachineLogs(folder, device="cpu")
+        if (logs.num_tlogs, logs.num_dlogs) != (LOG_FOLDER_PAIRS, LOG_FOLDER_PAIRS):
+            raise RuntimeError(f"the folder read {logs.num_tlogs} + {logs.num_dlogs} logs")
+        t0 = time.perf_counter()
+        avg, pct = logs.avg_gamma(), logs.avg_gamma_pct()
+        torch.cuda.synchronize()
+        folder_ms = (time.perf_counter() - t0) * 1e3
+        cavg, cpct = cpu_logs.avg_gamma(), cpu_logs.avg_gamma_pct()
+        if abs(avg - cavg) > 1e-5 or abs(pct - cpct) > PCT_TOL:
+            raise RuntimeError(f"the folder's gamma: card {avg}, {pct} vs CPU {cavg}, {cpct}")
+        print(f"[{card}] MachineLogs of {logs.num_logs} logs: avg_gamma {avg:.5f} and "
+              f"avg_gamma_pct {pct:.3f} (CPU {cavg:.5f}, {cpct:.3f}) in {folder_ms:.1f} ms, "
+              f"{folder_ms / logs.num_logs:.1f} ms a log (maps and gamma)")
+
+        median.median3x3.launches = 0
+        with recording_inputs([(tfilters, "median3x3", "median")]) as seen:
+            pf = PicketFence(pf_img, log=pf_log, device="cuda")
+            pf.analyze()
+            data = pf.results_data(as_dict=True)
+        torch.cuda.synchronize()
+        launches = median.median3x3.launches
+        # the de-spike fires only on a noisy frame; whatever it launched is
+        # held to the twin before its launches join the median entry
+        check_counts(seen, {"median": launches}, "PicketFence(log=) run")
+        if seen:
+            check_path_masks({"median": (median.median3x3, median.median3x3_reference)}, seen,
+                             "PicketFence(log=) run")
+        cpu_pf = PicketFence(pf_img, log=pf_log, device="cpu")
+        cpu_pf.analyze()
+        diff = compare_tree(data, cpu_pf.results_data(as_dict=True), "PicketFence(log=) card "
+                            "vs CPU", lambda p, a: MM_TOL)
+        if data["number_of_pickets"] != len(LOG_PICKETS_MM) or data["max_error_mm"] > 0.5:
+            raise RuntimeError(f"PicketFence(log=): {data['number_of_pickets']} pickets, max "
+                               f"error {data['max_error_mm']} mm against the log's fits")
+        def pf_run():
+            obj = PicketFence(pf_img, log=pf_log, device="cuda")
+            obj.analyze()
+            out = obj.results_data(as_dict=True)
+            torch.cuda.synchronize()
+            return out
+
+        _, outs = median_runs(card, "warm PicketFence(log=) construction (the log's fluence, "
+                              "its picket fence) + analyze + results_data", pf_run)
+        check_same_texts([results_text(o) for o in outs], "PicketFence(log=) warm runs")
+        print(f"PicketFence(log=): {data['number_of_pickets']} pickets, max error "
+              f"{data['max_error_mm']:.4f} mm against the log's fits, card vs CPU max difference "
+              f"{diff:.2e}, median3x3 launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -4255,6 +4794,12 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], p_err)
     kernels += p_lines
     print(f"planar imaging and field profile phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += nuclear_phase(card, ccl)
+    print(f"nuclear medicine phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels[0]["launches"] += log_phase(card, median)
+    print(f"machine log phase: {time.perf_counter() - t0:.1f} s")
     # last: its profile of an 8-frame run (177,000 launches) left the next
     # phase's profiler with no device events
     t0 = time.perf_counter()

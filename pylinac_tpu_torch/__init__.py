@@ -23,7 +23,10 @@ Winston-Lutz analyses (``WinstonLutz``, also from zips and CBCT scans,
 (``FieldProfileAnalysis``) and the planar imaging phantoms (Leeds TOR, the
 Standard Imaging QC-3, QC-kV and FC-2, Las Vegas, PTW EPID QC, IBA Primus
 A, the SNC kV and MV phantoms, the Doselab MC2 and RLf, IMT L-Rad, PTW
-Iso-Align, SNC FSQA and the ACR digital mammography phantom).
+Iso-Align, SNC FSQA and the ACR digital mammography phantom), the machine
+log analyzer (``Dynalog``, ``TrajectoryLog``, ``MachineLogs``,
+``load_log``), the nuclear-medicine suite (``nuclear``) and stage timing
+(``profiling``).
 """
 
 from .acr import ACRCT, ACRMRILarge
@@ -34,6 +37,7 @@ from .core.scale import MachineScale
 from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhan700, CatPhanBatch
 from .dlg import DLG
 from .helios import GEHeliosCTDaily
+from .log_analyzer import Dynalog, MachineLogs, TrajectoryLog, load_log
 from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
                              analyze_field_batch)
 from .field_profile_analysis import FieldProfileAnalysis
@@ -53,15 +57,18 @@ from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
 
 __all__ = ["ACRCT", "ACRDigitalMammography", "ACRMRILarge", "BBArrangement", "BBConfig", "CIRS062M", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
            "CatPhan700", "CatPhanBatch", "Centering", "DLG", "DRCS", "DRGS", "DRMLC",
-           "DeviceFieldAnalysis", "DoselabMC2MV", "DoselabMC2kV", "DoselabRLf", "Edge",
+           "DeviceFieldAnalysis", "DoselabMC2MV", "Dynalog", "DoselabMC2kV", "DoselabRLf", "Edge",
            "ElektaLasVegas", "FieldAnalysis", "FieldAnalysisBatch", "FieldProfileAnalysis",
            "GEHeliosCTDaily", "IBAPrimusA", "IMTLRad", "IsoAlign", "LasVegas", "LeedsTOR",
            "LeedsTORBlue", "PTWEPIDQC", "SNCFSQA", "SNCMV", "SNCMV12510", "SNCkV",
            "StandardImagingFC2", "StandardImagingQC3", "StandardImagingQCkV",
-           "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MachineScale",
+           "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MachineLogs",
+           "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
-           "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "WinstonLutz",
+           "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "TrajectoryLog",
+           "WinstonLutz",
            "WinstonLutz2D",
            "WinstonLutzMultiTargetMultiField", "WinstonLutzMultiTargetMultiFieldResult",
            "analyze_batch", "analyze_field_batch", "analyze_star_batch", "gamma_1d",
-           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "XIM", "__version__"]
+           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "load_log", "XIM",
+           "__version__"]

@@ -1,11 +1,10 @@
 """Host geometry primitives, numpy only.
 
 Port of ``pylinac_tpu/core/geometry.py``: the degree ``cos`` and ``sin``
-(``:26-31``), ``Point`` ``:44``, ``Vector`` ``:125``, ``Circle`` ``:174``,
+(``:26-31``), ``direction_to_coords`` ``:34``, ``Point`` ``:44``, ``Vector`` ``:125``, ``Circle`` ``:174``,
 ``Line`` ``:213`` (with the 3D point distance) and ``Rectangle`` ``:282``,
 without their matplotlib and plotly drawing. ``tan``, ``atan``,
-``direction_to_coords``, ``vector_is_close`` and ``to_json`` wait for a
-caller.
+``vector_is_close`` and ``to_json`` wait for a caller.
 """
 
 from __future__ import annotations
@@ -22,6 +21,15 @@ def cos(degrees: float) -> float:
 
 def sin(degrees: float) -> float:
     return math.sin(math.radians(degrees))
+
+
+def direction_to_coords(start_x: float, start_y: float, distance: float,
+                        angle_degrees: float) -> tuple[float, float]:
+    """The point ``distance`` from a start along ``angle_degrees`` (0 is
+    East, counter-clockwise positive)."""
+    x = start_x + distance * cos(angle_degrees)
+    y = start_y + distance * sin(angle_degrees)
+    return x, y
 
 
 class Point:

@@ -2,7 +2,8 @@
 arrays.
 
 Port of the part of ``pylinac_tpu/core/image.py`` that the analyses use:
-``load`` (``:89``, DICOM, XIM and arrays), ``load_multiples`` (``:113``),
+``equate_images`` (``:45``), ``load`` (``:89``, DICOM, XIM and arrays),
+``load_multiples`` (``:113``),
 ``BaseImage`` (``:201-470``: ``truncated_path``, ``center``,
 ``physical_shape``, ``date_created``, ``filter`` (``:270``), ``crop`` with
 ``edges``, ``flipud``, ``fliplr``, ``invert``, ``bit_invert``, ``roll``,
@@ -372,6 +373,48 @@ def load(path, **kwargs) -> BaseImage:
         return FileImage(path, **kwargs)
     raise TypeError(
         f"The argument `{path}` was not found to be a valid DICOM file, Image file, or array")
+
+
+def equate_images(image1: BaseImage, image2: BaseImage,
+                  device=None) -> tuple[BaseImage, BaseImage]:
+    """Copies of two images cropped to the same physical size, the larger
+    then resampled (bilinear, :func:`.ops.interp.map_coordinates` on
+    ``device``) to the smaller's shape."""
+    from ..ops.interp import map_coordinates
+
+    image1 = ArrayImage(np.copy(image1.array), dpi=image1.dpi)
+    image2 = ArrayImage(np.copy(image2.array), dpi=image2.dpi)
+    phys_h1, phys_w1 = image1.physical_shape
+    phys_h2, phys_w2 = image2.physical_shape
+    if phys_h1 > phys_h2:
+        diff = int(round((phys_h1 - phys_h2) * image1.dpmm / 2))
+        if diff > 0:
+            image1.crop(diff, edges=("top", "bottom"))
+    elif phys_h2 > phys_h1:
+        diff = int(round((phys_h2 - phys_h1) * image2.dpmm / 2))
+        if diff > 0:
+            image2.crop(diff, edges=("top", "bottom"))
+    if phys_w1 > phys_w2:
+        diff = int(round((phys_w1 - phys_w2) * image1.dpmm / 2))
+        if diff > 0:
+            image1.crop(diff, edges=("left", "right"))
+    elif phys_w2 > phys_w1:
+        diff = int(round((phys_w2 - phys_w1) * image2.dpmm / 2))
+        if diff > 0:
+            image2.crop(diff, edges=("left", "right"))
+    if image1.shape != image2.shape:
+        device = resolve_device(device, "equate_images")
+        target_shape = (min(image1.shape[0], image2.shape[0]),
+                        min(image1.shape[1], image2.shape[1]))
+        for img in (image1, image2):
+            if img.shape != target_shape:
+                rr = np.linspace(0, img.shape[0] - 1, target_shape[0])
+                cc = np.linspace(0, img.shape[1] - 1, target_shape[1])
+                grid = np.stack(np.meshgrid(rr, cc, indexing="ij")).astype(np.float32)
+                img.array = map_coordinates(
+                    torch.as_tensor(np.asarray(img.array, np.float32), device=device),
+                    torch.as_tensor(grid, device=device)).cpu().numpy()
+    return image1, image2
 
 
 def load_multiples(image_file_list, method: str = "mean", stretch_each: bool = True,

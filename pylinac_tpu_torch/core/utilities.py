@@ -2,8 +2,10 @@
 
 Port of ``ResultBase`` (``pylinac_tpu/core/utilities.py:43``), a pydantic
 model there, as a dataclass with the same fields, of ``ResultsDataMixin``
-(``:59-78``) and of ``convert_to_enum`` (``pylinac_tpu/core/profile.py:127``,
-the form ``picketfence.py`` imports). ``model_dump()`` and
+(``:59-78``), of ``is_iterable`` ``:80``, ``Structure`` ``:117`` and
+``decode_binary`` ``:127`` (the log analyzer's binary reader) and of
+``convert_to_enum`` (``pylinac_tpu/core/profile.py:127``, the form
+``picketfence.py`` imports). ``model_dump()`` and
 ``model_dump_json()`` keep callers written for the pydantic models working.
 :func:`resolve_device` has no JAX counterpart: the port's analyses take an
 explicit device.
@@ -14,7 +16,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import struct
+from collections.abc import Iterable
 from datetime import datetime
+from typing import BinaryIO
 
 import numpy as np
 import torch
@@ -136,3 +141,74 @@ class ResultsDataMixin(WarningCollectorMixin):
         data = self._generate_results_data()
         data.warnings = self.get_captured_warnings()
         return data.output(as_dict, as_json)
+
+
+def is_iterable(obj) -> bool:
+    return isinstance(obj, Iterable)
+
+
+class Structure:
+    """A simple attribute bag."""
+
+    def __init__(self, **kwargs):
+        self.__dict__.update(**kwargs)
+
+    def update(self, **kwargs):
+        self.__dict__.update(**kwargs)
+
+
+def decode_binary(file: BinaryIO, dtype, num_values: int = 1, cursor_shift: int = 0,
+                  strip_empty: bool = True):
+    """Read ``num_values`` values of ``dtype`` from a binary stream: a
+    ``struct`` format string, ``str`` (characters, NULs dropped unless
+    ``strip_empty`` is false), ``int`` (int32) or ``float`` (float32, as
+    Python floats); one value comes back as a scalar, several as an array
+    (a string for ``str``). ``cursor_shift`` skips bytes afterwards."""
+    f = file
+    if isinstance(dtype, str):
+        s = struct.calcsize(dtype) * num_values
+        output = struct.unpack(dtype * num_values, f.read(s))
+        if len(output) == 1:
+            output = output[0]
+    elif dtype is str:
+        ssize = struct.calcsize("c") * num_values
+        output = struct.unpack("c" * num_values, f.read(ssize))
+        if strip_empty:
+            output = "".join(o.decode() for o in output if o != b"\x00")
+        else:
+            output = "".join(o.decode() for o in output)
+    elif dtype is int:
+        ssize = struct.calcsize("i") * num_values
+        output = np.asarray(struct.unpack("i" * num_values, f.read(ssize)))
+        if len(output) == 1:
+            output = int(np.squeeze(output))
+    elif dtype is float:
+        ssize = struct.calcsize("f") * num_values
+        output = np.asarray(struct.unpack("f" * num_values, f.read(ssize)))
+        if len(output) == 1:
+            output = float(np.squeeze(output))
+    else:
+        raise TypeError(f"datatype '{dtype}' was not valid")
+    if cursor_shift:
+        f.seek(cursor_shift, 1)
+    return output
+
+
+def not_ported(*names: str):
+    """Class decorator: each of ``names`` becomes a method that raises
+    ``NotImplementedError``: the reports (plots, PDF, QuAAC) wait for the
+    ROADMAP's item 11."""
+
+    def stub(name):
+        def method(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"{name} waits for ROADMAP item 11 (reports: plots, PDF, QuAAC) in the port")
+        method.__name__ = name
+        return method
+
+    def deco(cls):
+        for name in names:
+            setattr(cls, name, stub(name))
+        return cls
+
+    return deco

@@ -23,6 +23,10 @@ across the scans of a :class:`CatPhanBatch` or one slice at a time (B = 1)
 for a single scan. The module stage (HU disks, wire ramps, MTF profile, NPS,
 low-contrast disks) stays numpy on the host, as in the JAX package.
 
+The 25 :mod:`.profiling` stages of the JAX module sit at the same places
+(``localize``, ``ctp404`` ... ``ctp528.mtf_batch``); they cost nothing
+outside ``profiling.collect()``.
+
 The models carry ``capture_warnings`` as in the JAX package, which wraps
 only the methods of a class's own body; ``analyze`` is ``CatPhanBase``'s,
 so ``results_data().warnings`` stays empty, as JAX's does.
@@ -46,6 +50,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import profiling
 from .core import image
 from .core.contrast import Contrast
 from .core.geometry import Line, Point
@@ -180,9 +185,10 @@ class ThicknessROI(RectangleROI):
     @cached_property
     def long_profile(self) -> FWXMProfile:
         # a small host array: the blur runs on the CPU
-        arr = gaussian_filter(
-            torch.from_numpy(np.array(self.pixel_array, dtype=np.float32)), 1.0).numpy()
-        return FWXMProfile(values=arr.max(axis=int(np.argmin(arr.shape))))
+        with profiling.stage("ctp404.thickness_profile"):
+            arr = gaussian_filter(
+                torch.from_numpy(np.array(self.pixel_array, dtype=np.float32)), 1.0).numpy()
+            return FWXMProfile(values=arr.max(axis=int(np.argmin(arr.shape))))
 
     @cached_property
     def wire_fwhm(self) -> float:
@@ -436,11 +442,14 @@ class CatPhanModule(Slice):
         # state shared between instances
         self.roi_settings = copy.deepcopy(self.roi_settings)
         self.background_roi_settings = copy.deepcopy(self.background_roi_settings)
-        Slice.__init__(self, catphan, combine_method=self.combine_method,
-                       num_slices=self.num_slices, clear_borders=clear_borders)
+        with profiling.stage(f"{self.attr_name}.combine"):
+            Slice.__init__(self, catphan, combine_method=self.combine_method,
+                           num_slices=self.num_slices, clear_borders=clear_borders)
         self._convert_units_in_settings()
-        self.preprocess(catphan)
-        self._setup_rois()
+        with profiling.stage(f"{self.attr_name}.preprocess"):
+            self.preprocess(catphan)
+        with profiling.stage(f"{self.attr_name}.rois"):
+            self._setup_rois()
 
     def _convert_units_in_settings(self) -> None:
         setting_groups = [getattr(self, attr) for attr in dir(self)
@@ -757,12 +766,13 @@ class CTP486(CatPhanModule):
     def _nps(self) -> tuple[np.ndarray, np.ndarray, float, float]:
         """(ps2d, ps1d, avg_power, max_freq) of the ROI stack, on the CPU:
         the stack is a few hundred KB."""
-        rois = [r.pixel_array for r in self.nps_rois.values()]
-        length = min(min(r.shape) for r in rois)
-        stacked = np.stack([r[:length, :length] for r in rois])
-        ps2d, ps1d, avg, maxf = nps_bundle(
-            torch.from_numpy(stacked.astype(np.float32)), pixel_size=self.mm_per_pixel)
-        return ps2d.numpy(), ps1d.numpy(), float(avg), float(maxf)
+        with profiling.stage("ctp486.nps"):
+            rois = [r.pixel_array for r in self.nps_rois.values()]
+            length = min(min(r.shape) for r in rois)
+            stacked = np.stack([r[:length, :length] for r in rois])
+            ps2d, ps1d, avg, maxf = nps_bundle(
+                torch.from_numpy(stacked.astype(np.float32)), pixel_size=self.mm_per_pixel)
+            return ps2d.numpy(), ps1d.numpy(), float(avg), float(maxf)
 
     @property
     def power_spectrum_2d(self) -> np.ndarray:
@@ -817,6 +827,10 @@ class CTP528CP504(CTP528):
     @cached_property
     def mtf(self) -> MTF:
         """Peak/valley relative MTF over the line-pair regions."""
+        with profiling.stage("ctp528.mtf"):
+            return self._compute_mtf()
+
+    def _compute_mtf(self) -> MTF:
         maxs, mins = [], []
         for value in self.roi_settings.values():
             max_indices, max_values = self.circle_profile.find_peaks(
@@ -840,13 +854,14 @@ class CTP528CP504(CTP528):
 
     @cached_property
     def circle_profile(self) -> CollapsedCircleProfile:
-        circle_profile = CollapsedCircleProfile(
-            self.phan_center, self.radius2linepairs, image_array=self.image,
-            start_angle=self.start_angle + np.deg2rad(self.catphan_roll),
-            width_ratio=0.04 * self.roi_size_factor, sampling_ratio=2, ccw=self.ccw)
-        circle_profile.filter(0.001, kind="gaussian")
-        circle_profile.ground()
-        return circle_profile
+        with profiling.stage("ctp528.circle_profile"):
+            circle_profile = CollapsedCircleProfile(
+                self.phan_center, self.radius2linepairs, image_array=self.image,
+                start_angle=self.start_angle + np.deg2rad(self.catphan_roll),
+                width_ratio=0.04 * self.roi_size_factor, sampling_ratio=2, ccw=self.ccw)
+            circle_profile.filter(0.001, kind="gaussian")
+            circle_profile.ground()
+            return circle_profile
 
 
 class CTP528CP604(CTP528CP504):
@@ -1077,14 +1092,21 @@ class CatPhanBase(ResultsDataMixin):
 
     # -- localisation -------------------------------------------------------
     def localize(self, origin_slice: int | None) -> None:
-        if getattr(self, "_slice_centroids", None) is None:
-            self._slice_centroids = self._batched_phantom_centroids()
-        self._phantom_center_func = self.find_phantom_axis()
-        self.origin_slice = (origin_slice if origin_slice is not None
-                             else self.find_origin_slice())
-        self.catphan_roll = self.find_phantom_roll() + self.angle_adjustment
+        with profiling.stage("find_phantom_axis"):
+            if getattr(self, "_slice_centroids", None) is None:
+                self._slice_centroids = self._batched_phantom_centroids()
+            self._phantom_center_func = self.find_phantom_axis()
+        if origin_slice is not None:
+            self.origin_slice = origin_slice
+        else:
+            with profiling.stage("find_origin_slice"):
+                self.origin_slice = self.find_origin_slice()
+        with profiling.stage("find_phantom_roll"):
+            self.catphan_roll = self.find_phantom_roll() + self.angle_adjustment
         if origin_slice is None:
-            self.origin_slice = self.refine_origin_slice(initial_slice_num=self.origin_slice)
+            with profiling.stage("refine_origin_slice"):
+                self.origin_slice = self.refine_origin_slice(
+                    initial_slice_num=self.origin_slice)
         if not self._ensure_physical_scan_extent():
             raise ValueError(
                 "The physical scan extent does not match the module configuration. "
@@ -1361,29 +1383,34 @@ class CatPhanBase(ResultsDataMixin):
         self.roi_size_factor = roi_size_factor
         self.scaling_factor = scaling_factor
         self.roll_slice_offset = roll_slice_offset
-        self.localize(origin_slice)
+        with profiling.stage("localize"):
+            self.localize(origin_slice)
         ctp404, offset = self._get_module(CTP404CP504, raise_empty=True)
-        self.ctp404 = ctp404(
-            self, offset=offset, hu_tolerance=hu_tolerance,
-            thickness_tolerance=thickness_tolerance,
-            scaling_tolerance=scaling_tolerance, clear_borders=self.clear_borders,
-            thickness_slice_straddle=thickness_slice_straddle,
-            expected_hu_values=expected_hu_values)
+        with profiling.stage("ctp404"):
+            self.ctp404 = ctp404(
+                self, offset=offset, hu_tolerance=hu_tolerance,
+                thickness_tolerance=thickness_tolerance,
+                scaling_tolerance=scaling_tolerance, clear_borders=self.clear_borders,
+                thickness_slice_straddle=thickness_slice_straddle,
+                expected_hu_values=expected_hu_values)
         if self._has_module(CTP486):
             ctp486, offset = self._get_module(CTP486)
-            self.ctp486 = ctp486(self, offset=offset, tolerance=hu_tolerance,
-                                 clear_borders=self.clear_borders)
+            with profiling.stage("ctp486"):
+                self.ctp486 = ctp486(self, offset=offset, tolerance=hu_tolerance,
+                                     clear_borders=self.clear_borders)
         if self._has_module(CTP528):
             ctp528, offset = self._get_module(CTP528)
-            self.ctp528 = ctp528(self, offset=offset, tolerance=None,
-                                 clear_borders=self.clear_borders)
+            with profiling.stage("ctp528"):
+                self.ctp528 = ctp528(self, offset=offset, tolerance=None,
+                                     clear_borders=self.clear_borders)
         if self._has_module(CTP515):
             ctp515, offset = self._get_module(CTP515)
-            self.ctp515 = ctp515(
-                self, tolerance=low_contrast_tolerance, cnr_threshold=cnr_threshold,
-                offset=offset, contrast_method=contrast_method,
-                visibility_threshold=visibility_threshold,
-                clear_borders=self.clear_borders)
+            with profiling.stage("ctp515"):
+                self.ctp515 = ctp515(
+                    self, tolerance=low_contrast_tolerance, cnr_threshold=cnr_threshold,
+                    offset=offset, contrast_method=contrast_method,
+                    visibility_threshold=visibility_threshold,
+                    clear_borders=self.clear_borders)
 
     def _has_module(self, module_of_interest) -> bool:
         return any(issubclass(module, module_of_interest) for module in self.modules)
@@ -1576,12 +1603,13 @@ class CatPhanBatch:
         raises when no CUDA device exists); other arguments as
         :meth:`CatPhanBase.analyze`."""
         device = resolve_device(device, "CatPhanBatch.analyze")
-        staged = []
-        for ct in self.cts:
-            st = ct._loc_stage_host()
-            if st is None:
-                raise ValueError("A scan has heterogeneous slice shapes")
-            staged.append(st)
+        with profiling.stage("batch_stage_host"):
+            staged = []
+            for ct in self.cts:
+                st = ct._loc_stage_host()
+                if st is None:
+                    raise ValueError("A scan has heterogeneous slice shapes")
+                staged.append(st)
         shape_set = {st[1].shape[1:] for st in staged}
         if len({st[0] for st in staged}) != 1 or len(shape_set) != 1:
             raise ValueError(f"All scans must share slice geometry; got shapes {shape_set}")
@@ -1591,17 +1619,19 @@ class CatPhanBatch:
             ct._device = device
             vols.append(ct._stage_on_device(ds, vol))
         K = 32
-        regions, max_edges = _stack_phantom_regions(
-            torch.cat(vols), K, self.cts[0].clear_borders, ds,
-            self.cts[0].clip_in_localization)
-        host, max_edges = regions.to_numpy(), max_edges.cpu().numpy()
-        offset = 0
-        for ct, (_, vol) in zip(self.cts, staged):
-            n = vol.shape[0]
-            ct._slice_centroids = ct._centroids_from_host(
-                host, max_edges, ds, range(offset, offset + n), K)
-            offset += n
-        self._roll_prepass(analyze_kwargs)
+        with profiling.stage("batch_localize"):
+            regions, max_edges = _stack_phantom_regions(
+                torch.cat(vols), K, self.cts[0].clear_borders, ds,
+                self.cts[0].clip_in_localization)
+            host, max_edges = regions.to_numpy(), max_edges.cpu().numpy()
+            offset = 0
+            for ct, (_, vol) in zip(self.cts, staged):
+                n = vol.shape[0]
+                ct._slice_centroids = ct._centroids_from_host(
+                    host, max_edges, ds, range(offset, offset + n), K)
+                offset += n
+        with profiling.stage("batch_roll_prepass"):
+            self._roll_prepass(analyze_kwargs)
         try:
             for ct in self.cts:
                 ct._defer_geometry = True
@@ -1609,7 +1639,8 @@ class CatPhanBatch:
                 kwargs = dict(analyze_kwargs)
                 kwargs.setdefault("origin_slice", getattr(ct, "origin_slice", None))
                 ct.analyze(device=device, **kwargs)
-            self._finalize_geometry_batch(device)
+            with profiling.stage("batch_finalize_geometry"):
+                self._finalize_geometry_batch(device)
             self._mtf_prepass()
         finally:
             for ct in self.cts:
@@ -1625,20 +1656,25 @@ class CatPhanBatch:
             ct.x_adjustment = analyze_kwargs.get("x_adjustment", 0)
             ct.y_adjustment = analyze_kwargs.get("y_adjustment", 0)
             ct.roll_slice_offset = analyze_kwargs.get("roll_slice_offset", 0)
-            ct._phantom_center_func = ct.find_phantom_axis()
+            with profiling.stage("prepass.axis"):
+                ct._phantom_center_func = ct.find_phantom_axis()
             origin = analyze_kwargs.get("origin_slice")
-            ct.origin_slice = int(origin) if origin is not None else ct.find_origin_slice()
+            with profiling.stage("prepass.origin"):
+                ct.origin_slice = (int(origin) if origin is not None
+                                   else ct.find_origin_slice())
             slice_num = ct.origin_slice + round(ct.roll_slice_offset
                                                 / ct.dicom_stack.slice_spacing)
-            slcs.append((slice_num, Slice(ct, slice_num, clear_borders=ct.clear_borders)))
+            with profiling.stage("prepass.slice"):
+                slcs.append((slice_num, Slice(ct, slice_num, clear_borders=ct.clear_borders)))
         arrs = [np.asarray(s.image.array) for _, s in slcs]
         if len({a.shape for a in arrs}) != 1:
             return  # mixed roll-slice shapes: per-scan path
         center = slcs[0][1].image.center
-        views = get_regions_batch(arrs, (float(center.y), float(center.x)),
-                                  110 / slcs[0][1].mm_per_pixel, scale08=True,
-                                  clear_borders=True, minmax=False,
-                                  device=self.cts[0]._device)
+        with profiling.stage("prepass.regions"):
+            views = get_regions_batch(arrs, (float(center.y), float(center.x)),
+                                      110 / slcs[0][1].mm_per_pixel, scale08=True,
+                                      clear_borders=True, minmax=False,
+                                      device=self.cts[0]._device)
         if views is None:
             return  # K overflow: per-scan escalation path
         for ct, (slice_num, _), v in zip(self.cts, slcs, views):
@@ -1661,11 +1697,12 @@ class CatPhanBatch:
             return
         stacked = np.stack(profs)
         settings = list(mods[0].roi_settings.values())
-        peaks_by_setting = [
-            find_peaks_rows(stacked, threshold=0.3, peak_separation=value["peak spacing"],
-                            max_number=value["num peaks"],
-                            search_region=(value["start"], value["end"]))
-            for value in settings]
+        with profiling.stage("ctp528.mtf_batch"):
+            peaks_by_setting = [
+                find_peaks_rows(stacked, threshold=0.3, peak_separation=value["peak spacing"],
+                                max_number=value["num peaks"],
+                                search_region=(value["start"], value["end"]))
+                for value in settings]
         for si, m in enumerate(mods):
             maxs, mins = [], []
             for value, rows_out in zip(settings, peaks_by_setting):

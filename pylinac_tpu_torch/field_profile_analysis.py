@@ -31,7 +31,7 @@ from .core.profile import (
     Normalization,
 )
 from .core.roi import RectangleROI
-from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum
+from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum, not_ported
 from .core.warnings import capture_warnings
 from .metrics.profile import (
     CAXToLeftEdgeMetric,
@@ -71,12 +71,8 @@ PROFILES = {
 }
 
 
-def _reports_not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} waits for ROADMAP item 11 (reports: plots, PDF) in the port")
-
-
 @capture_warnings
+@not_ported("plot_analyzed_images", "plotly_analyzed_images", "publish_pdf")
 class FieldProfileAnalysis(ResultsDataMixin):
     """Field analysis through profile metric plugins."""
 
@@ -195,12 +191,3 @@ class FieldProfileAnalysis(ResultsDataMixin):
             else:
                 s += f"{key}: {value}\n"
         return s
-
-    def plot_analyzed_images(self, *args, **kwargs):
-        _reports_not_ported("plot_analyzed_images")
-
-    def plotly_analyzed_images(self, *args, **kwargs):
-        _reports_not_ported("plotly_analyzed_images")
-
-    def publish_pdf(self, *args, **kwargs):
-        _reports_not_ported("publish_pdf")

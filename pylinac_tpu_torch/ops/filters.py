@@ -188,3 +188,30 @@ def scharr(x: torch.Tensor) -> torch.Tensor:
     h = scharr_component(x, -2)
     v = scharr_component(x, -1)
     return sqrt_f32(fma_f32(h, h, v * v)) * _INV_SQRT2
+
+
+# the NEMA/IAEA 3 x 3 smoothing kernel (IAEA pub 1394 p 59), row-major
+_NEMA_TAPS = (1 / 16, 2 / 16, 1 / 16, 2 / 16, 4 / 16, 2 / 16, 1 / 16, 2 / 16, 1 / 16)
+
+
+def smooth3x3(x: torch.Tensor) -> torch.Tensor:
+    """2D float32 correlation of an (H, W) image with the NEMA 3 x 3
+    smoothing kernel ``[[1, 2, 1], [2, 4, 2], [1, 2, 1]] / 16`` and zero
+    edges, the sum of ``jax.lax.conv_general_dilated(..., padding="SAME")``
+    on the CPU.
+
+    XLA's CPU convolution adds the nine products, taps ``t0 .. t8`` in
+    row-major order over the kernel, as ``(((t0 + t1) + (t4 + t5)) +
+    ((t2 + t3) + (t6 + t7))) + t8``: an eight-wide product whose lanes are
+    paired and reduced, then the ninth tap. Cancellation probes of the JAX
+    graph showed this tree at every position of the frame, and it gives
+    JAX's frames bit for bit from 3 x 3 pixels up (frames of at most eight
+    pixels, such as 2 x 3, take another order there). Each product is
+    rounded on its own, so this holds because the kernel's products are
+    exact (its taps are powers of two), whether or not XLA fuses them into
+    its adds; the kernel is fixed for that reason. Elementwise float32 ops,
+    so the same on the CPU and on the card, with no cuDNN and no TF32."""
+    h, w = x.shape
+    p = torch.nn.functional.pad(x.to(torch.float32)[None, None], (1, 1, 1, 1))[0, 0]
+    t = [_NEMA_TAPS[3 * dy + dx] * p[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
+    return (((t[0] + t[1]) + (t[4] + t[5])) + ((t[2] + t[3]) + (t[6] + t[7]))) + t[8]

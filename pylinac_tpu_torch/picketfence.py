@@ -12,15 +12,20 @@ CUDA, and raises without it): the image's de-spike, a 3x3 median repeated
 while the frame still has outliers, and the optional ``filter`` run there
 (``csrc/median3x3.cu`` on the card), and so does ``_batched_fwxm``, one
 peak analysis over every kiss profile. The rest is numpy on the host, as
-in the JAX class. Left out: ``log=`` (it needs the log analyzer, not yet
-ported; passing it raises ``NotImplementedError``), the plots,
+in the JAX class. ``log=`` (``_load_log``, ``:480-494``) takes the
+pickets' fits from a machine log's expected fluence
+(:mod:`pylinac_tpu_torch.log_analyzer`), the log read for the same device;
+JAX calls it before ``self.mlc`` is set, which raises there, and the port
+sets the MLC first. Left out: the plots,
 ``plotly_analyzed_images``, ``publish_pdf``, the QuAAC datapoints,
 ``from_url``, ``from_demo_image`` and ``run_demo``.
 
 The batch's host loads and orients the frames and builds the results with
 numpy, as the JAX class does; its analysis runs in
 :func:`pylinac_tpu_torch.ops.picket_pipeline.picket_fence_batch` on the
-device given to :meth:`PicketFenceBatch.analyze`.
+device given to :meth:`PicketFenceBatch.analyze`. Its stages carry the
+JAX package's :mod:`.profiling` names (``pf.host_orient`` to
+``pf.fetch_unpack``; ``pf.spec`` timed the packed wire, not ported).
 """
 
 from __future__ import annotations
@@ -31,12 +36,13 @@ import statistics
 import warnings
 from functools import cached_property
 from io import BytesIO
-from itertools import groupby
+from itertools import cycle, groupby
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from . import profiling
 from .core import image
 from .core.geometry import Line, Point
 from .core.profile import MultiProfile
@@ -311,8 +317,9 @@ class Picket:
     """One picket: a line fit through its MLC measurements."""
 
     def __init__(self, mlc_measurements: list[MLCValue], orientation, image, tolerance,
-                 separate_leaves, nominal_gap):
+                 separate_leaves, nominal_gap, log_fits=None):
         self.mlc_meas = mlc_measurements
+        self.log_fits = log_fits
         self.tolerance = tolerance
         self.orientation = orientation
         self.image = image
@@ -323,6 +330,10 @@ class Picket:
             m._fit = self.fit
 
     def get_fit(self) -> np.poly1d:
+        """The next of the log's picket fits, else a line through the
+        measured MLC positions."""
+        if self.log_fits is not None:
+            return next(self.log_fits)
         x = [line.point1.y for m in self.mlc_meas for line in m.marker_lines]
         y = [line.point1.x for m in self.mlc_meas for line in m.marker_lines]
         if self.orientation == Orientation.UP_DOWN:
@@ -382,10 +393,6 @@ class PicketFence(ResultsDataMixin):
                  use_filename: bool = False,
                  mlc: MLC | MLCArrangement | str = MLC.MILLENNIUM,
                  crop_mm: int = 3, image_kwargs: dict | None = None, device=None):
-        if log is not None:
-            raise NotImplementedError(
-                "log= needs the machine log analyzer (pylinac_tpu/log_analyzer.py), "
-                "which is not ported yet")
         self.device = resolve_device(device, "PicketFence")
         if filename is not None:
             img_kwargs = image_kwargs or {}
@@ -397,6 +404,26 @@ class PicketFence(ResultsDataMixin):
             self.image.normalize()
         self._is_analyzed = False
         self.mlc = _get_mlc_arrangement(mlc)
+        self._log_fits = None
+        if log is not None:
+            self._load_log(log)
+
+    def _load_log(self, log: str) -> None:
+        """Take the pickets' fits from a machine log: its expected fluence
+        (equal aspect, 0.1 mm) is cropped and resampled to the image, which
+        is resampled likewise, and analysed as a picket fence of its own
+        whose picket fits then stand for this analysis's."""
+        from .log_analyzer import load_log
+
+        mlog = load_log(log, device=self.device)
+        fl = mlog.fluence.expected.calc_map(equal_aspect=True)
+        fli = image.load(fl, dpi=254)
+        fluence_img, img_array = image.equate_images(fli, self.image, device=self.device)
+        self.image.array = img_array.array
+        pf = PicketFence(None, mlc=self.mlc, device=self.device)
+        pf.image = fluence_img
+        pf.analyze()
+        self._log_fits = cycle([p.get_fit() for p in pf.pickets])
 
     @classmethod
     def from_bb_setup(cls, *args, bb_image, bb_diameter: float, **kwargs):
@@ -615,7 +642,8 @@ class PicketFence(ResultsDataMixin):
         self.pickets = [
             Picket([m for m in self.mlc_meas if m.picket_num == picket_num],
                    orientation=self.orientation, image=self.image, tolerance=tolerance,
-                   nominal_gap=nominal_gap_mm, separate_leaves=separate_leaves)
+                   nominal_gap=nominal_gap_mm, separate_leaves=separate_leaves,
+                   log_fits=self._log_fits)
             for picket_num in range(len(peak_idxs))]
         self._is_analyzed = True
 
@@ -823,26 +851,27 @@ class PicketFenceBatch:
         # fixed for the batch's lifetime: repeat analyses reuse it
         okey = (orientation, bool(invert), len(self.images))
         ocached = getattr(self, "_orient_cache", None)
-        if ocached is not None and ocached[0] == okey:
-            self._orientations = ocached[1]
-        else:
-            self._orientations = []
-            for img in self.images:
-                raw = np.asarray(img.array)
-                if orientation:
-                    orient = convert_to_enum(orientation, Orientation)
-                else:
-                    # a coarse binary decision: detect on a 4x-subsampled,
-                    # inversion-conditioned copy
-                    sub = raw[::4, ::4]
-                    if self._host_inversion_hint(raw) ^ invert:
-                        sub = sub.max() + sub.min() - sub.astype(np.float32)
-                    orient = self._detect_orientation(sub)
-                self._orientations.append(orient)
-            self._orient_cache = (okey, self._orientations)
-        arrays = [np.asarray(img.array) if orient == Orientation.UP_DOWN
-                  else np.asarray(img.array).T
-                  for img, orient in zip(self.images, self._orientations)]
+        with profiling.stage("pf.host_orient"):
+            if ocached is not None and ocached[0] == okey:
+                self._orientations = ocached[1]
+            else:
+                self._orientations = []
+                for img in self.images:
+                    raw = np.asarray(img.array)
+                    if orientation:
+                        orient = convert_to_enum(orientation, Orientation)
+                    else:
+                        # a coarse binary decision: detect on a 4x-subsampled,
+                        # inversion-conditioned copy
+                        sub = raw[::4, ::4]
+                        if self._host_inversion_hint(raw) ^ invert:
+                            sub = sub.max() + sub.min() - sub.astype(np.float32)
+                        orient = self._detect_orientation(sub)
+                    self._orientations.append(orient)
+                self._orient_cache = (okey, self._orientations)
+            arrays = [np.asarray(img.array) if orient == Orientation.UP_DOWN
+                      else np.asarray(img.array).T
+                      for img, orient in zip(self.images, self._orientations)]
         shapes = {a.shape for a in arrays}
         if len(shapes) != 1:
             raise ValueError(
@@ -864,17 +893,18 @@ class PicketFenceBatch:
             else:
                 # picket spacing from the first image's host-conditioned mean
                 # profile (inversion hint + ground)
-                a0 = arrays[0].astype(np.float32)
-                if self._host_inversion_hint(arrays[0]) ^ invert:
-                    a0 = a0.max() + a0.min() - a0
-                prof = a0.mean(axis=0)
-                prof -= prof.min()
-                idxs, _ = peaks.find_peaks(
-                    prof / prof.max(), threshold=height_threshold,
-                    peak_separation=0.02, required_prominence=required_prominence)
-                spacing_est = (float(np.median(np.diff(np.sort(idxs))))
-                               if len(idxs) > 1 else W)
-                w_max = int(min(-(-int(spacing_est + 2) // 64) * 64, W))
+                with profiling.stage("pf.wmax_est"):
+                    a0 = arrays[0].astype(np.float32)
+                    if self._host_inversion_hint(arrays[0]) ^ invert:
+                        a0 = a0.max() + a0.min() - a0
+                    prof = a0.mean(axis=0)
+                    prof -= prof.min()
+                    idxs, _ = peaks.find_peaks(
+                        prof / prof.max(), threshold=height_threshold,
+                        peak_separation=0.02, required_prominence=required_prominence)
+                    spacing_est = (float(np.median(np.diff(np.sort(idxs))))
+                                   if len(idxs) > 1 else W)
+                    w_max = int(min(-(-int(spacing_est + 2) // 64) * 64, W))
                 self._wmax_cache = (wkey, w_max)
         # stage the RAW batch in its stored dtype (uint16 frames widen on the
         # card); the loaded pixels stay fixed for the batch's lifetime, so
@@ -882,10 +912,11 @@ class PicketFenceBatch:
         stage_key = (tuple(self._orientations), len(arrays), str(device))
         staged = getattr(self, "_stage_cache", None)
         if staged is None or staged[0] != stage_key:
-            stacked = np.stack(arrays)
-            if stacked.dtype.kind == "f" and stacked.dtype.itemsize > 4:
-                stacked = stacked.astype(np.float32)
-            staged = (stage_key, torch.from_numpy(stacked).to(device))
+            with profiling.stage("pf.h2d_stage"):
+                stacked = np.stack(arrays)
+                if stacked.dtype.kind == "f" and stacked.dtype.itemsize > 4:
+                    stacked = stacked.astype(np.float32)
+                staged = (stage_key, torch.from_numpy(stacked).to(device))
             self._stage_cache = staged
         batch = staged[1]
 
@@ -902,12 +933,16 @@ class PicketFenceBatch:
             analysis_ratio=f32(leaf_analysis_width_ratio),
             nominal_gap_px=f32(nominal_gap_mm / 2 * dpmm),
             invert=bool(invert))
-        out = picket_fence_batch(
-            batch, cfg, params, K_P=16, W_MAX=w_max, H_MAX=H_MAX,
-            num_pickets=num_pickets, peak_sort=peak_sort,
-            separate_leaves=separate_leaves, chunk=min(chunk, len(arrays)),
-            extra_filter=self._extra_filter)
-        self._out = {k: v.cpu().numpy() for k, v in out.items()}
+        with profiling.stage("pf.dispatch"):
+            out = picket_fence_batch(
+                batch, cfg, params, K_P=16, W_MAX=w_max, H_MAX=H_MAX,
+                num_pickets=num_pickets, peak_sort=peak_sort,
+                separate_leaves=separate_leaves, chunk=min(chunk, len(arrays)),
+                extra_filter=self._extra_filter)
+        # JAX's pf.spec timed the packed wire's tree spec, which the port has
+        # not: the fetch below is its pf.fetch_unpack without the unpack
+        with profiling.stage("pf.fetch_unpack"):
+            self._out = {k: v.cpu().numpy() for k, v in out.items()}
         if not self._out["kiss_valid"].any():
             raise ValueError(
                 "No MLC measurements were found in the batch. This may be due to "

@@ -47,7 +47,7 @@ from .core.geometry import Circle, Point, Rectangle, Vector
 from .core.mtf import MTF
 from .core.profile import CollapsedCircleProfile, FWXMProfilePhysical, Normalization
 from .core.roi import DiskROI, HighContrastDiskROI, LowContrastDiskROI, RectangleROI
-from .core.utilities import ResultBase, ResultsDataMixin, resolve_device
+from .core.utilities import ResultBase, ResultsDataMixin, not_ported, resolve_device
 from .core.warnings import capture_warnings
 from .metrics.image import SizedDiskLocator
 from .metrics.utils import RegionView, valid_region_views
@@ -57,11 +57,6 @@ from .ops.filters import gaussian_filter, median_filter
 from .ops.morphology import binary_closing, rotate_footprint
 from .ops.threshold import threshold_yen
 from .ops.vesselness import frangi
-
-
-def _report_not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} waits for ROADMAP item 11 (reports: plots, PDF, QuAAC) in the port")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -203,6 +198,8 @@ class _CannyRegion:
         return self._intensity[r0:r1, c0:c1]
 
 
+@not_ported("plot_analyzed_image", "plotly_analyzed_images", "save_analyzed_image",
+             "publish_pdf", "_quaac_datapoints")
 class ImagePhantomBase(ResultsDataMixin):
     """Planar phantom analysis engine."""
 
@@ -522,21 +519,6 @@ class ImagePhantomBase(ResultsDataMixin):
                 f"MTF 30% (lp/mm): {self.mtf.relative_resolution(30):2.2f}",
             ]
         return text if as_list else "\n".join(text)
-
-    def plot_analyzed_image(self, *args, **kwargs):
-        _report_not_ported("plot_analyzed_image")
-
-    def plotly_analyzed_images(self, *args, **kwargs):
-        _report_not_ported("plotly_analyzed_images")
-
-    def save_analyzed_image(self, *args, **kwargs):
-        _report_not_ported("save_analyzed_image")
-
-    def publish_pdf(self, *args, **kwargs):
-        _report_not_ported("publish_pdf")
-
-    def _quaac_datapoints(self):
-        _report_not_ported("_quaac_datapoints")
 
     def _generate_results_data(self) -> PlanarResult:
         if self._low_contrast_threshold is None:

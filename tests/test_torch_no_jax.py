@@ -17,7 +17,9 @@ Winston-Lutz test from a small JPEG-LS CBCT, the single picket fence's
 captured warning, a Varian .xim image written and read back through the
 native decoder (``native/xim_decode.cpp``), a DRGS and a DRCS pair, a DLG
 image and a 40-slice Quart DVT, a small QC-3 and FC-2 (AS500) and a
-``FieldProfileAnalysis`` of an AS500 open field, on the CPU: the native
+``FieldProfileAnalysis`` of an AS500 open field, a ``PlanarUniformity`` of
+a 128 x 128 flood and a trajectory log's fluence, with the picket fence's
+stages timed by ``pylinac_tpu_torch.profiling``, on the CPU: the native
 codecs build and run without either package. The machine with the card has neither package.
 """
 
@@ -207,7 +209,30 @@ CHILD = textwrap.dedent("""
     sim.generate_dicom(fpa_path)
     fpa = pylinac_tpu_torch.FieldProfileAnalysis(fpa_path)
     fpa.analyze(edge_type="FWHM")
+    from pylinac_tpu_torch import log_analyzer, nuclear, profiling
+    from pylinac_tpu_torch.core import dcm as tdcm
+    from pylinac_tpu_torch.imggen.logs import write_vmat_tlog
+    nm = tdcm.Dataset()
+    nm.SOPClassUID = "1.2.840.10008.5.1.4.1.1.20"
+    nm.SOPInstanceUID = tdcm.generate_uid()
+    nm.Modality = "NM"
+    nm.PixelSpacing = [4.8, 4.8]
+    flood = np.zeros((128, 128))
+    flood[14:114, 14:114] = 1000 + np.random.default_rng(2).normal(0, 10, (100, 100))
+    nm.set_pixel_data(flood.astype(np.uint16)[None])
+    nm_path = tempfile.mkdtemp() + "/flood.dcm"
+    tdcm.dcmwrite(nm_path, nm)
+    pu = nuclear.PlanarUniformity(nm_path)
+    with profiling.collect() as stage_times:
+        pu.analyze(device="cpu")
+        pylinac_tpu_torch.analyze_batch([path], tolerance=0.5, device="cpu")
+    tlog = log_analyzer.load_log(write_vmat_tlog(tempfile.mkdtemp() + "/T_arc.bin", n_snap=100),
+                                 device="cpu")
+    tlog_map = tlog.fluence.actual.calc_map()
     print(json.dumps({
+        "nm_uniformity": pu.results_data(as_dict=True)["Frame 1"]["ufov_integral_uniformity"],
+        "tlog": [list(tlog_map.shape), float(tlog_map.max()), tlog.treatment_type],
+        "stages": sorted(stage_times.as_dict()),
         "qc3": [len(qc3.results_data().low_contrast_rois), round(qc3.phantom_angle, 3)],
         "fc2": [fc2.results_data().field_size_x_mm, fc2.results_data().field_bb_offset_y_mm],
         "fpa": fpa.results_data().x_metrics["Field Width (mm)"],
@@ -293,3 +318,7 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["qc3"] == [5, 45]
     assert abs(out["fc2"][0] - 100) < 1.5 and abs(out["fc2"][1]) < 1.0
     assert abs(out["fpa"] - 100) < 1.0
+    assert 0 < out["nm_uniformity"] < 15
+    assert out["tlog"][0] == [60, 4000] and 0 < out["tlog"][1] <= 600
+    assert out["stages"] == ["pf.dispatch", "pf.fetch_unpack", "pf.h2d_stage",
+                             "pf.host_orient", "pf.wmax_est"]

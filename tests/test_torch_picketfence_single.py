@@ -133,7 +133,13 @@ def test_from_multiple_images_matches_jax(jpf, pf_files):
 
 
 def test_log_is_not_ported(pf_files):
-    with pytest.raises(NotImplementedError, match="log_analyzer"):
+    """``log=`` reaches the log analyzer's loader: a path that is no log
+    raises its ``NotALogError``. The name is kept from the stub this test
+    once held; ``log=`` is ported, and tests/test_torch_log_analyzer.py
+    holds it to JAX."""
+    from pylinac_tpu_torch.log_analyzer import NotALogError
+
+    with pytest.raises(NotALogError, match="machine.bin"):
         PicketFence(pf_files["perfect"], log="machine.bin", device="cpu")
 
 
