@@ -166,6 +166,24 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   ``PicketFence(path, log=...)`` on an AS1200 picket fence and its
   delivery log against the CPU, warm runs equal (this path launches the
   median kernel only if the de-spike fires);
+- QA plans, contrib and calibration: every TrueBeam QA beam on a
+  Millennium and an HD120 template and a Halcyon dual-stack picket fence,
+  each plan written and read back; ``generate_fluences`` of each on the
+  card at AS1200's grid and at 0.1 mm over 400 mm, equal to the CPU's in
+  float32 and uint16; a picket fence plan rendered on an AS1200 by
+  ``to_dicom_images`` (equal to the CPU's), 0.01 % hot pixels added, and
+  ``PicketFence`` on it (its de-spike's ``median3x3`` launches counted, 7
+  pickets within 0.5 mm of the plan, card against CPU);
+  ``JawOrthogonality`` of an AS1200 150 mm field (Canny's hysteresis on
+  ``ccl.cu``, edges, Hough space and angles equal to the CPU's, every
+  corner within 0.5 degrees of 90; Canny and the host Hough timed
+  apart); ``QuasarLightRadScaling``
+  on an AS1200 frame (medians and BB windows on the kernels, card against
+  CPU, scaling centres within 1e-3 px); every kernel input held bit-equal
+  to its twin, warm runs timed; the TG-51 and TRS-398 worksheets with
+  their PDFs on the host; whether matplotlib imports. Its lines join the
+  kernels line as ``ccl_label_contrib``, ``ccl_holes_contrib`` and
+  ``median3x3_contrib``;
 - stage tables: one warm run each of the PF batch, the CatPhan batch and
   ACR CT under ``profiling.collect()``, and the launch and copy counts of
   a warm CatPhan batch under ``profiling.count_dispatches()``;
@@ -1425,6 +1443,7 @@ CBCT_BARS = {"max_2d_cax_to_bb_mm": (3.61, 0.2), "x": (1.0, 0.2), "y": (-3.0, 0.
 # the Nelder-Mead isocentre fits, held as check_cbct_fits says
 CBCT_FIT_FIELDS = ("gantry_3d_iso_diameter_mm", "gantry_coll_3d_iso_diameter_mm")
 WARM_RUNS = 6             # 1 warm-up, then the median of 5
+CBCT_WARM_RUNS = 4        # 1 + 3: each run builds the 160-slice projections anew
 
 
 def recompress(path: str, transfer_syntax: str) -> None:
@@ -1832,7 +1851,7 @@ def wl_cbct_phase(card: str, ccl) -> list[dict]:
 
         build_ms, wls = median_runs(card, f"WinstonLutz.from_cbct_zip projection build of "
                                     f"{CBCT_SLICES} JPEG-LS slices",
-                                    lambda: WinstonLutz.from_cbct_zip(zipped))
+                                    lambda: WinstonLutz.from_cbct_zip(zipped), CBCT_WARM_RUNS)
 
         def analyze():
             fresh = wls.pop()
@@ -1842,7 +1861,7 @@ def wl_cbct_phase(card: str, ccl) -> list[dict]:
             return out
 
         analyze_ms, outs = median_runs(card, "WL from CBCT analyze + results_data of 4 views",
-                                       analyze)
+                                       analyze, CBCT_WARM_RUNS)
         check_same_texts([results_text(o) for o in outs], "WL from CBCT warm runs")
         print(f"[{card}] WL from CBCT: projection build {build_ms:.1f} ms, analyze "
               f"{analyze_ms:.1f} ms")
@@ -1885,7 +1904,7 @@ MTMF_AXES = ((0, 0, 0), (45, 0, 0), (135, 0, 0), (180, 0, 0), (225, 0, 0), (315,
 MTMF_CPU_FRAMES = (0, 3)  # the 2 frames held against the CPU: gantry 0 and 45
 # 1 warm-up, then the median of 3: a warm 8-frame run takes about 12 s, and
 # the smoke keeps to its time budget as phases are added
-MTMF_WARM_RUNS = 4
+MTMF_WARM_RUNS = 3        # 1 + 2: a warm 8-frame run takes about 12 s
 
 
 def write_mtmf_session(d: str, bb_left_mm: float = 0.0) -> str:
@@ -4725,6 +4744,396 @@ def log_phase(card: str, median) -> int:
     return launches
 
 
+# QA plans and their fluence (plan_generator/), the contributed analyses
+# (contrib/) and the calibration worksheets (calibration/)
+PLAN_HOT_PIXELS = 1e-4          # the smoke's 0.01 % hot pixels on the rendered fence
+PLAN_PICKETS = 7                # add_picketfence_beam's default strips
+PLAN_TRUTH_MM = 0.5             # tests/models/test_plan_generator.py:253
+JAW_FIELD_MM = 150
+JAW_DEG = 0.5                   # tests/models/test_contrib.py:26
+QUASAR_CORNERS = ((-49, -49), (-49, 49), (49, -49), (49, 49))
+QUASAR_SCALING = ((0, 0), (-12, 0), (12, 0), (0, -12), (0, 12))
+PLAN_WARM_RUNS = 4              # 1 warm-up, then the median of 3
+
+
+def plan_template(machine: str):
+    """A template RT plan written with the port's own codec: a TrueBeam
+    with the Millennium or the HD120 MLC, or a Halcyon's two stacks."""
+    from pylinac_tpu_torch.core import dcm as tdcm
+    from pylinac_tpu_torch.plan_generator import dicom as tdicom
+
+    stacks = {"millennium": [("MLCX", 60, tdicom.MLC_MILLENNIUM_BOUNDARIES)],
+              "hd": [("MLCX", 60, tdicom.MLC_120HDMIL_BOUNDARIES)],
+              "halcyon": [("MLCX1", 28, tdicom.MLC_DISTAL_BOUNDARIES),
+                          ("MLCX2", 29, tdicom.MLC_PROXIMAL_BOUNDARIES)]}[machine]
+    ds = tdcm.Dataset()
+    ds.SOPClassUID = "1.2.840.10008.5.1.4.1.1.481.5"
+    ds.SOPInstanceUID = tdcm.generate_uid()
+    ds.Modality = "RTPLAN"
+    ds.PatientName = "QA^Physics"
+    ds.PatientID = "QA123"
+    ds.RTPlanLabel = "template"
+    tol = tdcm.Dataset()
+    tol.ToleranceTableNumber = 1
+    ds.ToleranceTableSequence = [tol]
+    beam = tdcm.Dataset()
+    beam.TreatmentMachineName = "HAL01" if machine == "halcyon" else "TB01"
+    beam.BeamLimitingDeviceSequence = []
+    for kind, pairs, bounds in stacks:
+        mlc = tdcm.Dataset()
+        mlc.RTBeamLimitingDeviceType = kind
+        mlc.NumberOfLeafJawPairs = pairs
+        mlc.LeafPositionBoundaries = bounds
+        beam.BeamLimitingDeviceSequence.append(mlc)
+    ds.BeamSequence = [beam]
+    return ds
+
+
+def qa_plans() -> dict:
+    """Every TrueBeam QA beam on a Millennium and an HD template, a Halcyon
+    dual-stack picket fence, and a picket-fence-only plan to render."""
+    import pylinac_tpu_torch as p
+    from pylinac_tpu_torch.plan_generator import Stack
+
+    plans = {}
+    for machine in ("millennium", "hd"):
+        g = p.TrueBeamPlanGenerator(plan_template(machine), plan_label="QA",
+                                    plan_name=f"QA {machine}")
+        g.add_picketfence_beam()
+        g.add_mlc_transmission(bank="A")
+        g.add_mlc_transmission(bank="B")
+        g.add_dose_rate_beams()
+        g.add_mlc_speed_beams()
+        g.add_winston_lutz_beams()
+        g.add_gantry_speed_beams()
+        g.add_open_field_beam(x1=-50, x2=50, y1=-50, y2=50)
+        plans[machine] = g
+    plans["halcyon"] = p.HalcyonPlanGenerator(plan_template("halcyon"), plan_label="QA",
+                                              plan_name="QA halcyon")
+    plans["halcyon"].add_picketfence_beam(stack=Stack.BOTH)
+    plans["pf"] = p.TrueBeamPlanGenerator(plan_template("millennium"), plan_label="QA",
+                                          plan_name="QA PF")
+    plans["pf"].add_picketfence_beam()
+    return plans
+
+
+def draw_quasar(path: str) -> str:
+    """The Quasar frame of ``tests/models/test_contrib.py:30-50`` on an
+    AS1200: a 120 mm field, four BBs 11 mm inside its edges and five
+    central scaling BBs."""
+    from pylinac_tpu_torch.imggen.layers import (FilteredFieldLayer, GaussianFilterLayer,
+                                                 PerfectBBLayer)
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+
+    sim = AS1200Image(sid=1000)
+    sim.add_layer(FilteredFieldLayer(field_size_mm=(120, 120)))
+    for pos in QUASAR_CORNERS + QUASAR_SCALING:
+        sim.add_layer(PerfectBBLayer(bb_size_mm=5, cax_offset_mm=pos))
+    sim.add_layer(GaussianFilterLayer(sigma_mm=0.5))
+    sim.generate_dicom(path)
+    return path
+
+
+def calibration_checks(card: str, tmp: str) -> None:
+    """The TG-51 photon, both TG-51 electron and both TRS-398 worksheets on
+    the host, each PDF written and read back: ``%PDF`` and one page."""
+    from pylinac_tpu_torch import tg51, trs398
+
+    common = dict(temp=22.5, press=100.8, n_dw=5.443, voltage_reference=-300,
+                  voltage_reduced=-150, m_reference=(25.65, 25.66), m_opposite=(-25.71, -25.70),
+                  m_reduced=(25.59, 25.60), mu=200)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # TRS-398's k_tp warns of its 20 degree reference
+        sheets = {
+            "TG51Photon": (tg51.TG51Photon(
+                **common, unit="TB1", chamber="30013", p_elec=1.0, measured_pdd10=66.4,
+                clinical_pdd10=66.5, energy=6), "dose_mu_dmax"),
+            "TG51ElectronLegacy": (tg51.TG51ElectronLegacy(
+                **common, chamber="30013", k_ecal=0.906, p_elec=1.0, clinical_pdd=99.5,
+                m_gradient=(25.7, 25.71), i_50=4.8), "dose_mu_dmax"),
+            "TG51ElectronModern": (tg51.TG51ElectronModern(
+                **common, chamber="A12", p_elec=1.0, clinical_pdd=100.0, i_50=3.6),
+                "dose_mu_dmax"),
+            "TRS398Photon": (trs398.TRS398Photon(
+                **common, setup="SSD", chamber="30013", tpr2010=0.671, k_elec=1.0,
+                clinical_pdd_zref=66.7), "dose_mu_zmax"),
+            "TRS398Electron": (trs398.TRS398Electron(
+                **common, chamber="30013", i_50=4.8, k_elec=1.0, clinical_pdd_zref=99.0),
+                "dose_mu_zmax"),
+        }
+        doses = {}
+        for name, (sheet, dose) in sheets.items():
+            path = os.path.join(tmp, f"{name}.pdf")
+            sheet.publish_pdf(path, notes="smoke")
+            data = open(path, "rb").read()
+            doses[name] = getattr(sheet, dose)
+            if not data.startswith(b"%PDF") or b"/Count 1 " not in data:
+                raise RuntimeError(f"{name}'s PDF: {data[:8]!r}, page count not 1")
+            if not 0.5 < doses[name] < 1.5:
+                raise RuntimeError(f"{name}: {dose} {doses[name]} cGy/MU")
+    print(f"[{card}] calibration worksheets (host) with their PDFs, one page each, in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms: "
+          + ", ".join(f"{k} {v:.4f} cGy/MU" for k, v in doses.items()))
+
+
+def plan_phase(card: str, median, ccl) -> list[dict]:
+    """QA plans, their fluence and the contributed analyses on the card:
+    every TrueBeam QA beam on a Millennium and an HD template and a Halcyon
+    picket fence, each written and read back; ``generate_fluences`` of each
+    on the card at AS1200's grid and at 0.1 mm over 400 mm, equal to the CPU
+    in float32 and uint16; the picket fence plan rendered on an AS1200
+    (``to_dicom_images``, equal to the CPU's), 0.01 % hot pixels added and
+    analysed by ``PicketFence`` with its de-spike's ``median3x3`` launches
+    counted (7 pickets, within 0.5 mm of the plan, against the CPU);
+    ``JawOrthogonality`` of an AS1200 150 mm field (Canny's hysteresis on
+    ``ccl.cu``; edge map and Hough accumulator equal to the CPU's, every
+    corner within 0.5 degrees of 90); ``QuasarLightRadScaling`` on an
+    AS1200 frame (medians and BB windows on the kernels, against the CPU,
+    the scaling centres within 1e-3 px); every kernel input held bit-equal
+    to its twin; warm runs timed; the calibration worksheets and their
+    PDFs; whether matplotlib imports. Returns the phase's kernel lines."""
+    import pylinac_tpu_torch as p
+    from pylinac_tpu_torch.contrib.orthogonality import JawOrthogonality
+    from pylinac_tpu_torch.contrib.quasar import QuasarLightRadScaling
+    from pylinac_tpu_torch.core import dcm as tdcm
+    from pylinac_tpu_torch.core.array_utils import stretch
+    from pylinac_tpu_torch.imggen.layers import FilteredFieldLayer, GaussianFilterLayer
+    from pylinac_tpu_torch.imggen.simulators import AS1200Image
+    from pylinac_tpu_torch.ops import edges as tedges
+    from pylinac_tpu_torch.ops import filters as tfilters
+    from pylinac_tpu_torch.planar_imaging import hough_line
+    from pylinac_tpu_torch.picketfence import PicketFence
+
+    try:
+        import matplotlib
+        print(f"matplotlib {matplotlib.__version__} imports on this machine")
+    except ImportError as e:
+        print(f"matplotlib does not import on this machine: {e}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    try:
+        t0 = time.perf_counter()
+        plans = qa_plans()
+        for name, g in plans.items():
+            path = os.path.join(tmp, f"{name}.dcm")
+            g.to_file(path)
+            back = type(g).from_rt_plan_file(path, plan_label="QA", plan_name="back")
+            again = io.BytesIO()
+            tdcm.dcmwrite(again, tdcm.dcmread(path))
+            names = [str(b.BeamName) for b in g.as_dicom().BeamSequence]
+            if again.getvalue() != open(path, "rb").read() or \
+                    [str(b.BeamName) for b in tdcm.dcmread(path).BeamSequence] != names:
+                raise RuntimeError(f"the {name} plan does not read back as written")
+            if back.machine_name != g.machine_name:
+                raise RuntimeError(f"the {name} plan as a template names another machine")
+            print(f"plan {name}: {len(names)} beams ({', '.join(names)}), "
+                  f"{os.path.getsize(path)} bytes, written and read back equal")
+        print(f"plans built, written and read back in {time.perf_counter() - t0:.1f} s")
+
+        sim = AS1200Image(sid=1000)
+        grids = {"AS1200": (sim.shape[1] * sim.pixel_size, sim.pixel_size),
+                 "0.1 mm over 400 mm": (400, 0.1)}
+        for name in ("millennium", "hd", "halcyon"):
+            rt_plan = plans[name].as_dicom()
+            for grid, (width, res) in grids.items():
+                for dtype in (np.float32, np.uint16):
+                    t1 = time.perf_counter()
+                    card_map = p.generate_fluences(rt_plan, width, res, dtype=dtype, device="cuda")
+                    card_ms = (time.perf_counter() - t1) * 1e3
+                    cpu_map = p.generate_fluences(rt_plan, width, res, dtype=dtype,
+                                                  device="cpu")
+                    if card_map.shape != cpu_map.shape or \
+                            not np.array_equal(card_map.view(np.uint8), cpu_map.view(np.uint8)):
+                        raise RuntimeError(f"the {name} plan's {np.dtype(dtype).name} fluence "
+                                           f"at {grid} differs between the card and the CPU")
+                    if not card_map.any():
+                        raise RuntimeError(f"the {name} plan's fluence at {grid} is empty")
+                print(f"[{card}] generate_fluences of the {name} plan at {grid}: "
+                      f"{card_map.shape}, float32 and uint16 equal to the CPU's (uint16 "
+                      f"first call {card_ms:.1f} ms)")
+            width, res = grids["AS1200"]
+            median_runs(card, f"warm generate_fluences of the {name} plan "
+                        f"({len(rt_plan.BeamSequence)} beams) at AS1200's grid",
+                        lambda: p.generate_fluences(rt_plan, width, res, device="cuda"),
+                        PLAN_WARM_RUNS)
+
+        card_imgs = plans["pf"].to_dicom_images(AS1200Image, device="cuda")
+        cpu_imgs = plans["pf"].to_dicom_images(AS1200Image, device="cpu")
+        frame = card_imgs[0].pixel_array
+        if not np.array_equal(frame, cpu_imgs[0].pixel_array) or frame.shape != sim.shape:
+            raise RuntimeError("to_dicom_images: the card's frame differs from the CPU's")
+        median_runs(card, "warm to_dicom_images of the picket fence plan (AS1200)",
+                    lambda: plans["pf"].to_dicom_images(AS1200Image, device="cuda"),
+                    PLAN_WARM_RUNS)
+        rng = np.random.default_rng(17)
+        spiked = frame.copy()
+        spiked.flat[rng.choice(spiked.size, int(spiked.size * PLAN_HOT_PIXELS),
+                               replace=False)] = 65535
+        card_imgs[0].set_pixel_data(spiked)
+        pf_path = os.path.join(tmp, "pf_epid.dcm")
+        tdcm.dcmwrite(pf_path, card_imgs[0])
+
+        median.median3x3.launches = 0
+        with recording_inputs([(tfilters, "median3x3", "median")]) as pf_seen:
+            pf = PicketFence(pf_path, device="cuda")
+            pf.analyze()
+            pf_data = pf.results_data(as_dict=True)
+        torch.cuda.synchronize()
+        pf_launches = median.median3x3.launches
+        check_counts(pf_seen, {"median": pf_launches}, "plan-rendered PicketFence")
+        if pf_launches < 1:
+            raise RuntimeError("the plan-rendered PicketFence launched no median3x3 kernel")
+        cpu_pf = PicketFence(pf_path, device="cpu")
+        cpu_pf.analyze()
+        pf_diff = compare_tree(result_dict(pf), result_dict(cpu_pf),
+                               "plan-rendered PicketFence card vs CPU",
+                               lambda path, a: MM_TOL if "mm" in path else PCT_TOL)
+        if pf_data["number_of_pickets"] != PLAN_PICKETS or \
+                not pf_data["max_error_mm"] < PLAN_TRUTH_MM:
+            raise RuntimeError(f"plan-rendered PicketFence: {pf_data['number_of_pickets']} "
+                               f"pickets, max error {pf_data['max_error_mm']} mm")
+        print(f"plan-rendered PicketFence: {pf_data['number_of_pickets']} pickets, max error "
+              f"{pf_data['max_error_mm']:.2e} mm, median3x3 launches {pf_launches}, card vs CPU "
+              f"max difference {pf_diff:.2e}")
+
+        def pf_run():
+            obj = PicketFence(pf_path, device="cuda")
+            obj.analyze()
+            out = obj.results_data(as_dict=True)
+            torch.cuda.synchronize()
+            return out
+
+        _, outs = median_runs(card, "warm plan-rendered PicketFence (load, de-spike, analyze, "
+                              "results_data)", pf_run, PLAN_WARM_RUNS)
+        check_same_texts([results_text(o) for o in outs], "plan-rendered PicketFence warm runs")
+
+        jaw_path = os.path.join(tmp, "jaw.dcm")
+        sim = AS1200Image(sid=1000)
+        sim.add_layer(FilteredFieldLayer(field_size_mm=(JAW_FIELD_MM, JAW_FIELD_MM)))
+        sim.add_layer(GaussianFilterLayer(sigma_mm=0.5))
+        sim.generate_dicom(jaw_path)
+        entries = ccl_entries() + [(tedges, "label_batch", "label"),
+                                   (tfilters, "median3x3", "median")]
+        median.median3x3.launches = 0
+        ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+        with recording_inputs(entries) as jaw_seen:
+            jaw = JawOrthogonality(jaw_path)
+            jaw.analyze(device="cuda")
+        jaw_counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
+                      "median": median.median3x3.launches}
+        check_counts(jaw_seen, jaw_counts, "JawOrthogonality")
+        if jaw_counts["label"] < 1:
+            raise RuntimeError(f"JawOrthogonality launched no CCL label kernel: {jaw_counts}")
+        cpu_jaw = JawOrthogonality(jaw_path)
+        cpu_jaw.analyze(device="cpu")
+        if not (np.array_equal(jaw.edge_image, cpu_jaw.edge_image)
+                and np.array_equal(jaw.hspace, cpu_jaw.hspace)
+                and jaw.results() == cpu_jaw.results()):
+            raise RuntimeError("JawOrthogonality: the card's edges, Hough space or angles "
+                               "differ from the CPU's")
+        angles = jaw.results()
+        if not all(abs(a - 90) <= JAW_DEG for a in angles.values()):
+            raise RuntimeError(f"JawOrthogonality: corners {angles}")
+        print(f"JawOrthogonality of an AS1200 {JAW_FIELD_MM} mm field: "
+              f"{int(jaw.edge_image.sum())} edge pixels, Hough {jaw.hspace.shape}, corners "
+              + ", ".join(f"{k} {v:.2f}" for k, v in angles.items())
+              + f" degrees; launches {jaw_counts}; edges, Hough space and angles equal to the "
+                "CPU's")
+        edge_input = torch.from_numpy(stretch(jaw.image.array).astype(np.float32)).to("cuda")
+
+        canny_ms, _ = median_runs(card, "warm Canny of the AS1200 frame (to the host)",
+                                  lambda: tedges.canny(edge_input).cpu().numpy(),
+                                  PLAN_WARM_RUNS)
+        theta = np.linspace(-np.pi / 2, np.pi / 2, num=3600, endpoint=False)
+        hough_ms, _ = median_runs(card, f"warm hough_line of {int(jaw.edge_image.sum())} edge "
+                                  "pixels x 3600 angles (host, bincount)",
+                                  lambda: hough_line(jaw.edge_image, theta), PLAN_WARM_RUNS)
+
+        def jaw_run():
+            obj = JawOrthogonality(jaw_path)
+            obj.analyze(device="cuda")
+            return obj.results()
+
+        jaw_ms, _ = median_runs(card, "warm JawOrthogonality (load, Canny, Hough, peaks)",
+                                jaw_run, PLAN_WARM_RUNS)
+
+        q_path = draw_quasar(os.path.join(tmp, "quasar.dcm"))
+        median.median3x3.launches = 0
+        ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+        with recording_inputs(entries) as q_seen:
+            quasar = QuasarLightRadScaling(q_path)
+            quasar.analyze(device="cuda")
+            q_data = result_dict(quasar)
+        torch.cuda.synchronize()
+        q_counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
+                    "median": median.median3x3.launches}
+        check_counts(q_seen, q_counts, "QuasarLightRadScaling")
+        if min(q_counts.values()) < 1:
+            raise RuntimeError(f"QuasarLightRadScaling launched a kernel no time: {q_counts}")
+        cpu_q = QuasarLightRadScaling(q_path)
+        cpu_q.analyze(device="cpu")
+        q_diff = compare_tree(q_data, result_dict(cpu_q), "Quasar card vs CPU", planar_tol)
+        gaps = [max(abs(a.x - b.x), abs(a.y - b.y))
+                for a, b in zip(quasar.scaling_centers, cpu_q.scaling_centers)]
+        if len(quasar.scaling_centers) != 5 or max(gaps) > PX_TOL:
+            raise RuntimeError(f"Quasar scaling centres: {len(quasar.scaling_centers)}, card "
+                               f"vs CPU {gaps} px")
+        if abs(q_data["field_size_x_mm"] - 120) > 2 or abs(q_data["field_bb_offset_x_mm"]) > 1.5:
+            raise RuntimeError(f"Quasar: {q_data}")
+        print(f"QuasarLightRadScaling on AS1200: field {q_data['field_size_x_mm']:.3f} x "
+              f"{q_data['field_size_y_mm']:.3f} mm, BB offset "
+              f"({q_data['field_bb_offset_x_mm']:.4f}, {q_data['field_bb_offset_y_mm']:.4f}) "
+              f"mm, 5 scaling centres within {max(gaps):.2e} px of the CPU's; launches "
+              f"{q_counts}; card vs CPU max difference {q_diff:.2e}")
+
+        def quasar_run():
+            obj = QuasarLightRadScaling(q_path)
+            obj.analyze(device="cuda")
+            out = obj.results_data()
+            torch.cuda.synchronize()
+            return out
+
+        _, outs = median_runs(card, "warm QuasarLightRadScaling (load, analyze, results_data)",
+                              quasar_run, PLAN_WARM_RUNS)
+        check_same_texts([results_text(o) for o in outs], "Quasar warm runs")
+
+        seen = pf_seen + jaw_seen + q_seen
+        pairs = {**kernel_pairs(ccl), "median": (median.median3x3, median.median3x3_reference)}
+        worst = check_path_masks(pairs, seen, "plan and contrib")
+        totals = Counter({"median": pf_launches})
+        totals.update(jaw_counts)
+        totals.update(q_counts)
+        lines = []
+        for mode in ("label", "holes"):
+            kernel, twin = pairs[mode]
+            masks, args, kwargs = largest_record(seen, mode)
+            masks = masks if masks.dim() == 3 else masks[None]
+            timed = timed_pair(card, f"contrib ccl {mode}", lambda x: kernel(x, *args, **kwargs),
+                               lambda x: twin(x, *args, **kwargs), masks, ccl_bound)
+            lines.append(ccl_line(f"ccl_{mode}_contrib", "pylinac_tpu/ops/pallas_label.py:"
+                                  + ("127" if mode == "label" else "289"),
+                                  totals[mode], worst.get(mode, 0.0), timed))
+        x = largest_record(pf_seen, "median")[0].to(torch.float32)
+        kernel_ms, plain_ms = time_pair(median.median3x3, median.median3x3_reference, x, 50, 3)
+        bound_ms, bound_by = bound(8 * x.numel(), 21 * x.numel(), F32_INSTR_PER_S)
+        print(f"[{card}] median3x3 at {tuple(x.shape)}, the plan-rendered frame: kernel "
+              f"{kernel_ms:.4f} ms, plain twin {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+        lines.append({"name": "median3x3_contrib", "route": "cuda",
+                      "source": "pylinac_tpu_torch/csrc/median3x3.cu",
+                      "replaces": "pylinac_tpu/ops/pallas_median.py:27",
+                      "launches": totals["median"], "max_abs_err": worst.get("median", 0.0),
+                      "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None})
+        print(f"[{card}] JawOrthogonality split: Canny {canny_ms:.1f} ms, Hough {hough_ms:.1f} "
+              f"ms, whole {jaw_ms:.1f} ms")
+        print(f"plan and contrib launches: {dict(totals)}")
+        calibration_checks(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -4800,6 +5209,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels[0]["launches"] += log_phase(card, median)
     print(f"machine log phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += plan_phase(card, median, ccl)
+    print(f"plan, contrib and calibration phase: {time.perf_counter() - t0:.1f} s")
     # last: its profile of an 8-frame run (177,000 launches) left the next
     # phase's profiler with no device events
     t0 = time.perf_counter()

@@ -25,15 +25,23 @@ Standard Imaging QC-3, QC-kV and FC-2, Las Vegas, PTW EPID QC, IBA Primus
 A, the SNC kV and MV phantoms, the Doselab MC2 and RLf, IMT L-Rad, PTW
 Iso-Align, SNC FSQA and the ACR digital mammography phantom), the machine
 log analyzer (``Dynalog``, ``TrajectoryLog``, ``MachineLogs``,
-``load_log``), the nuclear-medicine suite (``nuclear``) and stage timing
-(``profiling``).
+``load_log``), the nuclear-medicine suite (``nuclear``), stage timing
+(``profiling``), QA plan generation with its fluence maps
+(``TrueBeamPlanGenerator``, ``HalcyonPlanGenerator``, ``MLCShaper``,
+``generate_fluences``, ``assign2machine``), the contributed jaw
+orthogonality and Quasar analyses (``contrib``), the TG-51 and TRS-398
+calibration worksheets with their PDF reports (``tg51``, ``trs398``) and
+the ``core`` helper modules (``decorators``, ``mask``).
 """
 
 from .acr import ACRCT, ACRMRILarge
+from .calibration import tg51, trs398
 from .cheese import CIRS062M, TomoCheese
+from .core import decorators, geometry, image, io, mask, profile, roi, utilities
 from .core.image import XIM
 from .core.profile import Centering, Edge, Interpolation, Normalization
 from .core.scale import MachineScale
+from .core.utilities import assign2machine
 from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhan700, CatPhanBatch
 from .dlg import DLG
 from .helios import GEHeliosCTDaily
@@ -41,6 +49,7 @@ from .log_analyzer import Dynalog, MachineLogs, TrajectoryLog, load_log
 from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
                              analyze_field_batch)
 from .field_profile_analysis import FieldProfileAnalysis
+from .plan_generator import HalcyonPlanGenerator, MLCShaper, TrueBeamPlanGenerator, generate_fluences
 from .planar_imaging import (PTWEPIDQC, SNCFSQA, SNCMV, SNCMV12510, ACRDigitalMammography,
                              DoselabMC2kV, DoselabMC2MV, DoselabRLf, ElektaLasVegas, IBAPrimusA,
                              IMTLRad, IsoAlign, LasVegas, LeedsTOR, LeedsTORBlue, SNCkV,
@@ -59,16 +68,19 @@ __all__ = ["ACRCT", "ACRDigitalMammography", "ACRMRILarge", "BBArrangement", "BB
            "CatPhan700", "CatPhanBatch", "Centering", "DLG", "DRCS", "DRGS", "DRMLC",
            "DeviceFieldAnalysis", "DoselabMC2MV", "Dynalog", "DoselabMC2kV", "DoselabRLf", "Edge",
            "ElektaLasVegas", "FieldAnalysis", "FieldAnalysisBatch", "FieldProfileAnalysis",
-           "GEHeliosCTDaily", "IBAPrimusA", "IMTLRad", "IsoAlign", "LasVegas", "LeedsTOR",
+           "GEHeliosCTDaily", "HalcyonPlanGenerator", "IBAPrimusA", "IMTLRad", "IsoAlign", "LasVegas", "LeedsTOR",
            "LeedsTORBlue", "PTWEPIDQC", "SNCFSQA", "SNCMV", "SNCMV12510", "SNCkV",
            "StandardImagingFC2", "StandardImagingQC3", "StandardImagingQCkV",
-           "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MachineLogs",
+           "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MLCShaper", "MachineLogs",
            "MachineScale",
            "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
            "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "TrajectoryLog",
+           "TrueBeamPlanGenerator",
            "WinstonLutz",
            "WinstonLutz2D",
            "WinstonLutzMultiTargetMultiField", "WinstonLutzMultiTargetMultiFieldResult",
-           "analyze_batch", "analyze_field_batch", "analyze_star_batch", "gamma_1d",
-           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "load_log", "XIM",
+           "analyze_batch", "analyze_field_batch", "assign2machine", "decorators", "analyze_star_batch", "gamma_1d",
+           "gamma_2d", "gamma_2d_batch", "gamma_bakai", "gamma_geometric", "generate_fluences",
+           "geometry", "image", "io", "load_log", "mask", "profile", "roi", "tg51", "trs398",
+           "utilities", "XIM",
            "__version__"]

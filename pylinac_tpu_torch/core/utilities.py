@@ -3,7 +3,8 @@
 Port of ``ResultBase`` (``pylinac_tpu/core/utilities.py:43``), a pydantic
 model there, as a dataclass with the same fields, of ``ResultsDataMixin``
 (``:59-78``), of ``is_iterable`` ``:80``, ``Structure`` ``:117`` and
-``decode_binary`` ``:127`` (the log analyzer's binary reader) and of
+``decode_binary`` ``:127`` (the log analyzer's binary reader), of
+``assign2machine`` ``:266`` (through the port's ``core/dcm.py``) and of
 ``convert_to_enum`` (``pylinac_tpu/core/profile.py:127``, the form
 ``picketfence.py`` imports). ``model_dump()`` and
 ``model_dump_json()`` keep callers written for the pydantic models working.
@@ -192,6 +193,19 @@ def decode_binary(file: BinaryIO, dtype, num_values: int = 1, cursor_shift: int 
     if cursor_shift:
         f.seek(cursor_shift, 1)
     return output
+
+
+def assign2machine(source_file: str, machine_file: str) -> None:
+    """Copy the TreatmentMachineName of ``machine_file``'s first beam onto
+    every beam of ``source_file``, which is overwritten: the way to retarget
+    a canned QA plan to a machine."""
+    from . import dcm
+
+    dcm_source = dcm.dcmread(source_file)
+    dcm_machine = dcm.dcmread(machine_file)
+    for beam in dcm_source.BeamSequence:
+        beam.TreatmentMachineName = dcm_machine.BeamSequence[0].TreatmentMachineName
+    dcm.dcmwrite(source_file, dcm_source)
 
 
 def not_ported(*names: str):

@@ -125,21 +125,24 @@ def take_centermost_roi(rprops: list, image_shape: tuple[int, int]):
 
 # ---------------------------------------------------------------------------
 # Hough line transform (replaces skimage.transform.hough_line for the
-# Doselab MC2 angle finder). The accumulation is a vectorized projection +
-# bincount over a cropped edge mask — host numpy; the mask is tiny.
+# Doselab MC2 angle finder and the jaw orthogonality). The accumulation is a
+# vectorized projection and one bincount over the flattened (distance,
+# angle) index, host numpy: the counts of JAX's ``np.add.at``, several
+# times faster.
 # ---------------------------------------------------------------------------
 
 def hough_line(image: np.ndarray, theta: np.ndarray):
     rows, cols = np.nonzero(image)
     offset = int(np.ceil(np.hypot(*image.shape)))
     nbins = 2 * offset + 1
-    acc = np.zeros((nbins, len(theta)), np.uint64)
-    if len(rows):
-        dists = cols[:, None] * np.cos(theta) + rows[:, None] * np.sin(theta)
-        idx = np.round(dists).astype(int) + offset
-        np.add.at(acc, (idx.ravel(),
-                        np.broadcast_to(np.arange(len(theta)), idx.shape).ravel()), 1)
-    return acc, theta, np.arange(-offset, offset + 1)
+    n_theta = len(theta)
+    if not len(rows):
+        return np.zeros((nbins, n_theta), np.uint64), theta, np.arange(-offset, offset + 1)
+    dists = cols[:, None] * np.cos(theta) + rows[:, None] * np.sin(theta)
+    idx = np.round(dists).astype(int) + offset
+    flat = (idx * n_theta + np.arange(n_theta)).ravel()
+    acc = np.bincount(flat, minlength=nbins * n_theta).reshape(nbins, n_theta)
+    return acc.astype(np.uint64), theta, np.arange(-offset, offset + 1)
 
 
 def hough_line_peaks(hspace, angles, dists, min_distance=9, min_angle=10,

@@ -19,7 +19,8 @@ native decoder (``native/xim_decode.cpp``), a DRGS and a DRCS pair, a DLG
 image and a 40-slice Quart DVT, a small QC-3 and FC-2 (AS500) and a
 ``FieldProfileAnalysis`` of an AS500 open field, a ``PlanarUniformity`` of
 a 128 x 128 flood and a trajectory log's fluence, with the picket fence's
-stages timed by ``pylinac_tpu_torch.profiling``, on the CPU: the native
+stages timed by ``pylinac_tpu_torch.profiling``, a TG-51 photon worksheet
+and its PDF, and a small TrueBeam plan and its fluence, on the CPU: the native
 codecs build and run without either package. The machine with the card has neither package.
 """
 
@@ -229,7 +230,36 @@ CHILD = textwrap.dedent("""
     tlog = log_analyzer.load_log(write_vmat_tlog(tempfile.mkdtemp() + "/T_arc.bin", n_snap=100),
                                  device="cpu")
     tlog_map = tlog.fluence.actual.calc_map()
+    from pylinac_tpu_torch import TrueBeamPlanGenerator, generate_fluences, tg51
+    sheet = tg51.TG51Photon(unit="TB1", chamber="30013", temp=22, press=101.33, n_dw=5.555,
+                            p_elec=1.0, measured_pdd10=66.0, clinical_pdd10=66.0, energy=6,
+                            voltage_reference=-300, voltage_reduced=-150,
+                            m_reference=(25.65,), m_opposite=(-25.66,), m_reduced=(25.64,),
+                            mu=200)
+    pdf_path = tempfile.mkdtemp() + "/tg51.pdf"
+    sheet.publish_pdf(pdf_path)
+    plan = tdcm.Dataset()
+    plan.Modality = "RTPLAN"
+    plan.PatientName = "QA^Physics"
+    plan.PatientID = "QA1"
+    tol = tdcm.Dataset()
+    tol.ToleranceTableNumber = 1
+    plan.ToleranceTableSequence = [tol]
+    beam, leaves = tdcm.Dataset(), tdcm.Dataset()
+    beam.TreatmentMachineName = "TB1"
+    leaves.RTBeamLimitingDeviceType = "MLCX"
+    leaves.NumberOfLeafJawPairs = 60
+    leaves.LeafPositionBoundaries = list(range(-200, -99, 10)) + list(range(-95, 96, 5)) \
+        + list(range(100, 201, 10))
+    beam.BeamLimitingDeviceSequence = [leaves]
+    plan.BeamSequence = [beam]
+    pg = TrueBeamPlanGenerator(plan, plan_label="QA", plan_name="QA")
+    pg.add_open_field_beam(x1=-50, x2=50, y1=-50, y2=50, mu=100)
+    fl = generate_fluences(pg.as_dicom(), width_mm=200, resolution_mm=1, dtype=np.float32,
+                           device="cpu")
     print(json.dumps({
+        "tg51": [round(sheet.dose_mu_dmax, 4), open(pdf_path, "rb").read(5).decode()],
+        "plan_fluence": [list(fl.shape), float(fl[0, 200, 100]), float(fl[0, 200, 5])],
         "nm_uniformity": pu.results_data(as_dict=True)["Frame 1"]["ufov_integral_uniformity"],
         "tlog": [list(tlog_map.shape), float(tlog_map.max()), tlog.treatment_type],
         "stages": sorted(stage_times.as_dict()),
@@ -320,5 +350,7 @@ def test_port_runs_without_jax_or_pydantic():
     assert abs(out["fpa"] - 100) < 1.0
     assert 0 < out["nm_uniformity"] < 15
     assert out["tlog"][0] == [60, 4000] and 0 < out["tlog"][1] <= 600
+    assert 1.0 < out["tg51"][0] < 1.2 and out["tg51"][1] == "%PDF-"
+    assert out["plan_fluence"] == [[1, 401, 201], 1000.0, 0.0]
     assert out["stages"] == ["pf.dispatch", "pf.fetch_unpack", "pf.h2d_stage",
                              "pf.host_orient", "pf.wmax_est"]
