@@ -184,6 +184,18 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   their PDFs on the host; whether matplotlib imports. Its lines join the
   kernels line as ``ccl_label_contrib``, ``ccl_holes_contrib`` and
   ``median3x3_contrib``;
+- multi-device and reports: the PF batch of 64 frames and the CatPhan batch
+  of 4 scans (kept from their phases), the FA batch of 64 frames, the gamma
+  batch of 16 pairs and ``sharded_wl_centroids`` of the WL session's 8
+  frames, each on ``make_mesh()`` (the one card) and on logical meshes of
+  4 and 3 shards of it (``Mesh([cuda:0] * n)``; WL on the even ones),
+  against the unsharded card run (bit-equal, or floats within the path's
+  bar, printed), with every kernel input held bit-equal to its twin, the
+  launches counted (at least one a shard) and the warm runs timed; then
+  the PDF, QuAAC and plotly reports of a spiked PF frame and of CatPhan504
+  scan 0 analysed on the card, against the CPU's (the PDF byte for byte).
+  Its lines join the kernels line as ``median3x3_mesh``, ``ccl_label_mesh``,
+  ``ccl_holes_mesh``, ``gamma2d_mesh`` and ``flood_mesh``;
 - stage tables: one warm run each of the PF batch, the CatPhan batch and
   ACR CT under ``profiling.collect()``, and the launch and copy counts of
   a warm CatPhan batch under ``profiling.count_dispatches()``;
@@ -887,6 +899,7 @@ def picket_fence_phase(card: str, median) -> dict:
         if launches < 1:
             raise RuntimeError("the picket fence path launched no median3x3 kernel")
         print(f"picket fence path: median3x3.launches = {launches}")
+        KEPT["pf_batch"] = batch
         check_results(results, batch._out["despike_passes"].tolist())
 
         cpu_batch = PicketFenceBatch(batch.images[:4])
@@ -987,6 +1000,7 @@ def catphan_phase(card: str, ccl) -> list[dict]:
                     compare_tree(cpu_result, results[0], "CPU vs card batch", ct_tol))
         print(f"card vs CPU on scan 0: agree (max difference {worst:.2e}; roll "
               f"{single_result['catphan_roll_deg']:.6f} vs {cpu_result['catphan_roll_deg']:.6f} deg)")
+        KEPT["ct_batch"], KEPT["catphan504"] = batch, (single, cpu)
 
         def warm_batch():
             for scan in batch.cts:
@@ -5134,6 +5148,437 @@ def plan_phase(card: str, median, ccl) -> list[dict]:
     return lines
 
 
+# the mesh phase's layouts on one card: JAX's make_mesh() over every card,
+# and two logical meshes, an even and an uneven one
+MESH_LOGICAL = (4, 3)
+# 1 warm-up, then the median of 2, each layout's runs together: a layout's
+# chunk sizes differ from the last one's, and its first run regrows the
+# caching allocator's blocks
+MESH_WARM_RUNS = 3
+WL_PX_TOL = 1e-3          # WL centroids where the shards' sums round otherwise
+# what earlier phases keep for the mesh phase: the PF batch of 64 frames,
+# the CatPhan batch of 4 scans and the single scan on the card and the CPU
+KEPT: dict = {}
+
+
+WL_SUMS = ("field y", "field x", "BB mass", "BB y", "BB x")
+
+
+def wl_sum_split(frames: np.ndarray, device, shards: int, bb_window_px: int = 24) -> dict:
+    """Which float32 sum makes ``sharded_wl_centroids`` on ``shards`` shards
+    differ from its 1-shard run. The steps of ``parallel/mesh.py``'s
+    ``sharded_wl_centroids`` run on the whole batch, each of its five float
+    sums (``WL_SUMS``; the field's mass counts a bool and is exact) taken
+    over the whole batch or shard by shard and joined. Returns, for no sum
+    split, every sum split, and each sum split alone, the (N, 4) centroids,
+    and for the BB x numerator alone the per-image sums at B = N, N/shards
+    and 1."""
+    from pylinac_tpu_torch.ops.label import fill_holes
+
+    img = torch.as_tensor(frames, device=device).to(torch.float32)
+    img = img - img.amin(dim=(1, 2), keepdim=True)
+    _, h, w = img.shape
+    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    peak = img.amax(dim=(1, 2), keepdim=True)
+    field = fill_holes(img > 0.5 * peak)
+    fmass = field.sum(dim=(1, 2)).to(torch.float32).clamp(min=1.0)
+
+    def centroids(split):
+        def total(name, x):
+            if name in split:
+                return torch.cat([c.sum(dim=(1, 2)) for c in x.chunk(shards)])
+            return x.sum(dim=(1, 2))
+
+        fy = total("field y", field * yy) / fmass
+        fx = total("field x", field * xx) / fmass
+        inv = torch.where(field, peak - img, 0.0)
+        in_win = (((yy - fy[:, None, None]).abs() <= bb_window_px)
+                  & ((xx - fx[:, None, None]).abs() <= bb_window_px))
+        floor = torch.where(in_win, inv, float("inf")).amin(dim=(1, 2), keepdim=True)
+        wgt = torch.where(in_win, (inv - floor).clamp(min=0.0), 0.0)
+        bmass = total("BB mass", wgt).clamp(min=1e-6)
+        by = total("BB y", wgt * yy) / bmass
+        bx = total("BB x", wgt * xx) / bmass
+        return torch.stack([fy, fx, by, bx], dim=1), wgt * xx
+
+    out = {"none": centroids(())[0], "all": centroids(WL_SUMS)[0]}
+    for name in WL_SUMS:
+        out[name] = centroids((name,))[0]
+    numer = centroids(())[1]
+    out["BB x numerator by batch size"] = {
+        b: torch.cat([c.sum(dim=(1, 2)) for c in numer.split(b)])
+        for b in (numer.shape[0], numer.shape[0] // shards, 1)}
+    return out
+
+
+def wl_split_report(frames: np.ndarray, mesh_result, plain_result, shards: int) -> str:
+    """:func:`wl_sum_split` on the card, held to the real runs: no sum split
+    must equal the 1-shard result and every sum split the ``shards``-shard
+    one bit for bit; then what each sum split alone moves, by column."""
+    parts = wl_sum_split(frames, mesh_result.device, shards)
+    for key, real in (("none", plain_result), ("all", mesh_result)):
+        if not torch.equal(parts[key], real):
+            raise RuntimeError(f"wl_sum_split({key!r}) is not the real run: max |diff| "
+                               f"{float((parts[key] - real).abs().max())}")
+
+    def cols(a):
+        return [float(v) for v in (a - parts["none"]).abs().amax(dim=0)]
+
+    sums = parts["BB x numerator by batch size"]
+    big = sums[max(sums)]
+    return ("sums split shard by shard, max |diff| from the 1-shard run by column "
+            "(field y, field x, BB y, BB x): "
+            + "; ".join(f"{k} {cols(parts[k])}" for k in ("all",) + WL_SUMS)
+            + "; the BB x numerator sum(wgt * xx) per image at batch size "
+            + ", ".join(f"{b}: max |diff| {float((s - big).abs().max())} of "
+                        f"{float(big.abs().max()):.6e}" for b, s in sums.items()))
+
+
+def mesh_layouts() -> dict:
+    from pylinac_tpu_torch.parallel import mesh as tmesh
+
+    first = torch.device("cuda", 0)
+    layouts = {"make_mesh()": tmesh.make_mesh()}
+    for n in MESH_LOGICAL:
+        layouts[f"{n} x {first}"] = tmesh.Mesh([first] * n, ("data",))
+    return layouts
+
+
+def array_tree_diff(a, b, path: str = "") -> tuple[bool, float, str]:
+    """Two trees of arrays (dicts of arrays, arrays, tensors): (bit-equal,
+    largest float difference, the first non-float field that differs or
+    "")."""
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            return False, float("inf"), f"{path} keys"
+        parts = [array_tree_diff(a[k], b[k], f"{path}/{k}") for k in a]
+        return (all(p[0] for p in parts), max((p[1] for p in parts), default=0.0),
+                next((p[2] for p in parts if p[2]), ""))
+    x = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    y = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    if x.shape != y.shape:
+        return False, float("inf"), f"{path} shape"
+    if x.dtype.kind != "f":
+        same = np.array_equal(x, y)
+        return same, 0.0, "" if same else path
+    nan = np.isnan(x)
+    if not np.array_equal(nan, np.isnan(y)):
+        return False, float("inf"), f"{path} NaN mask"
+    diff = float(np.max(np.abs(x[~nan].astype(np.float64) - y[~nan]), initial=0.0))
+    return bool(np.array_equal(x[~nan], y[~nan])), diff, ""
+
+
+def hold_mesh_result(got, want, what: str, bar: float) -> str:
+    """The mesh's result against the unsharded one: bit-equal, or floats
+    within ``bar`` (and every other field equal), which is printed, not
+    hidden."""
+    same, diff, field = array_tree_diff(got, want)
+    if field or diff > bar:
+        raise RuntimeError(f"{what}: differs from the unsharded run ({field or 'floats'}, max "
+                           f"|diff| {diff}, bar {bar})")
+    return "bit-equal" if same else f"floats within {diff:.3e} of it (bar {bar}; not bit-equal)"
+
+
+def mesh_runs(card: str, what: str, layouts: dict, run_plain, run_mesh, hold,
+              entries, counters: dict, min_per_shard: dict) -> dict:
+    """``run_plain()`` once, then ``run_mesh(mesh)`` on each layout with every
+    launch count at 0 and every kernel input recorded; the recorded inputs
+    must match the counts, each mode must launch at least its
+    ``min_per_shard`` times the shards, and ``hold(result, unsharded
+    result, what)`` must pass (a float: :func:`hold_mesh_result` at that
+    bar). Then the warm runs, unsharded and on each mesh, one layout after
+    the other. Returns {layout: (counts, recorded inputs)}."""
+    if not callable(hold):
+        hold = functools.partial(hold_mesh_result, bar=hold)
+    want = run_plain()
+    torch.cuda.synchronize()
+    out = {}
+    for name, mesh in layouts.items():
+        for counter in counters.values():
+            counter.launches = 0
+        with recording_inputs(entries) as seen:
+            got = run_mesh(mesh)
+        torch.cuda.synchronize()
+        counts = {mode: counter.launches for mode, counter in counters.items()}
+        check_counts(seen, counts, f"{what} on {name}")
+        shards = mesh.shape["data"]
+        low = {m: c for m, c in counts.items() if c < min_per_shard.get(m, 0) * shards}
+        if low:
+            raise RuntimeError(f"{what} on {name} ({shards} shards) launched too few kernels: "
+                               f"{low}")
+        held = hold(got, want, f"{what} on {name}")
+        print(f"{what} on {name} ({shards} shards): launches {counts}, result {held}")
+        out[name] = (counts, seen)
+    runs = {"unsharded": run_plain, **{n: functools.partial(run_mesh, m)
+                                       for n, m in layouts.items()}}
+    walls = {n: [] for n in runs}
+    for n, run in runs.items():
+        for _ in range(MESH_WARM_RUNS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls[n].append((time.perf_counter() - t0) * 1e3)
+    print(f"[{card}] warm {what}, median of {MESH_WARM_RUNS - 1} runs after one (ms): "
+          + ", ".join(f"{n} {statistics.median(w[1:]):.1f} (runs "
+                      f"{', '.join(f'{t:.1f}' for t in w[1:])})" for n, w in walls.items()))
+    return out
+
+
+def mesh_kernel_line(card: str, name: str, source: str, replaces: str, mode: str, runs: dict,
+                     pairs: dict, bound_) -> dict:
+    """The kernels-line entry of a mode on the meshes: every recorded input
+    of every layout held bit-equal to its twin, the launches of the 4-shard
+    layout, kernel and twin timed on that layout's largest input."""
+    worst = 0.0
+    for layout, (_, seen) in runs.items():
+        mine = [s for s in seen if s[0] == mode]
+        worst = max(worst, check_path_masks(pairs, mine, f"{name} on {layout}").get(mode, 0.0))
+    layout = next(n for n in runs if n.startswith(f"{MESH_LOGICAL[0]} x"))
+    counts, seen = runs[layout]
+    _, x, args, kwargs = max((s for s in seen if s[0] == mode), key=lambda s: s[1].numel())
+    kernel, twin = pairs[mode]
+    x = x if x.dim() == 3 else x[None]
+    timed = timed_pair(card, f"{name} ({counts[mode]} launches on {layout})",
+                       lambda t: kernel(t, *args, **kwargs), lambda t: twin(t, *args, **kwargs),
+                       x, lambda t: bound_(t, args))
+    ms, plain_ms, bound_ms, bound_by = timed
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[mode], "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def frozen_reports(obj, tmp: str, tag: str) -> dict:
+    """The PDF bytes, the QuAAC JSON and the plotly JSON of an analysis, the
+    clocks of ``core/pdf.py`` and ``core/utilities.py`` frozen."""
+    import datetime as dt
+
+    from pylinac_tpu_torch.core import pdf as tpdf
+    from pylinac_tpu_torch.core import utilities as tutil
+
+    class Frozen(dt.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return cls(2024, 5, 6, 7, 8, 9)
+
+    saved = tpdf.datetime, tutil.datetime
+    tpdf.datetime = tutil.datetime = Frozen
+    try:
+        obj.publish_pdf(f"{tmp}/{tag}.pdf", notes="chip smoke")
+        obj.to_quaac(f"{tmp}/{tag}.json", overwrite=True)
+        plotly = {k: json.loads(f.to_json())
+                  for k, f in obj.plotly_analyzed_images(show=False).items()}
+    finally:
+        tpdf.datetime, tutil.datetime = saved
+    with open(f"{tmp}/{tag}.pdf", "rb") as f:
+        pdf = f.read()
+    with open(f"{tmp}/{tag}.json") as f:
+        quaac = json.load(f)
+    return {"pdf": pdf, "quaac": quaac, "plotly": plotly}
+
+
+def report_tol(path: str, a: float) -> float:
+    return max(MM_TOL, 1e-3 * abs(a))
+
+
+def check_reports(card_obj, cpu_obj, tmp: str, what: str) -> None:
+    """The reports of the card's analysis against the CPU's: the PDF
+    byte for byte, the QuAAC and plotly JSON keys and strings exact and
+    numbers at the parity bar (0.01, or 0.1 % where larger)."""
+    import re
+
+    t0 = time.perf_counter()
+    got = frozen_reports(card_obj, tmp, "card")
+    ms = (time.perf_counter() - t0) * 1e3
+    want = frozen_reports(cpu_obj, tmp, "cpu")
+    if not got["pdf"].startswith(b"%PDF"):
+        raise RuntimeError(f"{what}: the card's PDF is no PDF")
+    lines = list(zip(card_obj.results().splitlines(), cpu_obj.results().splitlines()))
+    differ = [(a, b) for a, b in lines if a != b]
+    if not differ:
+        if got["pdf"] != want["pdf"]:
+            raise RuntimeError(f"{what}: the card's PDF differs from the CPU's")
+        pdf_note = f"PDF {len(got['pdf'])} bytes equal to the CPU's"
+    else:
+        number = r"-?\d+\.?\d*(?:e[-+]?\d+)?"
+        for a, b in differ:
+            xa, xb = [float(v) for v in re.findall(number, a)], [float(v) for v in re.findall(number, b)]
+            if re.sub(number, "#", a) != re.sub(number, "#", b) or len(xa) != len(xb) or any(
+                    abs(u - v) > report_tol("", v) for u, v in zip(xa, xb)):
+                raise RuntimeError(f"{what}: the card's results text {a!r} against {b!r}")
+        pdf_note = (f"PDF not byte-equal: its results text differs from the CPU's in "
+                    f"{len(differ)} lines, each at the bar: {differ}")
+    diffs = [compare_tree(got[k], want[k], f"{what} {k}", report_tol) for k in ("quaac", "plotly")]
+    exact = [k for k in ("quaac", "plotly") if json.dumps(got[k]) == json.dumps(want[k])]
+    inexact = {g["name"]: g["measurement_value"] - w["measurement_value"]
+               for g, w in zip(got["quaac"]["datapoints"], want["quaac"]["datapoints"])
+               if g["measurement_value"] != w["measurement_value"]}
+    print(f"{what} reports on the card: {pdf_note}; QuAAC "
+          f"{len(got['quaac']['datapoints'])} datapoints and plotly figures "
+          f"{sorted(got['plotly'])} at the bar (max |diff| {max(diffs):.3e}; text-equal: "
+          f"{exact or 'none'}; QuAAC card - CPU where not equal: {inexact}); PDF, QuAAC and "
+          f"plotly of the card's analysis in {ms:.1f} ms")
+
+
+def mesh_reports_phase(card: str, median, ccl, flood, gamma2d) -> list[dict]:
+    """The multi-device path and the main path's reports. On ``make_mesh()``
+    and on logical 4- and 3-shard meshes of the one card: the PF batch of
+    64 frames and the CatPhan batch of 4 scans (kept from their phases),
+    the FA batch of 64 frames, the gamma batch of 16 pairs and WL centroids
+    of the bench's 8 frames (on the even meshes; 8 frames do not split into
+    3), each against its unsharded card run, every kernel input held to its
+    twin, the launches counted and the warm runs timed. Then the PDF, QuAAC
+    and plotly reports of a single spiked PF frame and of a CatPhan504 scan
+    analysed on the card, against the CPU's. Returns the kernels-line
+    entries ``median3x3_mesh``, ``ccl_label_mesh``, ``ccl_holes_mesh``,
+    ``flood_mesh`` and ``gamma2d_mesh``."""
+    from pylinac_tpu_torch import FieldAnalysisBatch, PicketFence
+    from pylinac_tpu_torch.core import image as timage
+    from pylinac_tpu_torch.ops import gamma as tgamma
+    from pylinac_tpu_torch.ops import label as tlabel
+    from pylinac_tpu_torch.ops import picket_pipeline
+    from pylinac_tpu_torch.parallel import mesh as tmesh
+
+    layouts = mesh_layouts()
+    lines = []
+    median_pairs = {"median": (median.median3x3, median.median3x3_reference)}
+    median_bound = lambda x, args: bound(8 * x.numel(), 21 * x.numel(), F32_INSTR_PER_S)
+
+    pf = KEPT["pf_batch"]
+
+    def pf_run(**kw):
+        pf.analyze(tolerance=0.5, **kw)
+        return {k: v.copy() for k, v in pf._out.items()}
+
+    runs = mesh_runs(card, f"PicketFenceBatch of {len(pf.images)} frames", layouts,
+                     lambda: pf_run(device="cuda"), lambda m: pf_run(mesh=m), 1e-5,
+                     [(picket_pipeline, "median3x3", "median")], {"median": median.median3x3},
+                     {"median": 1})
+    lines.append(mesh_kernel_line(card, "median3x3_mesh", "pylinac_tpu_torch/csrc/median3x3.cu",
+                                  "pylinac_tpu/ops/pallas_median.py:27", "median", runs,
+                                  median_pairs, median_bound))
+
+    ct_batch = KEPT["ct_batch"]
+
+    def ct_run(**kw):
+        for scan in ct_batch.cts:
+            scan._slice_centroids = None
+        ct_batch.analyze(**kw)
+        return ({"centroids": np.asarray([c if c is not None else (np.inf, np.inf)
+                                          for scan in ct_batch.cts
+                                          for c in scan._slice_centroids], np.float64)},
+                ct_batch.results_data(as_dict=True))
+
+    def ct_hold(got, want, what):
+        held = hold_mesh_result(got[0], want[0], f"{what} slice centroids", PX_TOL)
+        if results_text(got[1]) == results_text(want[1]):
+            return f"slice centroids {held}, results_data() equal character for character"
+        worst = max(compare_tree(g, w, what, ct_tol) for g, w in zip(got[1], want[1]))
+        return (f"slice centroids {held}, results_data() within {worst:.3e} at ct_tol "
+                f"(not character-equal)")
+
+    runs = mesh_runs(card, f"CatPhanBatch of {len(ct_batch.cts)} scans", layouts,
+                     lambda: ct_run(device="cuda"), lambda m: ct_run(mesh=m), ct_hold,
+                     ccl_entries(), {"label": ccl.label_batch, "holes": ccl.hole_roots_batch},
+                     {"label": 1, "holes": 1})
+    pairs = kernel_pairs(ccl)
+    for mode in ("label", "holes"):
+        lines.append(mesh_kernel_line(card, f"ccl_{mode}_mesh", "pylinac_tpu_torch/csrc/ccl.cu",
+                                      "pylinac_tpu/ops/pallas_label.py:336", mode, runs, pairs,
+                                      lambda x, args: ccl_bound(x)))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        paths = make_fields(tmp)
+        fa = FieldAnalysisBatch([paths[i % FA_FILES] for i in range(FA_FRAMES)], device="cuda")
+
+        def fa_run(**kw):
+            fa.analyze(**kw)
+            return fa._out
+
+        mesh_runs(card, f"FieldAnalysisBatch of {FA_FRAMES} frames (strips; no kernel)",
+                  layouts, lambda: fa_run(device="cuda"), lambda m: fa_run(mesh=m), 1e-5, [], {},
+                  {})
+
+        refs, evals = gamma_pairs()
+        kw = dict(dose_to_agreement=GAMMA_DOSE_TA, distance_to_agreement=GAMMA_DTA,
+                  gamma_cap_value=GAMMA_CAP, global_dose=True, dose_threshold=GAMMA_THRESH)
+        runs = mesh_runs(card, f"gamma_2d_batch of {GAMMA_PAIRS} pairs", layouts,
+                         lambda: tgamma.gamma_2d_batch(refs, evals, device="cuda", **kw),
+                         lambda m: tgamma.gamma_2d_batch(refs, evals, mesh=m, **kw),
+                         GAMMA_CPU_TOL, [(tgamma, "gamma2d", "gamma")], {"gamma": gamma2d.gamma2d},
+                         {"gamma": 1})
+
+        def gamma_bound(ref_n, args):
+            eval_p, dta = args[0], args[1]
+            n_offsets = len(gamma2d.offset_table(dta)[1])
+            return bound(4 * (2 * ref_n.numel() + eval_p.numel()),
+                         4 * n_offsets * ref_n.numel(), F32_INSTR_PER_S)
+
+        lines.append(mesh_kernel_line(card, "gamma2d_mesh", "pylinac_tpu_torch/csrc/gamma2d.cu",
+                                      "pylinac_tpu/ops/pallas_gamma.py:27", "gamma", runs,
+                                      {"gamma": (gamma2d.gamma2d, gamma2d.gamma2d_reference)},
+                                      gamma_bound))
+
+        os.makedirs(f"{tmp}/wl")
+        wl_dir = write_session(f"{tmp}/wl")
+        frames = np.stack([timage.load(f"{wl_dir}/{f}").array
+                           for f in sorted(os.listdir(wl_dir))]).astype(np.float32)
+        even = {n: m for n, m in layouts.items() if WL_FRAMES % m.shape["data"] == 0}
+        one = layouts["make_mesh()"]
+        try:
+            tmesh.sharded_wl_centroids(frames, layouts["3 x cuda:0"])
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError("sharded_wl_centroids split 8 frames into 3 shards")
+        def wl_hold(got, want, what):
+            cols = (got - want).abs().amax(dim=0).tolist()
+            return (f"{hold_mesh_result(got, want, what, WL_PX_TOL)}, max |diff| by column "
+                    f"(field y, field x, BB y, BB x) {cols}")
+
+        runs = mesh_runs(card, f"sharded_wl_centroids of {WL_FRAMES} frames {frames.shape[1:]}",
+                         even, lambda: tmesh.sharded_wl_centroids(frames, one),
+                         lambda m: tmesh.sharded_wl_centroids(frames, m), wl_hold,
+                         [(tlabel, "flood_from_border_batch", "flood")],
+                         {"flood": flood.flood_from_border_batch}, {"flood": 1})
+        cents = tmesh.sharded_wl_centroids(frames, even["4 x cuda:0"])
+        cpu = tmesh.sharded_wl_centroids(frames, tmesh.Mesh([torch.device("cpu")] * 4,
+                                                            ("data",)))
+        err = float((cents.cpu() - cpu).abs().max())
+        if err > WL_PX_TOL:
+            raise RuntimeError(f"WL centroids card against CPU: {err} px")
+        print(f"sharded_wl_centroids card against CPU: within {err:.2e} px (bar {WL_PX_TOL}); "
+              f"field centre {cents[0, :2].tolist()}, BB {cents[0, 2:].tolist()}")
+        print(f"[{card}] sharded_wl_centroids on 4 shards: "
+              + wl_split_report(frames, cents, tmesh.sharded_wl_centroids(frames, one), 4))
+        lines.append(mesh_kernel_line(card, "flood_mesh", "pylinac_tpu_torch/csrc/flood.cu",
+                                      "pylinac_tpu/ops/pallas_label.py:165", "flood", runs,
+                                      kernel_pairs(ccl, flood),
+                                      lambda x, args: flood_bound(x, "flood")))
+
+        pf_path = make_pf_singles(tmp)[1]
+        pf_card, pf_cpu = PicketFence(pf_path, device="cuda"), PicketFence(pf_path, device="cpu")
+        pf_card.analyze(tolerance=0.5)
+        pf_cpu.analyze(tolerance=0.5)
+        check_reports(pf_card, pf_cpu, tmp, "single PicketFence (spiked frame, 0.4 mm picket)")
+        ct_card, ct_cpu = KEPT["catphan504"]
+        check_reports(ct_card, ct_cpu, tmp, "CatPhan504 scan 0")
+        try:
+            import matplotlib  # noqa: F401
+            print("matplotlib imports here: the reports' plots can draw")
+        except ImportError:
+            try:
+                pf_card.plot_analyzed_image(show=False)
+            except ModuleNotFoundError as e:
+                print(f"matplotlib is missing here: plot_analyzed_image raised {e!r}")
+            else:
+                raise RuntimeError("plot_analyzed_image drew without matplotlib")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
@@ -5212,6 +5657,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += plan_phase(card, median, ccl)
     print(f"plan, contrib and calibration phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += mesh_reports_phase(card, median, ccl, flood, gamma2d)
+    KEPT.clear()
+    print(f"mesh and reports phase: {time.perf_counter() - t0:.1f} s")
     # last: its profile of an 8-frame run (177,000 launches) left the next
     # phase's profiler with no device events
     t0 = time.perf_counter()

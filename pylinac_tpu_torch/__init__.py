@@ -30,8 +30,14 @@ log analyzer (``Dynalog``, ``TrajectoryLog``, ``MachineLogs``,
 (``TrueBeamPlanGenerator``, ``HalcyonPlanGenerator``, ``MLCShaper``,
 ``generate_fluences``, ``assign2machine``), the contributed jaw
 orthogonality and Quasar analyses (``contrib``), the TG-51 and TRS-398
-calibration worksheets with their PDF reports (``tg51``, ``trs398``) and
-the ``core`` helper modules (``decorators``, ``mask``).
+calibration worksheets with their PDF reports (``tg51``, ``trs398``),
+the ``core`` helper modules (``decorators``, ``mask``), the multi-device
+runtime (``parallel``: a batch sharded over a ``Mesh`` of devices, the
+``mesh=`` of ``PicketFenceBatch``, ``CatPhanBatch``, ``FieldAnalysisBatch``
+and ``gamma_2d_batch``), the display ``settings`` and the reports of the
+picket fence and the CatPhan family (``publish_pdf``, ``to_quaac``,
+``plotly_analyzed_images`` through ``core.plotly_utils``, the matplotlib
+plots).
 """
 
 from .acr import ACRCT, ACRMRILarge

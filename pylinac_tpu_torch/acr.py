@@ -52,7 +52,7 @@ from .core.geometry import Line, Point
 from .core.mtf import MTF
 from .core.profile import FWXMProfile
 from .core.roi import DiskROI, HighContrastDiskROI, LowContrastDiskROI, RectangleROI
-from .core.utilities import DataModel, ResultBase, resolve_device
+from .core.utilities import DataModel, ResultBase, not_ported, resolve_device
 from .core.warnings import capture_warnings
 from .ct import CatPhanBase, CatPhanModule, Slice, ThicknessROI, get_regions, rois_to_results
 from .metrics.utils import valid_region_views
@@ -71,6 +71,11 @@ MR_SLICE11_MODULE_OFFSET_MM = 100
 MR_GEOMETRIC_DISTORTION_MODULE_OFFSET_MM = 40
 MR_UNIFORMITY_MODULE_OFFSET_MM = 60
 MR_LOW_CONTRAST_MODULE_OFFSETS_MM = {8: 70, 9: 80, 10: 90, 11: 100}
+
+# CatPhanBase's reports draw the CatPhan family's modules; these classes
+# have reports of their own, which wait for ROADMAP item 11
+_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
+             "plotly_analyzed_images", "publish_pdf", "to_quaac")
 
 
 def _filled(mask: np.ndarray, device) -> np.ndarray:
@@ -216,6 +221,7 @@ def _ct_output(cls, module, offset, **extra):
                rois={name: roi.pixel_value for name, roi in module.rois.items()}, **extra)
 
 
+@not_ported(*_REPORTS)
 @capture_warnings
 class ACRCT(CatPhanBase):
     """ACR CT 464 phantom analysis."""
@@ -769,6 +775,7 @@ class ACRMRIResult(ResultBase):
     low_contrast_multi_slice_module: MRLowContrastMultiSliceModuleOutput
 
 
+@not_ported(*_REPORTS)
 @capture_warnings
 class ACRMRILarge(CatPhanBase):
     """ACR MRI Large phantom analysis."""

@@ -3,8 +3,10 @@
 Port of ``pylinac_tpu/core/geometry.py``: the degree ``cos`` and ``sin``
 (``:26-31``), ``direction_to_coords`` ``:34``, ``Point`` ``:44``, ``Vector`` ``:125``, ``Circle`` ``:174``,
 ``Line`` ``:213`` (with the 3D point distance) and ``Rectangle`` ``:282``,
-without their matplotlib and plotly drawing. ``tan``, ``atan``,
-``vector_is_close`` and ``to_json`` wait for a caller.
+with their drawing (``:194-368``): ``plot2axes`` draws on a matplotlib axes,
+imported by the patch it adds; ``plotly`` raises ``NotImplementedError`` as
+in the JAX package. ``tan``, ``atan``, ``vector_is_close`` and ``to_json``
+wait for a caller.
 """
 
 from __future__ import annotations
@@ -175,6 +177,20 @@ class Circle:
     def as_dict(self) -> dict:
         return {"center_x": self.center.x, "center_y": self.center.y, "radius": self.radius}
 
+    def plotly(self, fig, color: str = "cyan", **kwargs) -> None:  # pragma: no cover
+        raise NotImplementedError("plotly is not available in this environment")
+
+    def plot2axes(self, axes, edgecolor: str = "black", fill: bool = False, text: str = "",
+                  fontsize: str = "medium", **kwargs) -> None:
+        from matplotlib.patches import Circle as mpl_Circle
+
+        axes.add_patch(mpl_Circle((self.center.x, self.center.y), edgecolor=edgecolor,
+                                  radius=self.radius, fill=fill, **kwargs))
+        if text:
+            axes.annotate(text, (self.center.x, self.center.y - self.radius), fontsize=fontsize,
+                          color=edgecolor)
+
+
 class Line:
     """A line defined by two points."""
 
@@ -230,6 +246,14 @@ class Line:
 
     def as_dict(self) -> dict:
         return self.dict()
+
+    def plot2axes(self, axes, width: float = 1, color: str = "w", label: str | None = None) -> None:
+        axes.plot((self.point1.x, self.point2.x), (self.point1.y, self.point2.y),
+                  linewidth=width, color=color, label=label)
+
+    def plotly(self, fig, color: str = "blue", **kwargs) -> None:  # pragma: no cover
+        raise NotImplementedError("plotly is not available in this environment")
+
 
 class Rectangle:
     """A rectangle with a center point, width, height and optional rotation (degrees, CW)."""
@@ -294,3 +318,20 @@ class Rectangle:
             "height": self.height,
             "rotation": self.rotation,
         }
+
+    def plot2axes(self, axes, edgecolor: str = "black", angle: float | None = None,
+                  fill: bool = False, alpha: float = 1, facecolor: str = "g", label=None,
+                  text: str = "", fontsize: str = "medium", text_rotation: float = 0, **kwargs):
+        from matplotlib.patches import Rectangle as mpl_Rectangle
+
+        angle = self.rotation if angle is None else angle
+        bl = self.bl_corner
+        axes.add_patch(mpl_Rectangle((bl.x, bl.y), width=self.width, height=self.height,
+                                     angle=-angle, edgecolor=edgecolor, alpha=alpha,
+                                     facecolor=facecolor, fill=fill, label=label, **kwargs))
+        if text:
+            axes.annotate(text, (self.center.x, self.center.y), fontsize=fontsize,
+                          color=edgecolor, rotation=text_rotation, ha="center")
+
+    def plotly(self, fig, **kwargs) -> None:  # pragma: no cover
+        raise NotImplementedError("plotly is not available in this environment")

@@ -13,7 +13,7 @@ Port of the part of ``pylinac_tpu/core/image.py`` that the analyses use:
 ``check_inversion`` (``:352``), ``check_inversion_by_histogram``, ``gamma``,
 the Bakai approximation (``:377-402``), ``compute``, ``as_dicom``,
 ``as_type``, ``shape``, ``size``, ``ndim``, ``dtype``, ``sum``, indexing,
-the numpy array protocol and ``__sub__``), ``XIM`` (``:494``, the file
+the numpy array protocol, ``__sub__`` and ``plot`` (``:471``)), ``XIM`` (``:494``, the file
 parsed by :mod:`pylinac_tpu_torch.core.xim`), ``DicomImage`` (``:522``:
 load, ``save`` (``:548``) with ``_unscale_dicom_values``, ``z_position``,
 ``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``, ``cax``,
@@ -338,6 +338,30 @@ class BaseImage:
 
     def __sub__(self, other):
         return ArrayImage(self.array - other.array)
+
+    def plot(self, ax=None, show: bool = True, clear_fig: bool = False,
+             show_metrics: bool = True, metric_kwargs: dict | None = None, **kwargs):
+        """The image on a matplotlib axes (a new one by default), with the
+        computed metrics drawn over it (JAX ``core/image.py:471``)."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            fig, ax = plt.subplots()
+        if clear_fig:
+            plt.clf()
+        ax.imshow(self.array, cmap=kwargs.pop("cmap", "gray"), **kwargs)
+        if show_metrics:
+            for metric in getattr(self, "metrics", []):
+                try:
+                    metric.plot(ax, **(metric_kwargs or {}))
+                except Exception:
+                    pass
+        if show:
+            plt.show()
+        return ax
+
+    def plotly(self, *args, **kwargs):  # pragma: no cover
+        raise NotImplementedError("plotly is not available in this environment")
 
 
 def _is_xim_file(path) -> bool:

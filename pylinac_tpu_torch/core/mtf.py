@@ -5,7 +5,9 @@ Port of ``pylinac_tpu/core/mtf.py``: ``MTF`` (``:16``, with
 ``from_high_contrast_diskset`` ``:66``), ``PeakValleyMTF`` (``:88``),
 ``moments_mtf`` and ``moments_fwhm`` (``:92``, ``:97``), ``MomentMTF``
 (``:102``), ``_hann_window`` and ``_compute_esf_mtf`` (``:143``, ``:150``)
-and ``EdgeSpreadFunctionMTF`` (``:159``), without their plots.
+and ``EdgeSpreadFunctionMTF`` (``:159``), with their plots (``MTF.plot``
+``:71``, ``MomentMTF.plot`` ``:121`` and ``plot_fwhms`` ``:131``,
+``EdgeSpreadFunctionMTF.plot`` ``:191``), which import matplotlib inside.
 """
 
 from __future__ import annotations
@@ -76,6 +78,22 @@ class MTF:
         minimums = [roi.min for roi in diskset]
         return cls(spacings, maximums, minimums)
 
+    def plot(self, axis=None, grid: bool = True, x_label: str = "Line pairs / mm",
+             y_label: str = "Relative MTF", title: str = "RMTF",
+             margins: float = 0.05, marker: str = "o", label: str = "rMTF"):
+        import matplotlib.pyplot as plt
+
+        if axis is None:
+            _, axis = plt.subplots()
+        points = axis.plot(list(self.norm_mtfs.keys()), list(self.norm_mtfs.values()),
+                           marker=marker, label=label)
+        axis.margins(margins)
+        axis.grid(grid)
+        axis.set_xlabel(x_label)
+        axis.set_ylabel(y_label)
+        axis.set_title(title)
+        return points
+
 
 class PeakValleyMTF(MTF):
     pass
@@ -110,6 +128,26 @@ class MomentMTF:
         means = [roi.mean for roi in diskset]
         stds = [roi.std for roi in diskset]
         return cls(lpmms, means, stds)
+
+    def plot(self, axis=None, marker: str = "o"):
+        import matplotlib.pyplot as plt
+
+        if axis is None:
+            _, axis = plt.subplots()
+        axis.plot(list(self.mtfs.keys()), list(self.mtfs.values()), marker=marker)
+        axis.set_xlabel("Line pairs / mm")
+        axis.set_ylabel("MTF")
+        return axis
+
+    def plot_fwhms(self, axis=None, marker: str = "o"):
+        import matplotlib.pyplot as plt
+
+        if axis is None:
+            _, axis = plt.subplots()
+        axis.plot(list(self.fwhms.keys()), list(self.fwhms.values()), marker=marker)
+        axis.set_xlabel("Line pairs / mm")
+        axis.set_ylabel("FWHM (mm)")
+        return axis
 
 
 def _hann_window(n: int) -> np.ndarray:
@@ -160,3 +198,20 @@ class EdgeSpreadFunctionMTF:
 
     def relative_resolution(self, x: float = 50) -> float:
         return float(np.interp(-x / 100, -self.mtf, self.freq))
+
+    def plot(self, axis=None, grid: bool = True, x_label: str | None = None,
+             y_label: str = "Relative MTF", title: str = "RMTF",
+             margins: float = 0.05, label: str = "rMTF"):
+        import matplotlib.pyplot as plt
+
+        if x_label is None:
+            x_label = "Cycles / sample" if self.sample_spacing is None else "Line pairs / mm"
+        if axis is None:
+            _, axis = plt.subplots()
+        points = axis.plot(self.freq, self.mtf, label=label)
+        axis.margins(margins)
+        axis.grid(grid)
+        axis.set_xlabel(x_label)
+        axis.set_ylabel(y_label)
+        axis.set_title(title)
+        return points

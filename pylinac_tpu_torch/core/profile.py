@@ -20,7 +20,9 @@ half-pixel offset, normalisation, the memo cache, ``fwxm_data``,
 ``CircleProfile`` with ``roll`` and ``CollapsedCircleProfile``
 (``:1043-1200``), ``ProfileBase.compute`` (``:265``, the metrics of
 :mod:`pylinac_tpu_torch.metrics.profile`), ``SingleProfile.resample``
-(``:584``) and ``SingleProfile.gamma`` (``:965``), without plots. Peaks
+(``:584``) and ``SingleProfile.gamma`` (``:965``); of the plots, the
+circle profiles' ``plot2axes`` (``:1132``, ``:1185``), which the CatPhan
+reports draw, with matplotlib imported inside. Peaks
 come from :mod:`pylinac_tpu_torch.ops.peaks`, the smoothing from
 :mod:`pylinac_tpu_torch.ops.filters`, the spline and the zoom from
 :mod:`pylinac_tpu_torch.ops.interp` and the profile gammas from
@@ -1080,6 +1082,22 @@ class CircleProfile(MultiProfile, Circle):
             peak.x = x_locations[int(peak.idx)]
             peak.y = y_locations[int(peak.idx)]
 
+    def plot2axes(self, axes=None, edgecolor: str = "black", fill: bool = False,
+                  plot_peaks: bool = True) -> None:
+        import matplotlib.pyplot as plt
+        from matplotlib.patches import Circle as mpl_Circle
+
+        if axes is None:
+            _, axes = plt.subplots()
+            axes.imshow(self.image_array)
+        axes.add_patch(mpl_Circle((self.center.x, self.center.y), edgecolor=edgecolor,
+                                  radius=self.radius, fill=fill))
+        if plot_peaks:
+            x_locs = [p.x for p in self.peaks]
+            y_locs = [p.y for p in self.peaks]
+            axes.autoscale(enable=False)
+            axes.scatter(x_locs, y_locs, s=40, marker="x", c=edgecolor)
+
     @staticmethod
     def _ensure_array_size(array, min_width, min_height) -> None:
         if array.shape[1] < min_width or array.shape[0] < min_height:
@@ -1115,3 +1133,20 @@ class CollapsedCircleProfile(CircleProfile):
         yy = np.clip(yy, 0, self.image_array.shape[0] - 1)
         xx = np.clip(xx, 0, self.image_array.shape[1] - 1)
         return np.asarray(self.image_array)[yy, xx].sum(axis=0) / self.num_profiles
+
+    def plot2axes(self, axes=None, edgecolor: str = "black", fill: bool = False,
+                  plot_peaks: bool = True) -> None:
+        import matplotlib.pyplot as plt
+        from matplotlib.patches import Circle as mpl_Circle
+
+        if axes is None:
+            _, axes = plt.subplots()
+            axes.imshow(self.image_array)
+        for r in (self.radius * (1 + self.width_ratio), self.radius * (1 - self.width_ratio)):
+            axes.add_patch(mpl_Circle((self.center.x, self.center.y), edgecolor=edgecolor,
+                                      radius=r, fill=fill))
+        if plot_peaks:
+            x_locs = [p.x for p in self.peaks]
+            y_locs = [p.y for p in self.peaks]
+            axes.autoscale(enable=False)
+            axes.scatter(x_locs, y_locs, s=20, marker="x", c=edgecolor)

@@ -3,7 +3,9 @@
 Port of ``pylinac_tpu/core/roi.py``: ``bbox_center`` ``:32``,
 ``disk_pixels`` ``:40``, ``DiskROI`` ``:53``, ``LowContrastDiskROI``
 ``:125``, ``HighContrastDiskROI`` ``:239``, ``_polygon_pixels`` ``:257`` and
-``RectangleROI`` ``:278``, without their drawing and plot colours. The
+``RectangleROI`` ``:278``, with ``DiskROI.plot2axes`` (``:109``) and the
+low-contrast plot colours (``:213-221``); matplotlib is imported inside the
+drawing. The
 mammography specks take the argmax of ``DiskROI.masked_array`` (``:100``)
 over the disk's bounding window (``masked_argmax``, the same pixel without
 a full-frame array a speck); the masked arrays themselves are not ported.
@@ -125,6 +127,16 @@ class DiskROI(Circle):
         row, col = np.unravel_index(np.nanargmax(img), img.shape)
         return Point(int(col + c0), int(row + r0))
 
+    def plot2axes(self, axes=None, edgecolor: str = "black", fill: bool = False,
+                  text: str = "", fontsize: str = "medium", **kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        if axes is None:
+            _, axes = plt.subplots()
+            axes.imshow(self._array)
+        super().plot2axes(axes, edgecolor=edgecolor, fill=fill, text=str(text),
+                          fontsize=fontsize, **kwargs)
+
     def as_dict(self) -> dict:
         data = super().as_dict()
         data.update({"median": self.pixel_value, "std": self.std})
@@ -217,6 +229,18 @@ class LowContrastDiskROI(DiskROI):
     @property
     def passed_cnr_constant(self) -> bool:
         return self.cnr_constant > self.cnr_threshold
+
+    @property
+    def plot_color(self) -> str:
+        return "green" if self.passed_visibility else "red"
+
+    @property
+    def plot_color_constant(self) -> str:
+        return "green" if self.passed_contrast_constant else "red"
+
+    @property
+    def plot_color_cnr(self) -> str:
+        return "green" if self.passed_cnr_constant else "red"
 
     def as_dict(self) -> dict:
         return {

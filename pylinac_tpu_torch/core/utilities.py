@@ -3,8 +3,10 @@
 Port of ``ResultBase`` (``pylinac_tpu/core/utilities.py:43``), a pydantic
 model there, as a dataclass with the same fields, of ``ResultsDataMixin``
 (``:59-78``), of ``is_iterable`` ``:80``, ``Structure`` ``:117`` and
-``decode_binary`` ``:127`` (the log analyzer's binary reader), of
-``assign2machine`` ``:266`` (through the port's ``core/dcm.py``) and of
+``decode_binary`` ``:127`` (the log analyzer's binary reader), of the QuAAC
+export (``QuaacDatum``, ``QuaacMixin.to_quaac`` and ``_to_yaml``,
+``:162-234``), of ``assign2machine`` ``:266`` (through the port's
+``core/dcm.py``) and of
 ``convert_to_enum`` (``pylinac_tpu/core/profile.py:127``, the form
 ``picketfence.py`` imports). ``model_dump()`` and
 ``model_dump_json()`` keep callers written for the pydantic models working.
@@ -17,7 +19,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import struct
+from abc import abstractmethod
 from collections.abc import Iterable
 from datetime import datetime
 from typing import BinaryIO
@@ -193,6 +197,77 @@ def decode_binary(file: BinaryIO, dtype, num_values: int = 1, cursor_shift: int 
     if cursor_shift:
         f.seek(cursor_shift, 1)
     return output
+
+
+@dataclasses.dataclass
+class QuaacDatum:
+    """One data point of a QuAAC QA record."""
+
+    value: str | float | int
+    unit: str = ""
+    description: str = ""
+    reference_value: str | float | int | None = None
+
+
+class QuaacMixin:
+    """Exports an analysis's results as a QuAAC QA document (JSON or YAML),
+    written without the ``quaac`` package, as the JAX package writes it."""
+
+    @abstractmethod
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        raise NotImplementedError
+
+    def to_quaac(self, path, performer: dict | None = None,
+                 primary_equipment: dict | None = None, format: str = "json",
+                 overwrite: bool = False, **kwargs) -> None:
+        """Write the document to ``path``; an existing file raises unless
+        ``overwrite``. Each datapoint carries the time of writing."""
+        if os.path.exists(str(path)) and not overwrite:
+            raise FileExistsError(f"{path} exists; pass overwrite=True to overwrite")
+        data = self._quaac_datapoints()
+        doc = {
+            "version": "1.0",
+            "performer": performer or {},
+            "primary_equipment": primary_equipment or {},
+            "datapoints": [
+                {
+                    "name": name,
+                    "perform_datetime": datetime.now().isoformat(),
+                    "measurement_value": d.value,
+                    "measurement_unit": d.unit,
+                    "description": d.description,
+                    "reference_value": d.reference_value,
+                }
+                for name, d in data.items()
+            ],
+        }
+        with open(path, "w") as f:
+            if format == "json":
+                json.dump(doc, f, indent=2, default=str)
+            else:  # a plain YAML emitter
+                f.write(_to_yaml(doc))
+
+
+def _to_yaml(obj, indent: int = 0) -> str:
+    pad = "  " * indent
+    lines = []
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if isinstance(v, (dict, list)) and v:
+                lines.append(f"{pad}{k}:")
+                lines.append(_to_yaml(v, indent + 1))
+            else:
+                lines.append(f"{pad}{k}: {v if not isinstance(v, (dict, list)) else '{}'}")
+    elif isinstance(obj, list):
+        for item in obj:
+            if isinstance(item, (dict, list)):
+                body = _to_yaml(item, indent + 1).lstrip()
+                lines.append(f"{pad}- {body}")
+            else:
+                lines.append(f"{pad}- {item}")
+    else:
+        lines.append(f"{pad}{obj}")
+    return "\n".join(lines)
 
 
 def assign2machine(source_file: str, machine_file: str) -> None:

@@ -31,8 +31,15 @@ The models carry ``capture_warnings`` as in the JAX package, which wraps
 only the methods of a class's own body; ``analyze`` is ``CatPhanBase``'s,
 so ``results_data().warnings`` stays empty, as JAX's does.
 
-Not ported: plots, the PDF report, plotly, QuAAC, demo and URL loading,
-``CatPhanBatch.analyze(mesh=...)`` and the host C++ CCL route
+``CatPhanBatch.analyze(mesh=...)`` shards the localisation pass over a
+:class:`~pylinac_tpu_torch.parallel.mesh.Mesh`. The reports
+(``:1858-2011``, with the modules' drawing ``:131-180``, ``:698-709``,
+``:874-905``, ``:1002``, ``:1132`` and ``plot_side_view`` ``:1552``):
+``publish_pdf`` through :mod:`.core.pdf`, ``to_quaac`` and
+``plotly_analyzed_images`` need no matplotlib; the matplotlib plots import
+it inside, and raise ``ModuleNotFoundError`` where it is missing.
+
+Not ported: demo and URL loading and the host C++ CCL route
 (``label_native``).
 """
 
@@ -58,7 +65,8 @@ from .core.image import z_position
 from .core.mtf import MTF
 from .core.profile import CollapsedCircleProfile, FWXMProfile
 from .core.roi import DiskROI, LowContrastDiskROI, RectangleROI
-from .core.utilities import DataModel, ResultBase, ResultsDataMixin, resolve_device
+from .core.utilities import (DataModel, QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin,
+                              resolve_device)
 from .core.warnings import capture_warnings
 from .metrics.utils import RegionView
 from .ops import label as tlabel
@@ -157,6 +165,10 @@ class SpatialResolutionROI(RectangleROI):
     """A (rotated) rectangle over one bar group of the CatPhan 700's
     spatial-resolution module."""
 
+    @property
+    def plot_color(self):
+        return "blue"
+
 
 class HUDiskROI(DiskROI):
     """A disk ROI with a nominal HU value and tolerance."""
@@ -178,6 +190,10 @@ class HUDiskROI(DiskROI):
             return abs(self.value_diff) <= self.tolerance
         return True
 
+    @property
+    def plot_color(self) -> str:
+        return "green" if self.passed else "red"
+
 
 class ThicknessROI(RectangleROI):
     """A rectangle ROI over an angled wire ramp, for slice thickness."""
@@ -193,6 +209,10 @@ class ThicknessROI(RectangleROI):
     @cached_property
     def wire_fwhm(self) -> float:
         return self.long_profile.field_width_px
+
+    @property
+    def plot_color(self) -> str:
+        return "blue"
 
 
 # --------------------------------------------------------------------------
@@ -421,6 +441,8 @@ class CatPhanModule(Slice):
     num_slices: int = 0
     roi_settings: dict = {}
     background_roi_settings: dict = {}
+    window_min = None
+    window_max = None
     attr_name: str = ""
 
     def __init__(self, catphan, tolerance: float | None = None, offset: int = 0,
@@ -490,6 +512,19 @@ class CatPhanModule(Slice):
                 self.image, setting["angle_corrected"], setting["radius_pixels"],
                 setting["distance_pixels"], self.phan_center, setting.get("value", 0),
                 self.tolerance)
+
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor=roi.plot_color)
+        for roi in self.background_rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+
+    def plot(self, axis):
+        axis.imshow(self.image.array, cmap="gray", vmin=self.window_min, vmax=self.window_max)
+        self.plot_rois(axis)
+        axis.autoscale(tight=True)
+        axis.set_title(f"{self.common_name} ({self.slice_num + 1})")
+        axis.axis("off")
 
     @property
     def roi_vals_as_str(self) -> str:
@@ -645,6 +680,38 @@ class CTP404CP504(CatPhanModule):
     def passed_geometry(self) -> bool:
         return all(line.passed for line in self.lines.values())
 
+    def plot_linearity(self, axis=None, plot_delta: bool = True):
+        import matplotlib.pyplot as plt
+
+        nominal_x = [roi.nominal_val for roi in self.rois.values()]
+        if axis is None:
+            _, axis = plt.subplots()
+        if plot_delta:
+            values = [roi.value_diff for roi in self.rois.values()]
+            nominal_measurements = [0] * len(values)
+            ylabel = "HU Delta"
+        else:
+            values = [roi.pixel_value for roi in self.rois.values()]
+            nominal_measurements = nominal_x
+            ylabel = "Measured Values"
+        points = axis.plot(nominal_x, values, "g+", markersize=15, mew=2)
+        axis.plot(nominal_x, nominal_measurements)
+        axis.plot(nominal_x, np.array(nominal_measurements) + self.hu_tolerance, "r--")
+        axis.plot(nominal_x, np.array(nominal_measurements) - self.hu_tolerance, "r--")
+        axis.margins(0.05)
+        axis.grid(True)
+        axis.set_xlabel("Nominal Values")
+        axis.set_ylabel(ylabel)
+        axis.set_title("HU linearity")
+        return points
+
+    def plot_rois(self, axis) -> None:
+        super().plot_rois(axis)
+        for roi in self.thickness_rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+        for line in self.lines.values():
+            line.plot2axes(axis, color=line.pass_fail_color)
+
 
 class CTP404CP503(CTP404CP504):
     """The CatPhan 503's CTP404 (the 504's)."""
@@ -790,6 +857,21 @@ class CTP486(CatPhanModule):
     def max_noise_power_frequency(self) -> float:
         return self._nps[3]
 
+    def plot_profiles(self, axis=None) -> None:
+        import matplotlib.pyplot as plt
+
+        if axis is None:
+            _, axis = plt.subplots()
+        axis.plot(self.image[int(self.phan_center.y), :], "g", label="Horizontal")
+        axis.plot(self.image[:, int(self.phan_center.x)], "b", label="Vertical")
+        axis.autoscale(tight=True)
+        axis.axhline(self.nominal_value + self.tolerance, color="r", linewidth=3)
+        axis.axhline(self.nominal_value - self.tolerance, color="r", linewidth=3)
+        axis.grid(True)
+        axis.set_ylabel("HU")
+        axis.legend(loc=8, fontsize="small", title="")
+        axis.set_title("Uniformity Profiles")
+
 
 class CTP528(CatPhanModule):
     """Marker base of the spatial-resolution modules."""
@@ -851,6 +933,9 @@ class CTP528CP504(CTP528):
     @property
     def radius2linepairs(self) -> float:
         return self.radius2linepairs_mm * self.scaling_factor / self.mm_per_pixel
+
+    def plot_rois(self, axis) -> None:
+        self.circle_profile.plot2axes(axis, edgecolor="blue", plot_peaks=False)
 
     @cached_property
     def circle_profile(self) -> CollapsedCircleProfile:
@@ -963,6 +1048,10 @@ class GeometricLine(Line):
     def length_mm(self) -> float:
         return self.length * self.mm_per_pixel
 
+    @property
+    def pass_fail_color(self) -> str:
+        return "blue" if self.passed else "red"
+
 
 class CTP515(CatPhanModule):
     """Low-contrast module."""
@@ -983,6 +1072,7 @@ class CTP515(CatPhanModule):
     }
     background_roi_dist_ratio = 0.75
     background_roi_radius_mm = 4
+    WINDOW_SIZE = 50
 
     def __init__(self, catphan, tolerance, cnr_threshold, offset, contrast_method,
                  visibility_threshold, clear_borders: bool = True):
@@ -1018,6 +1108,14 @@ class CTP515(CatPhanModule):
     def rois_visible(self) -> int:
         return sum(roi.passed_visibility for roi in self.rois.values())
 
+    @property
+    def window_min(self) -> float:
+        return min(r.pixel_value for r in self.background_rois.values()) - self.WINDOW_SIZE
+
+    @property
+    def window_max(self) -> float:
+        return max(r.pixel_value for r in self.rois.values()) + self.WINDOW_SIZE
+
 
 def _build_515_settings(angles, dist, radii) -> dict:
     return {name: {"angle": angles[i], "distance": dist, "radius": radii[i]}
@@ -1038,7 +1136,7 @@ class CTP515CP700(CTP515CP600):
 # --------------------------------------------------------------------------
 # CatPhanBase and the models
 # --------------------------------------------------------------------------
-class CatPhanBase(ResultsDataMixin):
+class CatPhanBase(ResultsDataMixin, QuaacMixin):
     """CatPhan loading and analysis."""
 
     _model: str = ""
@@ -1503,6 +1601,168 @@ class CatPhanBase(ResultsDataMixin):
                 roi_results={key: roi.as_dict() for key, roi in self.ctp515.rois.items()})
         return data
 
+    # -- reports (JAX ct.py:1858-2011) ----------------------------------------
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = {
+            "Slice thickness": QuaacDatum(value=self.ctp404.meas_slice_thickness, unit="mm"),
+            "Geometric line average": QuaacDatum(value=self.ctp404.avg_line_length, unit="mm"),
+            "Low contrast visibility": QuaacDatum(value=self.ctp404.lcv),
+        }
+        for name, roi in self.ctp404.rois.items():
+            data[f"{name} HU"] = QuaacDatum(value=roi.pixel_value, unit="HU")
+        return data
+
+    def plot_analyzed_image(self, show: bool = True, **plt_kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        plt.figure(**plt_kwargs)
+        grid_size = (2, 4)
+        hu_ax = plt.subplot2grid(grid_size, (0, 1))
+        self.ctp404.plot(hu_ax)
+        hu_lin_ax = plt.subplot2grid(grid_size, (0, 2))
+        self.ctp404.plot_linearity(hu_lin_ax)
+        if self._has_module(CTP486):
+            unif_ax = plt.subplot2grid(grid_size, (0, 0))
+            self.ctp486.plot(unif_ax)
+        if self._has_module(CTP528):
+            sr_ax = plt.subplot2grid(grid_size, (1, 0))
+            self.ctp528.plot(sr_ax)
+            mtf_ax = plt.subplot2grid(grid_size, (0, 3))
+            self.ctp528.mtf.plot(mtf_ax)
+        if self._has_module(CTP515):
+            locon_ax = plt.subplot2grid(grid_size, (1, 1))
+            self.ctp515.plot(locon_ax)
+        plt.tight_layout()
+        if show:
+            plt.show()
+
+    def plot_side_view(self, axis=None) -> None:
+        """A coronal side view of the stack with the module slices marked."""
+        import matplotlib.pyplot as plt
+
+        if axis is None:
+            _, axis = plt.subplots()
+        vol = np.stack([img.array for img in self.dicom_stack])
+        mid = vol.shape[1] // 2
+        axis.imshow(vol[:, mid, :], cmap="gray", aspect="auto")
+        try:
+            for offset in self._module_offsets():
+                zs = [img.z_position for img in self.dicom_stack]
+                idx = int(np.argmin(np.abs(np.asarray(zs) - offset)))
+                axis.axhline(idx, color="b", alpha=0.5)
+        except (AttributeError, NotImplementedError):
+            pass
+        axis.set_title("Side View")
+
+    @staticmethod
+    def _plotly_module_fig(module, show_colorbar: bool = True):
+        """A module's slice with its ROI circles, as a plotly-schema figure."""
+        from .core import plotly_utils as pu
+
+        fig = pu.image_figure(module.image.array,
+                              title=f"{module.common_name} ({module.slice_num + 1})",
+                              show_colorbar=show_colorbar)
+        shapes = fig.layout.setdefault("shapes", [])
+        for roi, color in ([(r, getattr(r, "plot_color", "green")) for r in module.rois.values()]
+                           + [(r, "blue") for r in module.background_rois.values()]):
+            if not hasattr(roi, "radius"):
+                continue
+            shapes.append({
+                "type": "circle",
+                "x0": roi.center.x - roi.radius, "x1": roi.center.x + roi.radius,
+                "y0": roi.center.y - roi.radius, "y1": roi.center.y + roi.radius,
+                "line": {"color": color, "width": 2}})
+        return fig
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`) of each analysed
+        module, the HU linearity and the MTF: ``{name: Figure}``. A class
+        without a CTP404 gets one ROI figure per analysed module, and an
+        rMTF where a module has one."""
+        from .core import plotly_utils as pu
+
+        if not hasattr(self, "ctp404"):
+            return self._plotly_generic_modules(show=show, show_colorbar=show_colorbar,
+                                                show_legend=show_legend)
+        figs: dict[str, pu.Figure] = {}
+        figs["CTP404"] = self._plotly_module_fig(self.ctp404, show_colorbar)
+        lin = pu.Figure()
+        nominal = [roi.nominal_val for roi in self.ctp404.rois.values()]
+        deltas = [roi.value_diff for roi in self.ctp404.rois.values()]
+        lin.add_trace(pu.marker_trace(nominal, deltas, name="HU delta", symbol="cross",
+                                      color="green"))
+        pu.add_horizontal_line(lin, 0, color="gray")
+        pu.add_title(lin, "HU Linearity")
+        lin.update_layout(xaxis_title="Nominal HU", yaxis_title="HU Delta",
+                          showlegend=show_legend)
+        figs["HU Linearity"] = lin
+        if self._has_module(CTP486):
+            figs["CTP486"] = self._plotly_module_fig(self.ctp486, show_colorbar)
+        if self._has_module(CTP528):
+            figs["CTP528"] = self._plotly_module_fig(self.ctp528, show_colorbar)
+            mtf = pu.Figure()
+            mtf.add_trace(pu.scatter_trace(list(self.ctp528.mtf.norm_mtfs.keys()),
+                                           list(self.ctp528.mtf.norm_mtfs.values()),
+                                           name="rMTF", mode="lines+markers"))
+            pu.add_title(mtf, "RMTF")
+            mtf.update_layout(xaxis_title="Line pairs / mm", yaxis_title="Relative MTF",
+                              showlegend=show_legend)
+            figs["MTF"] = mtf
+        if self._has_module(CTP515):
+            figs["CTP515"] = self._plotly_module_fig(self.ctp515, show_colorbar)
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def _plotly_generic_modules(self, show: bool, show_colorbar: bool, show_legend: bool):
+        """A ROI figure per analysed module attribute, and an rMTF where the
+        module has one."""
+        from .core import plotly_utils as pu
+
+        figs: dict[str, pu.Figure] = {}
+        for name in dir(self):
+            if name.startswith("_"):
+                continue
+            try:
+                mod = getattr(self, name)
+            except Exception:
+                continue
+            if not isinstance(mod, CatPhanModule):
+                continue
+            key = getattr(mod, "common_name", name)
+            figs[key] = self._plotly_module_fig(mod, show_colorbar)
+            mtf = getattr(mod, "mtf", None)
+            if mtf is not None and hasattr(mtf, "norm_mtfs"):
+                f = pu.Figure()
+                f.add_trace(pu.scatter_trace(list(mtf.norm_mtfs.keys()),
+                                             list(mtf.norm_mtfs.values()),
+                                             name="rMTF", mode="lines+markers"))
+                pu.add_title(f, f"{key} rMTF")
+                f.update_layout(xaxis_title="Line pairs / mm", yaxis_title="Relative MTF",
+                                showlegend=show_legend)
+                figs[f"{key} MTF"] = f
+        if not figs:
+            raise RuntimeError("The scan must be analyzed first. Use .analyze().")
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def publish_pdf(self, filename, notes=None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The results as a PDF (:mod:`.core.pdf`); needs no matplotlib."""
+        from .core import pdf
+
+        canvas = pdf.PylinacCanvas(filename, page_title=f"CatPhan {self._model} Analysis",
+                                   metadata=metadata, logo=logo)
+        flat = [line for group in self.results(as_list=True) for line in group]
+        canvas.add_text(text=flat, location=(2, 25.5), font_size=9)
+        if notes is not None:
+            canvas.add_text(text=notes, location=(2, 4))
+        canvas.finish()
+
 
 @capture_warnings
 class CatPhan503(CatPhanBase):
@@ -1598,11 +1858,25 @@ class CatPhanBatch:
         if not self.cts:
             raise ValueError("No scans were provided")
 
-    def analyze(self, device: str | torch.device | None = None, **analyze_kwargs) -> None:
+    def analyze(self, mesh=None, device: str | torch.device | None = None,
+                **analyze_kwargs) -> None:
         """Analyse every scan on ``device`` (``None`` means ``"cuda"``, and
         raises when no CUDA device exists); other arguments as
-        :meth:`CatPhanBase.analyze`."""
-        device = resolve_device(device, "CatPhanBatch.analyze")
+        :meth:`CatPhanBase.analyze`.
+
+        ``mesh``: a :class:`~pylinac_tpu_torch.parallel.mesh.Mesh` whose
+        ``data`` axis shards the slices of every scan for the localisation
+        pass (:func:`~pylinac_tpu_torch.parallel.mesh.
+        sharded_stack_phantom_regions`; JAX ``ct.py:2150-2156``,
+        ``:2182-2189``); per-slice results equal the unsharded run's. The
+        rest runs on the mesh's first device, and a ``device`` that
+        differs from it raises ``ValueError``."""
+        if mesh is not None:
+            from .parallel.mesh import mesh_device
+
+            device = mesh_device(mesh, device, "CatPhanBatch.analyze")
+        else:
+            device = resolve_device(device, "CatPhanBatch.analyze")
         with profiling.stage("batch_stage_host"):
             staged = []
             for ct in self.cts:
@@ -1620,10 +1894,17 @@ class CatPhanBatch:
             vols.append(ct._stage_on_device(ds, vol))
         K = 32
         with profiling.stage("batch_localize"):
-            regions, max_edges = _stack_phantom_regions(
-                torch.cat(vols), K, self.cts[0].clear_borders, ds,
-                self.cts[0].clip_in_localization)
-            host, max_edges = regions.to_numpy(), max_edges.cpu().numpy()
+            if mesh is not None:
+                from .parallel.mesh import sharded_stack_phantom_regions
+
+                host, max_edges = sharded_stack_phantom_regions(
+                    torch.cat(vols), K, self.cts[0].clear_borders, ds,
+                    self.cts[0].clip_in_localization, mesh)
+            else:
+                regions, max_edges = _stack_phantom_regions(
+                    torch.cat(vols), K, self.cts[0].clear_borders, ds,
+                    self.cts[0].clip_in_localization)
+                host, max_edges = regions.to_numpy(), max_edges.cpu().numpy()
             offset = 0
             for ct, (_, vol) in zip(self.cts, staged):
                 n = vol.shape[0]

@@ -7,8 +7,9 @@ Port of ``pylinac_tpu/field_analysis.py``: the protocol functions
 pydantic models' fields, order, types and defaults), ``FieldAnalysis``
 (``:189-453``: ``analyze``, ``results``, ``results_data``),
 ``DeviceFieldAnalysis`` (``:526-642``), ``FieldAnalysisBatch``
-(``:645-913``) and ``analyze_field_batch`` (``:916``). Plots, the PDF,
-plotly, QuAAC and the demo loaders are not ported.
+(``:645-913``, its ``mesh`` through :mod:`pylinac_tpu_torch.parallel.mesh`)
+and ``analyze_field_batch`` (``:916``). Plots, the PDF, plotly and QuAAC
+wait for ROADMAP item 11; the demo loaders are not ported.
 
 ``FieldAnalysisBatch`` is the device path. Its host staging is the JAX
 class's (``:758-800``: cached beam-centre ratios, strips, central-ROI
@@ -575,15 +576,23 @@ class FieldAnalysisBatch:
                 **kwargs) -> None:
         """Batch equivalent of :meth:`FieldAnalysis.analyze` on ``device``
         (``None`` takes the constructor's; that ``None`` means CUDA).
-        ``mesh`` is not ported."""
+
+        ``mesh``: a :class:`~pylinac_tpu_torch.parallel.mesh.Mesh` whose
+        ``data`` axis shards the strips
+        (:func:`~pylinac_tpu_torch.parallel.mesh.sharded_fa_strips_batch`;
+        JAX ``field_analysis.py:698-704``, ``:813-821``); per-image results
+        equal the unsharded run's. The rest runs on the mesh's first
+        device, and a ``device`` that differs from it raises
+        ``ValueError``."""
         from .ops.field_pipeline import FAParams, field_analysis_strips_batch
 
         if mesh is not None:
-            raise NotImplementedError(
-                "FieldAnalysisBatch.analyze(mesh=...) is not ported: multi-device "
-                "sharding waits for the 'Multi-device' item of ROADMAP.md")
-        device = resolve_device(self._device if device is None else device,
-                                "FieldAnalysisBatch.analyze")
+            from .parallel.mesh import mesh_device
+
+            device = mesh_device(mesh, device, "FieldAnalysisBatch.analyze")
+        else:
+            device = resolve_device(self._device if device is None else device,
+                                    "FieldAnalysisBatch.analyze")
         edge = convert_to_enum(edge_detection_method, Edge)
         interpolation = convert_to_enum(interpolation, Interpolation)
         normalization = convert_to_enum(normalization_method, Normalization)
@@ -659,14 +668,20 @@ class FieldAnalysisBatch:
         params = FAParams.from_vector(
             (dpmm, in_field_ratio, slope_exclusion_ratio, penumbra[0], penumbra[1],
              vert_position, horiz_position, vert_width, horiz_width), device)
-        out = field_analysis_strips_batch(
-            torch.from_numpy(vert_strips).to(device), torch.from_numpy(horiz_strips).to(device),
-            params,
+        static = dict(
             samples_v=int(round(H / (dpmm * interpolation_resolution_mm))),
             samples_h=int(round(W / (dpmm * interpolation_resolution_mm))),
             edge=edge.value, centering=centering.value, normalization=normalization.value,
             flatness=flat_name, symmetry=sym_name, ground=ground,
             edge_smoothing_ratio=edge_smoothing_ratio, hill_window_ratio=hill_window_ratio)
+        if mesh is not None:
+            from .parallel.mesh import sharded_fa_strips_batch
+
+            out = sharded_fa_strips_batch(vert_strips, horiz_strips, params, mesh, **static)
+        else:
+            out = field_analysis_strips_batch(
+                torch.from_numpy(vert_strips).to(device),
+                torch.from_numpy(horiz_strips).to(device), params, **static)
         self._out = _fetch(out)
         self._out["central_roi"] = {
             k: np.asarray([s[k] for s in roi_stats], np.float64)

@@ -32,12 +32,17 @@ import numpy as np
 from .core.geometry import Point
 from .core.mtf import MTF
 from .core.roi import RectangleROI
-from .core.utilities import DataModel, ResultBase, resolve_device
+from .core.utilities import DataModel, ResultBase, not_ported, resolve_device
 from .core.warnings import capture_warnings
 from .ct import CatPhanBase, CatPhanModule, Slice
 
 SECTION_3_OFFSET_MM = 60
 HELIOS_LOW_CONTRAST_SLICE_OFFSETS_INDEX = {"slice_1": 0, "slice_2": -1, "slice_3": -2}
+
+# CatPhanBase's reports draw the CatPhan family's modules; these classes
+# have reports of their own, which wait for ROADMAP item 11
+_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
+             "plotly_analyzed_images", "publish_pdf", "to_quaac")
 
 
 def _rectangles(module, settings: dict) -> dict[str, RectangleROI]:
@@ -260,6 +265,7 @@ class GEHeliosResult(ResultBase):
     noise_uniformity: HeliosNoiseUniformityModuleOutput
 
 
+@not_ported(*_REPORTS)
 @capture_warnings
 class GEHeliosCTDaily(CatPhanBase):
     """GE Helios daily CT QA."""

@@ -5,7 +5,10 @@ The JAX package has no counterpart: its Pallas kernels are compiled by XLA
 a plain C interface and is compiled by ``nvcc`` into a shared library that
 ``ctypes`` loads. The library goes into ``pylinac_tpu_torch/_build/``, named
 by a hash of its source and flags, and is built at first use. A failed
-build raises; nothing falls back.
+build raises; nothing falls back. The first use loads under a lock, and the
+wrappers count their launches through :func:`count_launch`, so that the
+shards of a mesh, one thread a device, neither build a library twice nor
+lose a count.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -76,8 +80,24 @@ def build(name: str) -> tuple[Path, float, str]:
     return out, seconds, proc.stdout + proc.stderr
 
 
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def _load(name: str) -> ctypes.CDLL:
     path, _, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed; one
+    thread builds it while the others wait."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, atomically across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

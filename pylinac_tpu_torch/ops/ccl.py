@@ -114,7 +114,7 @@ def _launch(masks: torch.Tensor, mode: int, connectivity: int, counted) -> torch
         err = fn(masks.data_ptr(), out.data_ptr(), b, h, w, mode, connectivity, stream)
     if err != 0:
         raise RuntimeError(f"CCL kernel launch failed: CUDA error {err}")
-    counted.launches += 1
+    _build.count_launch(counted)
     return out
 
 

@@ -98,7 +98,7 @@ def _launch(masks: torch.Tensor, entry: str, out: torch.Tensor, counted) -> torc
                  state.data_ptr(), b, h, w, stream)
     if err != 0:
         raise RuntimeError(f"flood kernel launch failed: CUDA error {err}")
-    counted.launches += 1
+    _build.count_launch(counted)
     return state
 
 

@@ -101,11 +101,20 @@ def gamma_2d_batch(references, evaluations, dose_to_agreement: float = 1.0,
 
     Host arrays go to the device once each in their own dtype (uint16 frames
     move half the bytes of float32) and widen there; the whole batch then
-    runs in one kernel launch. ``mesh`` is not ported yet."""
+    runs in one kernel launch. ``mesh``: a
+    :class:`~pylinac_tpu_torch.parallel.mesh.Mesh` whose ``data`` axis
+    shards the pairs, one launch a shard
+    (:func:`~pylinac_tpu_torch.parallel.mesh.sharded_gamma_2d`; JAX
+    ``ops/gamma.py:125-132``); the maps land on its first device, and a
+    ``device`` that differs from that one raises ``ValueError``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "gamma_2d_batch(mesh=...) is not ported: multi-device sharding waits for "
-            "the 'Multi-device' item of ROADMAP.md")
+        from ..parallel.mesh import mesh_device, sharded_gamma_2d
+
+        mesh_device(mesh, device, "gamma_2d_batch")
+        return sharded_gamma_2d(
+            references, evaluations, mesh, dose_to_agreement=dose_to_agreement,
+            distance_to_agreement=distance_to_agreement, gamma_cap_value=gamma_cap_value,
+            global_dose=global_dose, dose_threshold=dose_threshold, fill_value=fill_value)
     dev = resolve_device(device, "gamma_2d_batch")
     dta = _check_dta(distance_to_agreement)
     refs, evals = _stage(references, dev), _stage(evaluations, dev)

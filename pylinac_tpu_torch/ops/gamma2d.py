@@ -166,7 +166,7 @@ def gamma2d(ref_n: torch.Tensor, eval_p: torch.Tensor, dta: int, cap: float,
                  float(np.float32(threshold_n)), float(np.float32(fill)), stream)
     if err != 0:
         raise RuntimeError(f"gamma2d kernel launch failed: CUDA error {err}")
-    gamma2d.launches += 1
+    _build.count_launch(gamma2d)
     return out
 
 

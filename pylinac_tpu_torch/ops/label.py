@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from .ccl import hole_roots_batch, label_batch
-from .flood import flood_from_border
+from .flood import flood_from_border, flood_from_border_batch
 from .stats import slot_sums
 
 _CROSS = [(-1, 0), (1, 0), (0, -1), (0, 1)]
@@ -315,14 +315,18 @@ def _hull_area(in_mask: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
 
 
 def fill_holes(mask: torch.Tensor) -> torch.Tensor:
-    """scipy.ndimage.binary_fill_holes of one (H, W) bool mask: background
-    not 4-connected to the border becomes foreground.
+    """scipy.ndimage.binary_fill_holes of one (H, W) bool mask, or of each of
+    a (B, H, W) batch: background not 4-connected to the border becomes
+    foreground.
 
     The TPU branch of the JAX function (``ops/label.py:230-233``) at every
     size: ``mask | (flood == 0)`` with the border flood of
-    :func:`ops.flood.flood_from_border`, which launches ``csrc/flood.cu`` on
-    the card. JAX took its XLA fill above the VMEM budget; the card has
-    none."""
+    :func:`ops.flood.flood_from_border` (a batch: ``flood_from_border_batch``,
+    one launch for all, as JAX's ``vmap`` batches the Pallas call), which
+    launches ``csrc/flood.cu`` on the card. JAX took its XLA fill above the
+    VMEM budget; the card has none."""
+    if mask.dim() == 3:
+        return mask | (flood_from_border_batch(mask.contiguous()) == 0)
     return mask | (flood_from_border(mask.contiguous()) == 0)
 
 

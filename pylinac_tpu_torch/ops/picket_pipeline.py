@@ -182,10 +182,14 @@ def picket_fence_image(
     peak_sort: str = "peak_heights",
     separate_leaves: bool = False,
     extra_filter: int = 0,
+    preprocess: bool = True,
 ) -> dict:
     """Analyse a (B, H, W) batch of raw picket fence frames, conditioned
     first by :func:`preprocess_pf_image` (the JAX function with
-    ``preprocess=True``, the only form ``PicketFenceBatch`` runs).
+    ``preprocess=True``, the form ``PicketFenceBatch`` runs). With
+    ``preprocess=False`` the images are taken as they are, as JAX's
+    default takes them (``sharded_picket_fence``), and no image is
+    de-spiked.
 
     Returns fixed-shape tensors with a leading batch dim; invalid kiss and
     picket slots carry masks. The keys are those of the JAX function, plus
@@ -193,8 +197,12 @@ def picket_fence_image(
     B, H, W = img.shape
     L = cfg.tops.shape[0]
     dev = img.device
-    img, passes = preprocess_pf_image(img, extra_filter=extra_filter,
-                                      invert=params.invert)
+    if preprocess:
+        img, passes = preprocess_pf_image(img, extra_filter=extra_filter,
+                                          invert=params.invert)
+    else:
+        img = img.to(_F32)
+        passes = torch.zeros(B, dtype=torch.int32, device=dev)
 
     # ---- picket peaks on the normalised mean leaf profile ------------------
     leaf_prof = img.mean(dim=1)

@@ -4,8 +4,9 @@ Port of ``pylinac_tpu/picketfence.py``: ``Orientation`` ``:39``,
 ``MLCArrangement`` ``:46``, ``MLC`` ``:68``, ``PFResult`` ``:80``, the
 single-image ``PFDicomImage`` ``:102-143``, ``_batched_fwxm`` ``:145-156``,
 ``MLCValue`` ``:159-309``, ``Picket`` ``:311-390`` and ``PicketFence``
-``:391-790``, the batched ``PicketFenceBatch`` ``:909-1292`` (without its
-``mesh`` option) and ``analyze_batch`` ``:1295``.
+``:391-790``, the batched ``PicketFenceBatch`` ``:909-1292`` (its ``mesh``
+through :mod:`pylinac_tpu_torch.parallel.mesh`) and ``analyze_batch``
+``:1295``.
 
 ``PicketFence`` and ``PFDicomImage`` take a ``device`` (``None`` means
 CUDA, and raises without it): the image's de-spike, a 3x3 median repeated
@@ -16,8 +17,11 @@ in the JAX class. ``log=`` (``_load_log``, ``:480-494``) takes the
 pickets' fits from a machine log's expected fluence
 (:mod:`pylinac_tpu_torch.log_analyzer`), the log read for the same device;
 JAX calls it before ``self.mlc`` is set, which raises there, and the port
-sets the MLC first. Left out: the plots,
-``plotly_analyzed_images``, ``publish_pdf``, the QuAAC datapoints,
+sets the MLC first. The reports (``:786-906``, with ``MLCValue.plot2axes``
+and ``plot_detailed_profile`` ``:291-307`` and ``Picket.add_guards_to_axes``
+``:377``): ``publish_pdf`` through :mod:`.core.pdf`, ``to_quaac`` and
+``plotly_analyzed_images`` need no matplotlib; the matplotlib plots import
+it inside, and raise ``ModuleNotFoundError`` where it is missing. Left out:
 ``from_url``, ``from_demo_image`` and ``run_demo``.
 
 The batch's host loads and orients the frames and builds the results with
@@ -46,7 +50,8 @@ from . import profiling
 from .core import image
 from .core.geometry import Line, Point
 from .core.profile import MultiProfile
-from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum, resolve_device
+from .core.utilities import (QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin,
+                              convert_to_enum, resolve_device)
 from .core.warnings import capture_warnings
 from .ops import peaks
 from .ops.picket_pipeline import PFLeafConfig, PFParams, picket_fence_batch
@@ -268,6 +273,18 @@ class MLCValue:
                 if self._action_tolerance is not None else [True, True])
 
     @property
+    def bg_color(self) -> Sequence[str]:
+        colors = []
+        for idx, passed in enumerate(self.passed):
+            if not passed:
+                colors.append("red")
+            elif self._action_tolerance is not None:
+                colors.append("blue" if self.passed_action[idx] else "magenta")
+            else:
+                colors.append("blue")
+        return colors
+
+    @property
     def picket_positions(self) -> Sequence[float]:
         picket_pos = []
         for line, sign in zip(self.marker_lines, (-1, 1)):
@@ -311,6 +328,25 @@ class MLCValue:
             else:
                 lines.append(Line((upper, mlc_position), (lower, mlc_position)))
         return lines
+
+    def plot2axes(self, axes, width: float = 1) -> None:
+        for idx, line in enumerate(self.marker_lines):
+            line.plot2axes(axes, width, color=self.bg_color[idx])
+
+    def plot_detailed_profile(self):
+        import matplotlib.pyplot as plt
+
+        pix_vals = self.kiss_profile_values
+        offset = max(self._approximate_idx - self._spacing / 2, 0)
+        x_values = np.arange(len(pix_vals)) + offset
+        fig, ax = plt.subplots()
+        ax.plot(x_values, pix_vals)
+        for picket_pos in self.picket_positions:
+            ax.axvline(x=picket_pos * self._image.dpmm, color="black",
+                       label="Fitted picket location")
+        for pos, color in zip(self.position, self.bg_color):
+            ax.axvline(pos, color=color, label="Measured MLC position")
+        return ax
 
 
 class Picket:
@@ -382,9 +418,21 @@ class Picket:
         other[-1] += self._nominal_gap / 2 * self.image.dpmm
         return [np.poly1d(r_fit), np.poly1d(other)]
 
+    def add_guards_to_axes(self, axis, idx: int, color: str = "g",
+                           show_text: bool = False) -> None:
+        length = self.image.shape[0] if self.orientation == Orientation.UP_DOWN else self.image.shape[1]
+        x_data = np.arange(length)
+        for left, right in zip(self.left_guard_separated, self.right_guard_separated):
+            if self.orientation == Orientation.UP_DOWN:
+                axis.plot(left(x_data), x_data, color=color)
+                axis.plot(right(x_data), x_data, color=color)
+            else:
+                axis.plot(x_data, left(x_data), color=color)
+                axis.plot(x_data, right(x_data), color=color)
+
 
 @capture_warnings
-class PicketFence(ResultsDataMixin):
+class PicketFence(ResultsDataMixin, QuaacMixin):
     """MLC picket fence analysis of one image. The de-spike, the optional
     median ``filter`` and the kiss-profile FWXM run on ``device``
     (``None`` means CUDA, and raises without it)."""
@@ -744,6 +792,122 @@ class PicketFence(ResultsDataMixin):
             cax=self.image.center.dict(),
         )
 
+    # -- reports (JAX picketfence.py:786-906) --------------------------------
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        return {
+            "Max error": QuaacDatum(value=self.max_error, unit="mm"),
+            "Absolute median error": QuaacDatum(value=self.abs_median_error, unit="mm"),
+            "Percent passing": QuaacDatum(value=self.percent_passing, unit="%"),
+            "Number of pickets": QuaacDatum(value=self.num_pickets),
+            "Mean picket spacing": QuaacDatum(value=self.mean_picket_spacing, unit="mm"),
+            "MLC skew": QuaacDatum(value=self.mlc_skew(), unit="degrees"),
+        }
+
+    def plot_analyzed_image(self, guard_rails: bool = True, mlc_peaks: bool = True,
+                            overlay: bool = True, leaf_error_subplot: bool = True,
+                            show: bool = True, figure_size: tuple | None = None, **kwargs):
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(figsize=figure_size)
+        ax.imshow(self.image.array, cmap="gray")
+        if guard_rails:
+            for idx, picket in enumerate(self.pickets):
+                picket.add_guards_to_axes(ax, idx)
+        if mlc_peaks:
+            for meas in self.mlc_meas:
+                meas.plot2axes(ax)
+        ax.set_title("Picket Fence Analysis")
+        if show:
+            plt.show()
+        return fig, ax
+
+    def plot_leaf_profile(self, leaf, picket: int, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        matches = [m for m in self.mlc_meas
+                   if leaf in m.full_leaf_nums and m.picket_num == picket]
+        if len(matches) != 1:
+            raise ValueError(f"Could not find a unique measurement for leaf {leaf}, picket {picket}")
+        ax = matches[0].plot_detailed_profile()
+        ax.set_title(f"MLC profile Leaf: {leaf}, Picket: {picket}")
+        if show:
+            plt.show()
+        return ax
+
+    def plotly_analyzed_images(self, mlc_peaks: bool = True, overlay: bool = True,
+                               show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """The analysed image with its guard rails and MLC marks, and the
+        histogram of the leaf errors, as plotly-schema figures
+        (:mod:`.core.plotly_utils`): ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        if not self._is_analyzed:
+            raise RuntimeError("The image must be analyzed first. Use .analyze().")
+        figs: dict[str, pu.Figure] = {}
+        fig = pu.image_figure(self.image.array, title="Picket Fence Analysis",
+                              show_colorbar=show_colorbar, **kwargs)
+        x_data = np.arange(self.image.shape[0] if self.orientation == Orientation.UP_DOWN
+                           else self.image.shape[1])
+        for picket in self.pickets:
+            for left, right in zip(picket.left_guard_separated, picket.right_guard_separated):
+                for guard in (left, right):
+                    gx, gy = ((guard(x_data), x_data)
+                              if self.orientation == Orientation.UP_DOWN
+                              else (x_data, guard(x_data)))
+                    fig.add_trace(pu.scatter_trace(
+                        gx, gy, name="Guard rail", mode="lines",
+                        line={"color": "green", "width": 1}, showlegend=False))
+        if mlc_peaks:
+            for meas in self.mlc_meas:
+                for idx, line in enumerate(meas.marker_lines):
+                    fig.add_trace(pu.scatter_trace(
+                        [line.point1.x, line.point2.x], [line.point1.y, line.point2.y],
+                        mode="lines", name="MLC",
+                        line={"color": meas.bg_color[idx], "width": 2}, showlegend=False))
+        fig.update_layout(showlegend=show_legend)
+        figs["Picket Fence"] = fig
+
+        hist = pu.Figure()
+        hist.add_trace(pu.histogram_trace(self._flattened_errors(), name="Errors"))
+        pu.add_vertical_line(hist, self.tolerance, color="red", width=3)
+        pu.add_vertical_line(hist, -self.tolerance, color="red", width=3)
+        pu.add_title(hist, "Leaf error histogram")
+        hist.update_layout(xaxis_title="Error (mm)", yaxis_title="Counts",
+                           showlegend=show_legend)
+        figs["Histogram"] = hist
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def plot_histogram(self, bins: int = 10, show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        if not self._is_analyzed:
+            raise ValueError("The PF image has not been analyzed. Use .analyze() first.")
+        errors = self._flattened_errors()
+        fig, ax = plt.subplots()
+        ax.axvline(self.tolerance, color="r", linewidth=3)
+        ax.axvline(-self.tolerance, color="r", linewidth=3)
+        ax.grid(True)
+        ax.hist(errors, bins=bins)
+        if show:
+            plt.show()
+
+    def publish_pdf(self, filename: str, notes=None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The results as a one-page PDF (:mod:`.core.pdf`); needs no
+        matplotlib."""
+        from .core import pdf
+
+        canvas = pdf.PylinacCanvas(filename, page_title="Picket Fence Analysis",
+                                   metadata=metadata, logo=logo)
+        canvas.add_text(text=self.results(as_list=True), location=(2, 25.5), font_size=11)
+        if notes is not None:
+            canvas.add_text(text=notes, location=(2, 4))
+        canvas.finish()
+
 
 class PicketFenceBatch:
     """Analyse a batch of same-geometry picket fence images in one batched
@@ -835,12 +999,26 @@ class PicketFenceBatch:
                 fwxm: int = 50, separate_leaves: bool = False,
                 nominal_gap_mm: float = 3,
                 orientation: Orientation | str | None = None,
-                w_max: int | None = None, chunk: int = 32,
+                w_max: int | None = None, chunk: int = 32, mesh=None,
                 device: str | torch.device | None = None) -> None:
         """Analyse the batch on ``device`` (``None`` means ``"cuda"``, and
         raises when no CUDA device exists). Arguments as
-        ``pylinac_tpu.picketfence.PicketFenceBatch.analyze``."""
-        device = resolve_device(device, "PicketFenceBatch.analyze")
+        ``pylinac_tpu.picketfence.PicketFenceBatch.analyze``.
+
+        ``mesh``: a :class:`~pylinac_tpu_torch.parallel.mesh.Mesh` whose
+        ``data`` axis shards the images, each shard through the same
+        pipeline on its device
+        (:func:`~pylinac_tpu_torch.parallel.mesh.sharded_pf_batch`; JAX
+        ``picketfence.py:1022-1029``, ``:1155-1158``); per-image results
+        equal the unsharded run's. The rest runs on the mesh's first
+        device, and a ``device`` that differs from it raises
+        ``ValueError``."""
+        if mesh is not None:
+            from .parallel.mesh import mesh_device
+
+            device = mesh_device(mesh, device, "PicketFenceBatch.analyze")
+        else:
+            device = resolve_device(device, "PicketFenceBatch.analyze")
         if action_tolerance is not None and tolerance < action_tolerance:
             raise ValueError("Tolerance cannot be lower than the action tolerance")
         self.tolerance = tolerance
@@ -933,16 +1111,22 @@ class PicketFenceBatch:
             analysis_ratio=f32(leaf_analysis_width_ratio),
             nominal_gap_px=f32(nominal_gap_mm / 2 * dpmm),
             invert=bool(invert))
-        with profiling.stage("pf.dispatch"):
-            out = picket_fence_batch(
-                batch, cfg, params, K_P=16, W_MAX=w_max, H_MAX=H_MAX,
-                num_pickets=num_pickets, peak_sort=peak_sort,
-                separate_leaves=separate_leaves, chunk=min(chunk, len(arrays)),
-                extra_filter=self._extra_filter)
-        # JAX's pf.spec timed the packed wire's tree spec, which the port has
-        # not: the fetch below is its pf.fetch_unpack without the unpack
-        with profiling.stage("pf.fetch_unpack"):
+        static = dict(K_P=16, W_MAX=w_max, H_MAX=H_MAX, num_pickets=num_pickets,
+                      peak_sort=peak_sort, separate_leaves=separate_leaves,
+                      chunk=min(chunk, len(arrays)), extra_filter=self._extra_filter)
+        if mesh is not None:
+            # as in JAX, the mesh branch has no stage of its own
+            from .parallel.mesh import sharded_pf_batch
+
+            out = sharded_pf_batch(batch, cfg, params, mesh, **static)
             self._out = {k: v.cpu().numpy() for k, v in out.items()}
+        else:
+            with profiling.stage("pf.dispatch"):
+                out = picket_fence_batch(batch, cfg, params, **static)
+            # JAX's pf.spec timed the packed wire's tree spec, which the port
+            # has not: the fetch below is its pf.fetch_unpack without the unpack
+            with profiling.stage("pf.fetch_unpack"):
+                self._out = {k: v.cpu().numpy() for k, v in out.items()}
         if not self._out["kiss_valid"].any():
             raise ValueError(
                 "No MLC measurements were found in the batch. This may be due to "

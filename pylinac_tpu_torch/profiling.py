@@ -28,8 +28,10 @@ and five of the six of ``picketfence.py``'s ``PicketFenceBatch.analyze``.
 Not ported: ``pf.spec``, which times the packed wire's tree spec
 (``ops/pack.py``, left out of the port with the wire); ``pf.fetch_unpack``
 wraps the port's fetch of the output tensors, which the wire's unpack
-followed in JAX. The two stages of ``parallel/mesh.py:383-388`` wait for the
-port of the multi-device path.
+followed in JAX. The two stages of ``parallel/mesh.py:383-388``,
+``bucket+pad`` and ``sharded_compute``, sit in the port's
+``QABatchRunner.run``. Shards that run on threads of their own (one a
+device) may enter stages too: every entry is recorded.
 
 :func:`count_dispatches` runs ``torch.profiler`` around its block and counts
 the CUDA runtime's kernel launches (``dispatches``) and its host-device

@@ -34,7 +34,7 @@ import torch
 
 from .core.geometry import Line, Point
 from .core.profile import FWXMProfilePhysical
-from .core.utilities import DataModel, ResultBase, resolve_device
+from .core.utilities import DataModel, ResultBase, not_ported, resolve_device
 from .core.warnings import capture_warnings
 from .ct import (
     AIR,
@@ -54,6 +54,11 @@ GEOMETRY_OFFSET_MM = 45
 ACRYLIC = 120
 POLY = -35
 TEFLON = 990
+
+# CatPhanBase's reports draw the CatPhan family's modules; these classes
+# have reports of their own, which wait for ROADMAP item 11
+_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
+             "plotly_analyzed_images", "publish_pdf", "to_quaac")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -235,6 +240,7 @@ class QuartGeometryModule(CatPhanModule):
         return float(np.mean(list(self.high_contrast_resolutions().values())))
 
 
+@not_ported(*_REPORTS)
 @capture_warnings
 class QuartDVT(CatPhanBase):
     """Quart DVT CBCT phantom analysis."""

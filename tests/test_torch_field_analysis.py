@@ -270,7 +270,7 @@ def test_errors(files):
         batch.results_data()
     with pytest.raises(ValueError, match="LINEAR"):
         batch.analyze(interpolation="Spline")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         batch.analyze(mesh=object())
     with pytest.raises(ValueError, match="No images"):
         FieldAnalysisBatch([])

@@ -302,7 +302,7 @@ def test_gamma_2d_batch_takes_tensors():
     (lambda r, e: tg.gamma_2d_batch(r[0], e[0], device="cpu"), ValueError),
     (lambda r, e: tg.gamma_2d_batch(r, e[:1], device="cpu"), ValueError),
     (lambda r, e: tg.gamma_2d_batch(r, e, distance_to_agreement=-2, device="cpu"), ValueError),
-    (lambda r, e: tg.gamma_2d_batch(r, e, mesh=object(), device="cpu"), NotImplementedError),
+    (lambda r, e: tg.gamma_2d_batch(r, e, mesh=object(), device="cpu"), TypeError),
 ], ids=["dta0", "dta-float", "rank3-single", "shape", "rank2-batch", "batch-size",
         "dta-negative", "mesh"])
 def test_bad_inputs_raise(call, error):

@@ -1,7 +1,8 @@
 """The port runs with neither jax nor pydantic importable.
 
 A child interpreter installs a meta-path finder that refuses ``jax``,
-``jaxlib`` and ``pydantic``, imports ``pylinac_tpu_torch`` and
+``jaxlib``, ``pydantic`` and ``matplotlib`` (the machine with the card has
+none of them), imports ``pylinac_tpu_torch`` and
 ``pylinac_tpu_torch.ct``, makes a small AS500 picket fence with the port's
 own image generator and analyses it on the CPU, finds the regions of a
 small ring image with the CT region finder, analyses a small generated
@@ -20,8 +21,13 @@ image and a 40-slice Quart DVT, a small QC-3 and FC-2 (AS500) and a
 ``FieldProfileAnalysis`` of an AS500 open field, a ``PlanarUniformity`` of
 a 128 x 128 flood and a trajectory log's fluence, with the picket fence's
 stages timed by ``pylinac_tpu_torch.profiling``, a TG-51 photon worksheet
-and its PDF, and a small TrueBeam plan and its fluence, on the CPU: the native
-codecs build and run without either package. The machine with the card has neither package.
+and its PDF, and a small TrueBeam plan and its fluence, then the multi-device
+runtime (``pylinac_tpu_torch.parallel``: the picket fence batch, the gamma
+batch and ``QABatchRunner`` on a two-shard CPU mesh) and the picket fence's
+reports that need no matplotlib (``publish_pdf``, ``to_quaac``,
+``plotly_analyzed_images`` through ``core/plotly_utils.py``, with
+``settings.py`` imported), while its matplotlib plot raises, on the CPU: the
+native codecs build and run without any of these packages.
 """
 
 import json
@@ -35,7 +41,7 @@ REPO = Path(__file__).resolve().parent.parent
 CHILD = textwrap.dedent("""
     import importlib.abc, json, sys, tempfile
 
-    BLOCKED = ("jax", "jaxlib", "pydantic")
+    BLOCKED = ("jax", "jaxlib", "pydantic", "matplotlib")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -257,7 +263,34 @@ CHILD = textwrap.dedent("""
     pg.add_open_field_beam(x1=-50, x2=50, y1=-50, y2=50, mu=100)
     fl = generate_fluences(pg.as_dicom(), width_mm=200, resolution_mm=1, dtype=np.float32,
                            device="cpu")
+    from pylinac_tpu_torch import settings
+    from pylinac_tpu_torch.parallel import QABatchRunner
+    from pylinac_tpu_torch.parallel.mesh import Mesh
+    mesh2 = Mesh([torch.device("cpu")] * 2, ("data",))
+    pf_mesh = pylinac_tpu_torch.PicketFenceBatch([path, path, path])
+    pf_mesh.analyze(tolerance=0.5, mesh=mesh2)
+    g_mesh = pylinac_tpu_torch.gamma_2d_batch(
+        np.stack([dose] * 3), np.stack([dose * np.float32(1.01)] * 3), dose_to_agreement=2.0,
+        distance_to_agreement=2, mesh=mesh2).numpy()
+    fields = np.zeros((3, 64, 80), np.float32)
+    fields[:, 16:48, 20:60] = 1000
+    _, runner_mean = QABatchRunner(mesh2).run(fields)
+    report_dir = tempfile.mkdtemp()
+    pf_single.publish_pdf(report_dir + "/pf.pdf")
+    pf_single.to_quaac(report_dir + "/pf.json")
+    pf_figs = pf_single.plotly_analyzed_images(show=False)
+    try:
+        pf_single.plot_analyzed_image(show=False)
+        plot_error = None
+    except ImportError as e:
+        plot_error = type(e).__name__
     print(json.dumps({
+        "mesh": [pf_mesh.results_data()[2].number_of_pickets, bool(np.isnan(g_mesh).any()),
+                 float(np.abs(g_mesh - g[None]).max()), runner_mean],
+        "reports": [open(report_dir + "/pf.pdf", "rb").read(5).decode(),
+                    len(json.load(open(report_dir + "/pf.json"))["datapoints"]),
+                    sorted(pf_figs), len(pf_figs["Picket Fence"].to_json()) > 1000,
+                    plot_error, settings.get_dicom_cmap()],
         "tg51": [round(sheet.dose_mu_dmax, 4), open(pdf_path, "rb").read(5).decode()],
         "plan_fluence": [list(fl.shape), float(fl[0, 200, 100]), float(fl[0, 200, 5])],
         "nm_uniformity": pu.results_data(as_dict=True)["Frame 1"]["ufov_integral_uniformity"],
@@ -328,6 +361,12 @@ def test_port_runs_without_jax_or_pydantic():
         assert abs(x - 250) < 0.1 and abs(y - 260) < 0.1
     assert all(d < 0.05 for d in out["star_diameters"])
     assert out["pf_single"][0] == 8 and out["pf_single"][1] < 0.1
+    # the mesh's runs: the padded picket batch, the gamma maps equal to the
+    # single pair's, the mean field size of the 32-row fields
+    assert out["mesh"][:3] == [8, False, 0.0]
+    assert abs(out["mesh"][3] - 32) < 2
+    assert out["reports"] == ["%PDF-", 6, ["Histogram", "Picket Fence"], True, "ImportError",
+                              "gray"]
     # within half an AS500 pixel (0.78 mm at the isocentre) of the fields
     assert out["mtmf"][0] == 4 and out["mtmf"][1] < 0.4 and out["mtmf"][2] == ["Iso", "1"]
     # a lazy zip of JPEG Lossless slices through the native decoder
