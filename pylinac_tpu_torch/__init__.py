@@ -35,9 +35,10 @@ the ``core`` helper modules (``decorators``, ``mask``), the multi-device
 runtime (``parallel``: a batch sharded over a ``Mesh`` of devices, the
 ``mesh=`` of ``PicketFenceBatch``, ``CatPhanBatch``, ``FieldAnalysisBatch``
 and ``gamma_2d_batch``), the display ``settings`` and the reports of the
-picket fence and the CatPhan family (``publish_pdf``, ``to_quaac``,
-``plotly_analyzed_images`` through ``core.plotly_utils``, the matplotlib
-plots).
+picket fence, the CatPhan family and its siblings (Quart, ACR, cheese,
+Helios), Winston-Lutz, field analysis, starshots, VMAT and DLG
+(``publish_pdf``, ``to_quaac``, ``plotly_analyzed_images`` through
+``core.plotly_utils``, the matplotlib plots).
 """
 
 from .acr import ACRCT, ACRMRILarge

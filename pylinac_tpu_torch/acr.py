@@ -33,8 +33,14 @@ its metadata from the stack once, as on JAX's eager stack, whose
 nothing and is left out). The cached host volume of the localisation is
 built after both were taken out.
 
-Not ported: the plots, ``save_images``, ``publish_pdf``,
-``_quaac_datapoints`` and the demo loaders.
+The reports (the modules' ``plot_rois`` and the sagittal ``plot``, ACR CT
+``:217-397``, ACR MRI ``:1001-1212``): the plots, ``save_images`` and
+``publish_pdf``, which embeds the saved images, import matplotlib inside
+and raise ``ModuleNotFoundError`` where it is missing; ACR CT's
+``to_quaac`` and the generic ``plotly_analyzed_images`` (``CatPhanBase``'s)
+need none. As in JAX, ``ACRMRILarge.to_quaac`` reaches ``CatPhanBase``'s
+datapoints, which read a ``ctp404`` the class has not, and raises
+``AttributeError``. Not ported: the demo loaders.
 """
 
 from __future__ import annotations
@@ -52,9 +58,10 @@ from .core.geometry import Line, Point
 from .core.mtf import MTF
 from .core.profile import FWXMProfile
 from .core.roi import DiskROI, HighContrastDiskROI, LowContrastDiskROI, RectangleROI
-from .core.utilities import DataModel, ResultBase, not_ported, resolve_device
+from .core.utilities import DataModel, QuaacDatum, ResultBase, resolve_device
 from .core.warnings import capture_warnings
-from .ct import CatPhanBase, CatPhanModule, Slice, ThicknessROI, get_regions, rois_to_results
+from .ct import (CatPhanBase, CatPhanModule, Slice, ThicknessROI, get_regions,
+                 publish_images_pdf, rois_to_results, save_figures, wrapped)
 from .metrics.utils import valid_region_views
 from .ops import label as tlabel
 from .ops.filters import gaussian_filter, scharr
@@ -71,11 +78,6 @@ MR_SLICE11_MODULE_OFFSET_MM = 100
 MR_GEOMETRIC_DISTORTION_MODULE_OFFSET_MM = 40
 MR_UNIFORMITY_MODULE_OFFSET_MM = 60
 MR_LOW_CONTRAST_MODULE_OFFSETS_MM = {8: 70, 9: 80, 10: 90, 11: 100}
-
-# CatPhanBase's reports draw the CatPhan family's modules; these classes
-# have reports of their own, which wait for ROADMAP item 11
-_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
-             "plotly_analyzed_images", "publish_pdf", "to_quaac")
 
 
 def _filled(mask: np.ndarray, device) -> np.ndarray:
@@ -102,6 +104,8 @@ class CTModule(CatPhanModule):
         "Bone": {"angle": -45, "distance": roi_dist_mm, "radius": roi_radius_mm},
         "Water": {"angle": 180, "distance": roi_dist_mm, "radius": roi_radius_mm},
     }
+    window_min = -200
+    window_max = 200
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -127,6 +131,8 @@ class UniformityModule(CatPhanModule):
         "Left": {"angle": 180, "distance": roi_dist_mm, "radius": roi_radius_mm},
         "Center": {"angle": 0, "distance": 0, "radius": roi_radius_mm},
     }
+    window_min = -50
+    window_max = 50
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -172,6 +178,10 @@ class SpatialResolutionModule(CatPhanModule):
         return MTF.from_high_contrast_diskset(spacings=spacings,
                                               diskset=list(self.rois.values()))
 
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor="g")
+
 
 @dataclasses.dataclass(kw_only=True)
 class SpatialResolutionModuleOutput(CTModuleOutput):
@@ -191,6 +201,8 @@ class LowContrastModule(CatPhanModule):
     background_roi_settings = {
         "ROI": {"angle": -115, "distance": roi_dist_mm, "radius": roi_radius_mm},
     }
+    window_min = 50
+    window_max = 150
 
     def cnr(self) -> float:
         """|A - B| / SD(B), per the ACR guidance."""
@@ -221,7 +233,6 @@ def _ct_output(cls, module, offset, **extra):
                rois={name: roi.pixel_value for name, roi in module.rois.items()}, **extra)
 
 
-@not_ported(*_REPORTS)
 @capture_warnings
 class ACRCT(CatPhanBase):
     """ACR CT 464 phantom analysis."""
@@ -236,6 +247,12 @@ class ACRCT(CatPhanBase):
     spatial_resolution_module = SpatialResolutionModule
     uniformity_module = UniformityModule
     clear_borders = False
+
+    def plot_analyzed_subimage(self, *args, **kwargs):
+        raise NotImplementedError("Use `plot_images`")
+
+    def save_analyzed_subimage(self, *args, **kwargs):
+        raise NotImplementedError("Use `save_images`")
 
     def analyze(self, x_adjustment: float = 0, y_adjustment: float = 0,
                 angle_adjustment: float = 0, roi_size_factor: float = 1,
@@ -266,6 +283,83 @@ class ACRCT(CatPhanBase):
         """The roll from the two air bubbles, the candidates sorted by size
         and not by centrality (both air ROIs are on the right)."""
         return super().find_phantom_roll(func)
+
+    def plot_analyzed_image(self, show: bool = True, **plt_kwargs):
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(**plt_kwargs)
+        grid_size = (2, 3)
+        self.ct_calibration_module.plot(plt.subplot2grid(grid_size, (0, 0)))
+        self.uniformity_module.plot(plt.subplot2grid(grid_size, (0, 1)))
+        self.spatial_resolution_module.plot(plt.subplot2grid(grid_size, (0, 2)))
+        self.low_contrast_module.plot(plt.subplot2grid(grid_size, (1, 0)))
+        self.spatial_resolution_module.mtf.plot(plt.subplot2grid(grid_size, (1, 2)))
+        self.plot_side_view(plt.subplot2grid(grid_size, (1, 1)))
+        plt.tight_layout()
+        if show:
+            plt.show()
+        return fig
+
+    def save_analyzed_image(self, filename, **plt_kwargs) -> None:
+        fig = self.plot_analyzed_image(show=False, **plt_kwargs)
+        fig.savefig(filename)
+
+    def plot_images(self, show: bool = True, **plt_kwargs) -> dict:
+        """A figure per module, the rMTF and the side view:
+        ``{name: Figure}``."""
+        import matplotlib.pyplot as plt
+
+        figs = {}
+        modules = {"hu": self.ct_calibration_module,
+                   "uniformity": self.uniformity_module,
+                   "spatial resolution": self.spatial_resolution_module,
+                   "low contrast": self.low_contrast_module}
+        for key, module in modules.items():
+            fig, ax = plt.subplots(**plt_kwargs)
+            module.plot(ax)
+            figs[key] = fig
+        fig, ax = plt.subplots(**plt_kwargs)
+        figs["mtf"] = fig
+        self.spatial_resolution_module.mtf.plot(ax)
+        fig, ax = plt.subplots(**plt_kwargs)
+        figs["side"] = fig
+        self.plot_side_view(ax)
+        plt.tight_layout()
+        if show:
+            plt.show()
+        return figs
+
+    def save_images(self, directory=None, to_stream: bool = False, **plt_kwargs) -> list:
+        """:meth:`plot_images` as PNG files in ``directory`` or as streams."""
+        return save_figures(self.plot_images(show=False, **plt_kwargs), directory, to_stream)
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        results_data = self.results_data(as_dict=True)
+        data = {"Phantom Roll": QuaacDatum(value=results_data["phantom_roll_deg"],
+                                           unit="degrees")}
+        for name, value in results_data["ct_module"]["rois"].items():
+            data[f"{name} HU"] = QuaacDatum(value=value, unit="HU")
+        for name, value in results_data["uniformity_module"]["rois"].items():
+            data[f"{name} Uniformity HU"] = QuaacDatum(value=value, unit="HU")
+        for name, value in results_data["spatial_resolution_module"]["lpmm_to_rmtf"].items():
+            data[f"{name} lp/mm"] = QuaacDatum(value=value, unit="rMTF")
+        for name, value in results_data["low_contrast_module"]["rois"].items():
+            data[f"{name} CNR"] = QuaacDatum(value=value, unit="CNR")
+        return data
+
+    def publish_pdf(self, filename, notes: str | None = None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The HU, contrast and uniformity lines and a page per module
+        image; the images need matplotlib."""
+        texts = [
+            " - ACR CT 464 Results - ",
+            f"HU Linearity ROIs: {self.ct_calibration_module.roi_vals_as_str}",
+            f"Low contrast visibility: {self.low_contrast_module.cnr():2.2f}",
+            f"Uniformity ROIs: {self.uniformity_module.roi_vals_as_str}",
+        ]
+        images = self.save_images(to_stream=True)
+        publish_images_pdf(filename, f"{self._model} Analysis", texts, (1.5, 23), images,
+                           notes, open_file, metadata, logo)
 
     def results(self) -> str:
         return (
@@ -339,6 +433,10 @@ class MRSlice11PositionModule(CatPhanModule):
         """The bars are at 45 degrees: the S/I shift is half their difference."""
         return self.bar_difference_mm / 2
 
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+
 
 @dataclasses.dataclass(kw_only=True)
 class MRSlice11ModuleOutput(DataModel):
@@ -404,6 +502,14 @@ class MRSlice1Module(CatPhanModule):
     def slice_shift_mm(self) -> float:
         return self.bar_difference_mm / 2
 
+    def plot_rois(self, axis) -> None:
+        for roi in self.position_rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+        for roi in self.thickness_rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor="g")
+
     @property
     def measured_slice_thickness_mm(self) -> float:
         """0.2 x (T x B) / (T + B) of the two crossed ramps (ACR manual)."""
@@ -465,6 +571,11 @@ class MRUniformityModule(CatPhanModule):
             self.ghost_rois[name] = RectangleROI.from_phantom_center(
                 self.image, roi["width_pixels"], roi["height_pixels"],
                 roi["angle"] + self.catphan_roll, roi["distance_pixels"], self.phan_center)
+
+    def plot_rois(self, axis) -> None:
+        super().plot_rois(axis)
+        for roi in self.ghost_rois.values():
+            roi.plot2axes(axis, edgecolor="yellow")
 
     @property
     def percent_image_uniformity(self) -> float:
@@ -546,6 +657,14 @@ class MRLowContrastModule(CatPhanModule):
         self.visibility_sanity_multiplier = visibility_sanity_multiplier
         super().__init__(catphan, tolerance, offset)
 
+    @property
+    def window_min(self) -> int:
+        return int(self.low_contrast_region.min)
+
+    @property
+    def window_max(self) -> int:
+        return int(self.low_contrast_region.max)
+
     def _convert_units_in_settings(self) -> None:
         super()._convert_units_in_settings()
         for settings in (self.roi_settings, self.background_roi_settings):
@@ -621,6 +740,19 @@ class MRLowContrastModule(CatPhanModule):
     def as_dict(self) -> dict:
         return {spoke_name: [roi.as_dict() for roi in spoke_rois]
                 for spoke_name, spoke_rois in self.rois.items()}
+
+    def plot_rois(self, axis) -> None:
+        spoke1 = self.rois[list(self.roi_settings.keys())[0]]
+        max_visibility = max(r.visibility for r in spoke1)
+        sanity_visibility = max_visibility * self.visibility_sanity_multiplier
+        self.low_contrast_region.plot2axes(axis, edgecolor="blue")
+        for spoke in self.rois.values():
+            for roi in spoke:
+                color = "green" if self.roi_is_visible(roi, sanity_visibility) else "red"
+                roi.plot2axes(axis, edgecolor=color)
+        for spoke in self.background_rois.values():
+            for roi in spoke:
+                roi.plot2axes(axis, edgecolor="blue")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -711,6 +843,10 @@ class GeometricDistortionModule(CatPhanModule):
     def distances(self) -> dict:
         return {name: f"{p['width (mm)']:2.2f}mm" for name, p in self.profiles.items()}
 
+    def plot_rois(self, axis):
+        for profile_data in self.profiles.values():
+            profile_data["line"].plot2axes(axis, width=2, color="blue")
+
 
 @dataclasses.dataclass(kw_only=True)
 class MRGeometricDistortionModuleOutput(DataModel):
@@ -729,6 +865,8 @@ class SagittalLocalizationModule:
         "ROI3": {"offset": 25},
         "ROI4": {"offset": 75},
     }  # mm left or right of the phantom's centroid
+    window_min = None
+    window_max = None
 
     def __init__(self, image, device=None):
         """``image``: the sagittal localiser, or None. Its holes are filled
@@ -754,6 +892,17 @@ class SagittalLocalizationModule:
     def distances(self) -> dict:
         return {name: f"{p['width (mm)']:2.2f}mm" for name, p in self.profiles.items()}
 
+    def plot(self, axis):
+        axis.imshow(self.image.array, cmap="gray", vmin=self.window_min, vmax=self.window_max)
+        self.plot_rois(axis)
+        axis.autoscale(tight=True)
+        axis.set_title(self.common_name)
+        axis.axis("off")
+
+    def plot_rois(self, axis):
+        for profile_data in self.profiles.values():
+            profile_data["line"].plot2axes(axis, width=2, color="blue")
+
 
 @dataclasses.dataclass(kw_only=True)
 class MRSagittalLocalizationModuleOutput(DataModel):
@@ -775,7 +924,6 @@ class ACRMRIResult(ResultBase):
     low_contrast_multi_slice_module: MRLowContrastMultiSliceModuleOutput
 
 
-@not_ported(*_REPORTS)
 @capture_warnings
 class ACRMRILarge(CatPhanBase):
     """ACR MRI Large phantom analysis."""
@@ -792,6 +940,12 @@ class ACRMRILarge(CatPhanBase):
     low_contrast_multi_slice = MRLowContrastMultiSliceModule
     has_sagittal_module: bool = False
     clip_in_localization = False
+
+    def plot_analyzed_subimage(self, *args, **kwargs):
+        raise NotImplementedError("Use `plot_images`")
+
+    def save_analyzed_subimage(self, *args, **kwargs):
+        raise NotImplementedError("Use `save_images`")
 
     def localize(self) -> None:
         """Slice 1 is the first image: only the axis and the roll are found."""
@@ -925,6 +1079,72 @@ class ACRMRILarge(CatPhanBase):
 
     def _detected_modules(self):
         return [self.slice1, self.slice11, self.uniformity_module, self.geometric_distortion]
+
+    def plot_analyzed_image(self, show: bool = True, **plt_kwargs):
+        import matplotlib.pyplot as plt
+
+        modules = [self.slice1, self.geometric_distortion, self.uniformity_module, self.slice11]
+        modules.extend(self.low_contrast_multi_slice.slices.values())
+        if self.has_sagittal_module:
+            modules.append(self.sagittal_localization)
+        fig, axs = plt.subplots(3, 4, **plt_kwargs)
+        axes = axs.ravel()
+        for ax, module in zip(axes, modules):
+            module.plot(ax)
+        ax_idx = len(modules)
+        self.plot_side_view(axes[ax_idx])
+        ax_idx += 1
+        self.slice1.row_mtf.plot(axes[ax_idx], label="Row-wise rMTF")
+        self.slice1.col_mtf.plot(axes[ax_idx], label="Column-wise rMTF")
+        axes[ax_idx].legend()
+        for i in range(ax_idx + 1, len(axes)):
+            axes[i].set_visible(False)
+        plt.tight_layout()
+        if show:
+            plt.show()
+        return fig
+
+    def plot_images(self, show: bool = True, **plt_kwargs) -> dict:
+        """A figure per module (the sagittal one where present), the rMTFs
+        and the side view: ``{name: Figure}``."""
+        import matplotlib.pyplot as plt
+
+        figs = {}
+        modules = {"geometric": self.geometric_distortion,
+                   "slice 1": self.slice1,
+                   "signal uniformity": self.uniformity_module,
+                   "slice 11": self.slice11}
+        modules |= self.low_contrast_multi_slice.slices
+        if self.has_sagittal_module:
+            modules["sagittal"] = self.sagittal_localization
+        for key, module in modules.items():
+            fig, ax = plt.subplots(**plt_kwargs)
+            module.plot(ax)
+            figs[key] = fig
+        fig, ax = plt.subplots(**plt_kwargs)
+        self.slice1.row_mtf.plot(ax, label="Row-wise rMTF")
+        self.slice1.col_mtf.plot(ax, label="Column-wise rMTF")
+        ax.legend()
+        figs["rMTF"] = fig
+        fig, ax = plt.subplots(**plt_kwargs)
+        figs["side"] = fig
+        self.plot_side_view(ax)
+        if show:
+            plt.show()
+        return figs
+
+    def save_images(self, directory=None, to_stream: bool = False, **plt_kwargs) -> list:
+        """:meth:`plot_images` as PNG files in ``directory`` or as streams."""
+        return save_figures(self.plot_images(show=False, **plt_kwargs), directory, to_stream)
+
+    def publish_pdf(self, filename, notes: str | None = None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The results and a page per module image; the images need
+        matplotlib."""
+        images = self.save_images(to_stream=True)
+        publish_images_pdf(filename, f"{self._model} Analysis",
+                           wrapped(self.results(as_str=False)), (1.5, 25), images,
+                           notes, open_file, metadata, logo)
 
     def _generate_results_data(self) -> ACRMRIResult:
         resolutions = range(10, 91, 10)

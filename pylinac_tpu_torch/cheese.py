@@ -18,8 +18,12 @@ ROIs and profiles stay numpy on the host. ``capture_warnings`` wraps the
 public functions of each class's own body, as in JAX: TomoCheese's body
 has none, CIRS's ``find_origin_slice``; the roll finder prints, as JAX's.
 
-Not ported: the plots, ``plot_density_curve``, ``publish_pdf``,
-``_quaac_datapoints`` and the demo loaders.
+The reports (``CheeseModule.plot_rois`` ``:71``, ``CheesePhantomBase``
+``:158-238`` with ``plot_density_curve`` ``:174``): the plots and
+``publish_pdf``, which embeds the analysed image, import matplotlib inside
+and raise ``ModuleNotFoundError`` where it is missing; ``to_quaac`` and
+the generic ``plotly_analyzed_images`` (``CatPhanBase``'s) need none. Not
+ported: the demo loaders.
 """
 
 from __future__ import annotations
@@ -32,14 +36,9 @@ import numpy as np
 from .core.profile import CollapsedCircleProfile
 from .core.roi import DiskROI
 from .core.scale import wrap360
-from .core.utilities import ResultBase, not_ported, resolve_device
+from .core.utilities import QuaacDatum, ResultBase, resolve_device
 from .core.warnings import capture_warnings
 from .ct import CatPhanBase, CatPhanModule, Slice
-
-# CatPhanBase's reports draw the CatPhan family's modules; these classes
-# have reports of their own, which wait for ROADMAP item 11
-_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
-             "plotly_analyzed_images", "publish_pdf", "to_quaac")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -89,6 +88,10 @@ class CheeseModule(CatPhanModule):
                 setting["radius_pixels"], setting["distance_pixels"],
                 self.phan_center)
 
+    def plot_rois(self, axis) -> None:
+        for name, roi in self.rois.items():
+            roi.plot2axes(axis, edgecolor="blue", text=name)
+
 
 class TomoCheeseModule(CheeseModule):
     """Tomo Cheese: 20 plugs on an inner (65 mm) and an outer (110 mm) ring."""
@@ -121,7 +124,6 @@ class TomoCheeseModule(CheeseModule):
     }
 
 
-@not_ported(*_REPORTS, "plot_density_curve")
 class CheesePhantomBase(CatPhanBase):
     """The single-module cheese phantom engine."""
 
@@ -178,11 +180,89 @@ class CheesePhantomBase(CatPhanBase):
               "roll compensation aborted. Setting roll to 0.")
         return 0
 
+    def plot_analyzed_image(self, show: bool = True, **plt_kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(**plt_kwargs)
+        self.module.plot(ax)
+        plt.tight_layout()
+        if show:
+            plt.show()
+
     def results(self, as_list: bool = False) -> str | list[str]:
         results = [f" - {self.model} Phantom Analysis - ", " - HU Module - "]
         results += [f"ROI {name} median: {roi.pixel_value:.1f}, stdev: {roi.std:.1f}"
                     for name, roi in self.module.rois.items()]
         return results if as_list else "\n".join(results)
+
+    def plot_density_curve(self, show: bool = True, **plt_kwargs):
+        """The known density of each configured ROI against its HU, sorted
+        by density."""
+        import matplotlib.pyplot as plt
+
+        if not self.roi_config:
+            raise ValueError(
+                "No ROI density configuration was passed to the analyze "
+                "method. Re-analyze with densities first.")
+        xs, ys = [], []
+        for roi_num, roi_data in self.roi_config.items():
+            xs.append(roi_data["density"])
+            ys.append(self.module.rois[roi_num].pixel_value)
+        sorted_args = np.argsort(xs)
+        xs = np.array(xs)[sorted_args]
+        ys = np.array(ys)[sorted_args]
+        fig, ax = plt.subplots(**plt_kwargs)
+        ax.plot(xs, ys, linestyle="-.", marker="D")
+        ax.set_title("Density vs HU curve")
+        ax.set_ylabel("HU")
+        ax.set_xlabel("Density")
+        ax.grid("on")
+        plt.tight_layout()
+        if show:
+            plt.show()
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        results_data = self.results_data(as_dict=True)
+        data = {"Phantom roll": QuaacDatum(value=results_data["phantom_roll"], unit="degrees")}
+        for roi_num, roi_data in results_data["rois"].items():
+            data[f"ROI {roi_num}"] = QuaacDatum(value=roi_data["median"], unit="HU")
+        return data
+
+    def save_analyzed_image(self, filename, **kwargs):
+        import matplotlib.pyplot as plt
+
+        self.plot_analyzed_image(show=False, **kwargs)
+        plt.savefig(filename)
+
+    def publish_pdf(self, filename, notes: str | None = None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The ROI results and a page with the analysed image; the image
+        needs matplotlib."""
+        import io
+
+        from .core import pdf
+
+        canvas = pdf.PylinacCanvas(filename, page_title=f"{self.model} Phantom",
+                                   metadata=metadata, logo=logo)
+        if notes is not None:
+            canvas.add_text(text="Notes:", location=(1, 4.5), font_size=14)
+            canvas.add_text(text=notes, location=(1, 4))
+        canvas.add_text(text=self.results(as_list=True), location=(3, 23), font_size=16)
+        data = io.BytesIO()
+        self.save_analyzed_image(data)
+        canvas.add_new_page()
+        canvas.add_image(data, location=(0, 4), dimensions=(22, 22))
+        canvas.finish()
+        if open_file:
+            import webbrowser
+
+            webbrowser.open(filename)
+
+    def save_analyzed_subimage(self) -> None:
+        raise NotImplementedError("There are no sub-images for cheese-like phantoms")
+
+    def plot_analyzed_subimage(self) -> None:
+        raise NotImplementedError("There are no sub-images for cheese-like phantoms")
 
     def _generate_results_data(self) -> CheeseResult:
         return CheeseResult(

@@ -13,7 +13,8 @@ Port of the part of ``pylinac_tpu/core/image.py`` that the analyses use:
 ``check_inversion`` (``:352``), ``check_inversion_by_histogram``, ``gamma``,
 the Bakai approximation (``:377-402``), ``compute``, ``as_dicom``,
 ``as_type``, ``shape``, ``size``, ``ndim``, ``dtype``, ``sum``, indexing,
-the numpy array protocol, ``__sub__`` and ``plot`` (``:471``)), ``XIM`` (``:494``, the file
+the numpy array protocol, ``__sub__``, ``plot`` (``:471``) and the
+``base_path`` and ``source`` set at ``:222-227``), ``XIM`` (``:494``, the file
 parsed by :mod:`pylinac_tpu_torch.core.xim`), ``DicomImage`` (``:522``:
 load, ``save`` (``:548``) with ``_unscale_dicom_values``, ``z_position``,
 ``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``, ``cax``,
@@ -21,7 +22,7 @@ load, ``save`` (``:548``) with ``_unscale_dicom_values``, ``z_position``,
 file names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid``
 and ``dpmm``), ``z_position`` (``:775``), ``DicomImageStack``
 (``:796-879``: UID filter, z-sort, ``slice_spacing``, ``metadata``,
-``from_zip``, ``__delitem__`` ``:874``), ``LazyDicomImageStack`` (``:881``:
+``from_zip``, ``plot`` ``:865``, ``__delitem__`` ``:874``), ``LazyDicomImageStack`` (``:881``:
 paths and metadata kept, pixels decoded on each item access),
 ``LazyZipDicomImageStack`` (``:949``), ``FileImage`` (``:696``: TIFF, PNG
 and JPEG files through Pillow, with ``dpi`` and ``dpmm``), ``NMImageStack``
@@ -54,6 +55,8 @@ from .utilities import resolve_device
 from .xim import XimImage, is_xim
 
 MM_PER_INCH = 25.4
+FILE_TYPE = "file"
+STREAM_TYPE = "stream"
 
 
 def _rescale_dicom_values(unscaled, metadata, raw_pixels, invert_pixels):
@@ -96,7 +99,13 @@ class BaseImage:
         if isinstance(path, (str, Path)) and not osp.isfile(path):
             raise FileExistsError(
                 f"File `{path}` does not exist. Verify the file path name.")
-        self.path = path if isinstance(path, (str, Path)) else ""
+        if isinstance(path, (str, Path)):
+            self.path = path
+            self.base_path = osp.basename(path)
+            self.source = FILE_TYPE
+        else:
+            self.path = ""
+            self.source = STREAM_TYPE
 
     @property
     def truncated_path(self) -> str:
@@ -476,6 +485,7 @@ class ArrayImage(BaseImage):
         self.array = np.asarray(array, dtype=dtype)
         self._dpi = dpi
         self.sid = sid
+        self.source = STREAM_TYPE
         self.path = ""
 
     @property
@@ -789,6 +799,10 @@ class DicomImageStack:
         """Median z-gap between slices."""
         zs = sorted(img.z_position for img in self.images)
         return float(np.median(np.abs(np.diff(zs))))
+
+    def plot(self, slice_idx: int = 0, **kwargs):
+        """Slice ``slice_idx`` drawn by :meth:`BaseImage.plot`."""
+        return self.images[slice_idx].plot(**kwargs)
 
     def __getitem__(self, item) -> DicomImage:
         return self.images[item]

@@ -20,9 +20,10 @@ half-pixel offset, normalisation, the memo cache, ``fwxm_data``,
 ``CircleProfile`` with ``roll`` and ``CollapsedCircleProfile``
 (``:1043-1200``), ``ProfileBase.compute`` (``:265``, the metrics of
 :mod:`pylinac_tpu_torch.metrics.profile`), ``SingleProfile.resample``
-(``:584``) and ``SingleProfile.gamma`` (``:965``); of the plots, the
-circle profiles' ``plot2axes`` (``:1132``, ``:1185``), which the CatPhan
-reports draw, with matplotlib imported inside. Peaks
+(``:584``) and ``SingleProfile.gamma`` (``:965``); the plots
+(``ProfileBase.plot`` ``:285``, ``SingleProfile.plot`` ``:983``,
+``MultiProfile.plot`` ``:1002`` and the circle profiles' ``plot2axes``
+``:1132``, ``:1185``), with matplotlib imported inside. Peaks
 come from :mod:`pylinac_tpu_torch.ops.peaks`, the smoothing from
 :mod:`pylinac_tpu_torch.ops.filters`, the spline and the zoom from
 :mod:`pylinac_tpu_torch.ops.interp` and the profile gammas from
@@ -293,6 +294,25 @@ class ProfileBase(ProfileMixin):
         if len(values) == 1:
             return values[key]
         return values
+
+    def plot(self, show: bool = True, axis=None, show_field_edges: bool = True,
+             show_grid: bool = True, show_center: bool = True, mirror=None,
+             data_label: str = "Profile"):
+        import matplotlib.pyplot as plt
+
+        if axis is None:
+            _, axis = plt.subplots()
+        axis.plot(self.x_values, self.values, label=data_label)
+        if show_field_edges:
+            axis.axvline(self.field_edge_idx(LEFT), ls="--", label="Field Edges")
+            axis.axvline(self.field_edge_idx(RIGHT), ls="--")
+        if show_center:
+            axis.axvline(self.center_idx, ls=":", label="Center")
+        axis.grid(show_grid)
+        axis.legend()
+        if show:
+            plt.show()
+        return axis
 
 
 class FWXMProfile(ProfileBase):
@@ -951,6 +971,13 @@ class SingleProfile(ProfileMixin):
             dose_threshold=dose_threshold, fill_value=fill_value, device="cpu")
         return g.numpy()
 
+    def plot(self, show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        plt.plot(self.x_indices, self.values)
+        if show:
+            plt.show()
+
 
 class MultiProfile(ProfileMixin):
     """A profile with several peaks."""
@@ -959,6 +986,15 @@ class MultiProfile(ProfileMixin):
         self.values = np.asarray(values)
         self.peaks: list[Point] = []
         self.valleys: list[Point] = []
+
+    def plot(self, ax=None) -> None:
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.plot(self.values)
+        ax.plot([p.idx for p in self.peaks], [p.value for p in self.peaks], "gv")
+        ax.plot([v.idx for v in self.valleys], [v.value for v in self.valleys], "r^")
 
     def find_peaks(self, threshold: float = 0.3, min_distance: float = 0.05,
                    max_number: int | None = None, search_region=(0.0, 1.0),

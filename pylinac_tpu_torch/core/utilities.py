@@ -23,7 +23,7 @@ import os
 import struct
 from abc import abstractmethod
 from collections.abc import Iterable
-from datetime import datetime
+from datetime import date, datetime
 from typing import BinaryIO
 
 import numpy as np
@@ -58,7 +58,7 @@ def convert_to_enum(value, enum_cls):
 
 
 def _json_default(obj):
-    if isinstance(obj, datetime):
+    if isinstance(obj, date):  # ``datetime`` may be patched to freeze the clock
         return obj.isoformat()
     if isinstance(obj, np.generic):  # numpy scalars, as pydantic coerces them
         return _finite_or_none(obj.item())

@@ -1764,6 +1764,56 @@ class CatPhanBase(ResultsDataMixin, QuaacMixin):
         canvas.finish()
 
 
+def save_figures(figs: dict, directory=None, to_stream: bool = False) -> list:
+    """Each figure of ``figs`` as PNG: a ``BytesIO`` each when ``to_stream``,
+    else ``<name>.png`` in ``directory`` (the working directory by default);
+    the streams or absolute paths, in order. The CT siblings'
+    ``save_images`` (JAX ``acr.py:295``, ``helios.py:435``, ``quart.py:394``)."""
+    import io
+
+    paths = []
+    for name, fig in figs.items():
+        if to_stream:
+            path = io.BytesIO()
+        else:
+            destination = Path(directory) if directory is not None else Path.cwd()
+            path = (destination / name).with_suffix(".png").absolute()
+        fig.savefig(path)
+        paths.append(path)
+    return paths
+
+
+def publish_images_pdf(filename, page_title: str, lines, location: tuple[float, float],
+                       images, notes=None, open_file: bool = False,
+                       metadata: dict | None = None, logo=None) -> None:
+    """A PDF of the notes, then ``lines`` from ``location`` down at 0.5 cm
+    a line, then a page per PNG of ``images`` (:mod:`.core.pdf`): the CT
+    siblings' ``publish_pdf`` (JAX ``acr.py:374``, ``:1190``,
+    ``helios.py:463``, ``quart.py:411``)."""
+    from .core import pdf
+
+    canvas = pdf.PylinacCanvas(filename, page_title=page_title, metadata=metadata, logo=logo)
+    if notes is not None:
+        canvas.add_text(text="Notes:", location=(1, 4.5), font_size=14)
+        canvas.add_text(text=notes, location=(1, 4))
+    x, y = location
+    for idx, text in enumerate(lines):
+        canvas.add_text(text=text, location=(x, y - idx * 0.5))
+    for img in images:
+        canvas.add_new_page()
+        canvas.add_image(img, location=(1, 5), dimensions=(18, 18))
+    canvas.finish()
+    if open_file:
+        import webbrowser
+
+        webbrowser.open(filename)
+
+
+def wrapped(results) -> list[str]:
+    """``results`` (strings) wrapped at 110 characters, one list of lines."""
+    return [line for r in results for line in textwrap.wrap(r, width=110)]
+
+
 @capture_warnings
 class CatPhan503(CatPhanBase):
     """CatPhan 503: CTP404, CTP486, CTP528."""

@@ -5,8 +5,9 @@ window across each leaf pair inside the field, the measured gap from the
 profile's peak prominence, and a straight line through measured against
 planned gap; the DLG is where that line crosses zero. Host numpy, with
 :func:`pylinac_tpu_torch.ops.peaks.find_peaks` on the CPU, as the JAX
-package routes 1D profiles, so ``DLG`` takes no device. The plot is not
-ported.
+package routes 1D profiles, so ``DLG`` takes no device. ``plot_dlg``
+(``:62``) imports matplotlib inside, and raises ``ModuleNotFoundError``
+where it is missing.
 """
 
 from __future__ import annotations
@@ -62,6 +63,23 @@ class DLG:
         self.measured_dlg = float(intercept / slope)
         self.planned_dlg_per_leaf = planned_dlg_per_leaf
         self.measured_dlg_per_leaf = measured_dlg_per_leaf
+
+    def plot_dlg(self, show: bool = True) -> None:
+        """The measured against the planned gaps, with the fitted line, on
+        the current axes."""
+        import matplotlib.pyplot as plt
+
+        if not self.measured_dlg_per_leaf:
+            raise ValueError("Analyze the image before plotting with .analyze()")
+        slope, intercept = self._lin_fit
+        plt.plot(self.planned_dlg_per_leaf, self.measured_dlg_per_leaf, "gx")
+        plt.plot(self.planned_dlg_per_leaf,
+                 intercept + slope * np.array(self.planned_dlg_per_leaf),
+                 "r", label="fitted line")
+        plt.title(f"Measured DLG: {self.measured_dlg:2.3f}mm")
+        plt.grid()
+        if show:
+            plt.show()
 
     @staticmethod
     def _get_dlg_offset(field_size: float, leaf_center: float, dlgs: Sequence) -> float:

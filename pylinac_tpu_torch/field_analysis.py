@@ -8,8 +8,15 @@ pydantic models' fields, order, types and defaults), ``FieldAnalysis``
 (``:189-453``: ``analyze``, ``results``, ``results_data``),
 ``DeviceFieldAnalysis`` (``:526-642``), ``FieldAnalysisBatch``
 (``:645-913``, its ``mesh`` through :mod:`pylinac_tpu_torch.parallel.mesh`)
-and ``analyze_field_batch`` (``:916``). Plots, the PDF, plotly and QuAAC
-wait for ROADMAP item 11; the demo loaders are not ported.
+and ``analyze_field_batch`` (``:916``), with the reports (the protocols'
+``plot`` functions ``:94-120``, ``FieldAnalysis`` ``:439-523``, which
+``DeviceFieldAnalysis`` inherits): ``publish_pdf`` through
+:mod:`.core.pdf`, ``to_quaac`` and ``plotly_analyzed_images`` need no
+matplotlib, ``plot_analyzed_image`` imports it inside and raises
+``ModuleNotFoundError`` where it is missing. As in JAX,
+``DeviceFieldAnalysis.plot_analyzed_image`` reads an ``image`` that the
+class never sets, and raises ``AttributeError``. The demo loaders are not
+ported.
 
 ``FieldAnalysisBatch`` is the device path. Its host staging is the JAX
 class's (``:758-800``: cached beam-centre ratios, strips, central-ROI
@@ -44,7 +51,8 @@ from .core.geometry import Point
 from .core.io import SNCProfiler
 from .core.profile import Centering, Edge, Interpolation, Normalization, SingleProfile
 from .core.roi import RectangleROI
-from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum, resolve_device
+from .core.utilities import (QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin,
+                              convert_to_enum, resolve_device)
 from .ops import field_host
 
 
@@ -106,17 +114,36 @@ def symmetry_area(profile: SingleProfile, in_field_ratio: float, **kwargs) -> fl
     return 100 * (area_left - area_right) / (area_left + area_right)
 
 
+def plot_flatness(instance, profile: SingleProfile, axis) -> None:
+    data = profile.field_data(in_field_ratio=instance._in_field_ratio,
+                              slope_exclusion_ratio=instance._slope_exclusion_ratio)
+    axis.axhline(np.max(data["field values"]), color="g", linestyle="-.", label="Flatness region")
+    axis.axhline(np.min(data["field values"]), color="g", linestyle="-.")
+
+
+def plot_symmetry_point_difference(instance, profile, axis) -> None:
+    pass
+
+
+def plot_symmetry_pdq(instance, profile, axis) -> None:
+    pass
+
+
+def plot_symmetry_area(instance, profile, axis) -> None:
+    pass
+
+
 varian_protocol = {
-    "symmetry": {"calc": symmetry_point_difference, "unit": "%"},
-    "flatness": {"calc": flatness_dose_difference, "unit": "%"},
+    "symmetry": {"calc": symmetry_point_difference, "unit": "%", "plot": plot_symmetry_point_difference},
+    "flatness": {"calc": flatness_dose_difference, "unit": "%", "plot": plot_flatness},
 }
 elekta_protocol = {
-    "symmetry": {"calc": symmetry_pdq_iec, "unit": ""},
-    "flatness": {"calc": flatness_dose_ratio, "unit": ""},
+    "symmetry": {"calc": symmetry_pdq_iec, "unit": "", "plot": plot_symmetry_pdq},
+    "flatness": {"calc": flatness_dose_ratio, "unit": "", "plot": plot_flatness},
 }
 siemens_protocol = {
-    "symmetry": {"calc": symmetry_area, "unit": ""},
-    "flatness": {"calc": flatness_dose_difference, "unit": ""},
+    "symmetry": {"calc": symmetry_area, "unit": "", "plot": plot_symmetry_area},
+    "flatness": {"calc": flatness_dose_difference, "unit": "", "plot": plot_flatness},
 }
 
 
@@ -197,7 +224,7 @@ class FieldResult(DeviceResult):
     central_roi_min: float = 0
 
 
-class FieldAnalysis(ResultsDataMixin):
+class FieldAnalysis(ResultsDataMixin, QuaacMixin):
     """Analyze an open-field image for flatness/symmetry/penumbra/field size.
 
     ``filter`` (a median size) runs on ``device`` (``None`` means CUDA; a 3x3
@@ -431,6 +458,92 @@ class FieldAnalysis(ResultsDataMixin):
             central_roi_min=self.central_roi.min,
             central_roi_std=self.central_roi.std,
         )
+
+    # -- reports (JAX field_analysis.py:439-523) ------------------------------
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = {
+            "Field Size Vertical": QuaacDatum(
+                value=self._results["field_size_vertical_mm"], unit="mm"),
+            "Field Size Horizontal": QuaacDatum(
+                value=self._results["field_size_horizontal_mm"], unit="mm"),
+            "Top Penumbra": QuaacDatum(value=self._results["top_penumbra_mm"], unit="mm"),
+            "Bottom Penumbra": QuaacDatum(value=self._results["bottom_penumbra_mm"], unit="mm"),
+            "Left Penumbra": QuaacDatum(value=self._results["left_penumbra_mm"], unit="mm"),
+            "Right Penumbra": QuaacDatum(value=self._results["right_penumbra_mm"], unit="mm"),
+        }
+        for name, value in self._extra_results.items():
+            data[name] = QuaacDatum(value=value)
+        return data
+
+    def plot_analyzed_image(self, show: bool = True, grid: bool = True,
+                            split_plots: bool = False, **plt_kwargs):
+        """The image with the profiles' positions, and the vertical and
+        horizontal profiles. As in JAX, the vertical profile's own ``plot``
+        also draws on the current axes."""
+        import matplotlib.pyplot as plt
+
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
+        fig, axes = plt.subplots(1, 3, figsize=(15, 5), **plt_kwargs)
+        axes[0].imshow(self.image.array, cmap="gray")
+        axes[0].axhline(self._upper_h_index, color="b")
+        axes[0].axvline(self._left_v_index, color="r")
+        axes[0].set_title("Image")
+        self.vert_profile.plot(show=False)
+        axes[1].plot(self.vert_profile.x_indices, self.vert_profile.values)
+        axes[1].set_title("Vertical Profile")
+        axes[1].grid(grid)
+        axes[2].plot(self.horiz_profile.x_indices, self.horiz_profile.values)
+        axes[2].set_title("Horizontal Profile")
+        axes[2].grid(grid)
+        if show:
+            plt.show()
+        return fig, axes
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`): the image with
+        the profiles' positions (not for device data) and the two profiles:
+        ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
+        figs: dict[str, pu.Figure] = {}
+        if not self._from_device:
+            fig = pu.image_figure(self.image.array, title="Image",
+                                  show_colorbar=show_colorbar, **kwargs)
+            pu.add_horizontal_line(fig, self._upper_h_index, color="blue")
+            pu.add_vertical_line(fig, self._left_v_index, color="red")
+            figs["Image"] = fig
+        for name, prof in (("Vertical Profile", self.vert_profile),
+                           ("Horizontal Profile", self.horiz_profile)):
+            pfig = pu.Figure()
+            pfig.add_trace(pu.scatter_trace(prof.x_indices, prof.values, name=name))
+            pu.add_title(pfig, name)
+            pfig.update_layout(xaxis_title="Index", yaxis_title="Value",
+                               showlegend=show_legend)
+            figs[name] = pfig
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def publish_pdf(self, filename: str, notes: str | list[str] | None = None,
+                    open_file: bool = False, metadata: dict | None = None,
+                    logo: str | None = None) -> None:
+        """The results as a one-page PDF (:mod:`.core.pdf`); needs no
+        matplotlib."""
+        from .core import pdf
+
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
+        canvas = pdf.PylinacCanvas(filename, page_title="Field Analysis",
+                                   metadata=metadata, logo=logo)
+        canvas.add_text(text=self.results(as_str=False), location=(2, 25.5), font_size=10)
+        if notes is not None:
+            canvas.add_text(text=notes, location=(2, 4))
+        canvas.finish()
 
 
 class DeviceFieldAnalysis(FieldAnalysis):

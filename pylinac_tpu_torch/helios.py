@@ -18,8 +18,12 @@ whose region searches is one label and one holes launch at B = 1. The ROIs
 stay numpy on the host. ``capture_warnings`` wraps the public functions of
 the class's own body, as in JAX.
 
-Not ported: the plots, ``save_images``, ``publish_pdf``,
-``_quaac_datapoints`` and the demo loader.
+The reports (the window of every module's figure ``:30-44``, the four
+modules' ``plot_rois`` and ``GEHeliosCTDaily`` ``:326-485``): the plots,
+``save_images`` and ``publish_pdf``, which embeds the saved images, import
+matplotlib inside and raise ``ModuleNotFoundError`` where it is missing;
+``to_quaac`` and the generic ``plotly_analyzed_images`` (``CatPhanBase``'s)
+need none. Not ported: the demo loader.
 """
 
 from __future__ import annotations
@@ -32,17 +36,15 @@ import numpy as np
 from .core.geometry import Point
 from .core.mtf import MTF
 from .core.roi import RectangleROI
-from .core.utilities import DataModel, ResultBase, not_ported, resolve_device
+from .core.utilities import DataModel, QuaacDatum, ResultBase, resolve_device
 from .core.warnings import capture_warnings
-from .ct import CatPhanBase, CatPhanModule, Slice
+from .ct import (CatPhanBase, CatPhanModule, Slice, publish_images_pdf, save_figures,
+                 wrapped)
 
 SECTION_3_OFFSET_MM = 60
 HELIOS_LOW_CONTRAST_SLICE_OFFSETS_INDEX = {"slice_1": 0, "slice_2": -1, "slice_3": -2}
-
-# CatPhanBase's reports draw the CatPhan family's modules; these classes
-# have reports of their own, which wait for ROADMAP item 11
-_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
-             "plotly_analyzed_images", "publish_pdf", "to_quaac")
+HELIOS_VMIN = -25
+HELIOS_VMAX = 175
 
 
 def _rectangles(module, settings: dict) -> dict[str, RectangleROI]:
@@ -55,7 +57,19 @@ def _rectangles(module, settings: dict) -> dict[str, RectangleROI]:
             for name, setting in settings.items()}
 
 
-class HeliosContrastScaleModule(CatPhanModule):
+class _HeliosVisualizationMixin:
+    """The same window and level on every Helios figure."""
+
+    @property
+    def window_min(self) -> float:
+        return HELIOS_VMIN
+
+    @property
+    def window_max(self) -> float:
+        return HELIOS_VMAX
+
+
+class HeliosContrastScaleModule(_HeliosVisualizationMixin, CatPhanModule):
     """Plexiglass against water."""
 
     common_name = "Contrast Scale"
@@ -78,6 +92,10 @@ class HeliosContrastScaleModule(CatPhanModule):
             "mean_hu": {name: roi.mean for name, roi in self.rois.items()},
             "std": {name: roi.std for name, roi in self.rois.items()}}}
 
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+
 
 @dataclasses.dataclass(kw_only=True)
 class HeliosContrastScaleModuleOutput(DataModel):
@@ -90,7 +108,7 @@ class HeliosContrastScaleModuleOutput(DataModel):
     std_dev_water: float
 
 
-class HeliosHighContrastModule(CatPhanModule):
+class HeliosHighContrastModule(_HeliosVisualizationMixin, CatPhanModule):
     """Bar-pattern spatial resolution."""
 
     common_name = "High Contrast"
@@ -115,6 +133,10 @@ class HeliosHighContrastModule(CatPhanModule):
     def as_dict(self) -> dict:
         return {name: roi.std for name, roi in self.rois.items()}
 
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+
 
 @dataclasses.dataclass(kw_only=True)
 class HeliosHighContrastModuleOutput(DataModel):
@@ -127,7 +149,7 @@ class HeliosHighContrastModuleOutput(DataModel):
     std_dev_0_8mm: float
 
 
-class HeliosLowContrastModule(CatPhanModule):
+class HeliosLowContrastModule(_HeliosVisualizationMixin, CatPhanModule):
     """A 15 x 15 grid of 5 mm cells over the uniform water region."""
 
     common_name = "Low Contrast Detectability"
@@ -158,6 +180,10 @@ class HeliosLowContrastModule(CatPhanModule):
     def std(self) -> float:
         """The standard deviation of the cells' means."""
         return float(np.std([roi.mean for roi in self.rois]))
+
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois:
+            roi.plot2axes(axis, edgecolor="orange")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -202,7 +228,7 @@ class HeliosLowContrastMultiSliceModuleOutput(DataModel):
     low_contrast_std: float
 
 
-class HeliosNoiseUniformityModule(CatPhanModule):
+class HeliosNoiseUniformityModule(_HeliosVisualizationMixin, CatPhanModule):
     """Noise and centre-to-edge uniformity."""
 
     common_name = "Noise & Uniformity"
@@ -236,6 +262,12 @@ class HeliosNoiseUniformityModule(CatPhanModule):
         return {"mean_hu": {name: roi.mean for name, roi in self.rois.items()},
                 "std": {name: roi.std for name, roi in self.rois.items()}}
 
+    def plot_rois(self, axis) -> None:
+        for roi in self.rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+        for roi in self.noise_rois.values():
+            roi.plot2axes(axis, edgecolor="blue")
+
 
 @dataclasses.dataclass(kw_only=True)
 class HeliosNoiseUniformityModuleOutput(DataModel):
@@ -265,7 +297,6 @@ class GEHeliosResult(ResultBase):
     noise_uniformity: HeliosNoiseUniformityModuleOutput
 
 
-@not_ported(*_REPORTS)
 @capture_warnings
 class GEHeliosCTDaily(CatPhanBase):
     """GE Helios daily CT QA."""
@@ -278,6 +309,12 @@ class GEHeliosCTDaily(CatPhanBase):
     high_contrast_module = HeliosHighContrastModule
     low_contrast_multi_slice = HeliosLowContrastMultiSliceModule
     noise_uniformity_module = HeliosNoiseUniformityModule
+
+    def plot_analyzed_subimage(self, *args, **kwargs):
+        raise NotImplementedError("Use `plot_images`")
+
+    def save_analyzed_subimage(self, *args, **kwargs):
+        raise NotImplementedError("Use `save_images`")
 
     def analyze(self, x_adjustment: float = 0, y_adjustment: float = 0,
                 angle_adjustment: float = 0, roi_size_factor: float = 1,
@@ -348,6 +385,73 @@ class GEHeliosCTDaily(CatPhanBase):
     def _module_offsets(self) -> list[float]:
         absolute_origin_position = self.dicom_stack[self.origin_slice].z_position
         return [absolute_origin_position, absolute_origin_position + SECTION_3_OFFSET_MM]
+
+    def plot_analyzed_image(self, show: bool = True, side_view_kwargs: dict | None = None,
+                            **plt_kwargs):
+        import matplotlib.pyplot as plt
+
+        modules = [self.contrast_scale_module, self.high_contrast_module,
+                   self.noise_uniformity_module]
+        modules.extend(self.low_contrast_multi_slice.slices.values())
+        fig, axs = plt.subplots(2, 4, **plt_kwargs)
+        axes = axs.ravel()
+        for ax_idx, module in enumerate(modules):
+            module.plot(axes[ax_idx])
+        self.plot_side_view(axes[len(modules)])
+        self.high_contrast_module.mtf.plot(axes[len(modules) + 1])
+        plt.tight_layout()
+        if show:
+            plt.show()
+        return fig
+
+    def plot_images(self, show: bool = True, **plt_kwargs) -> dict:
+        """A figure per module, the rMTF and the side view:
+        ``{name: Figure}``."""
+        import matplotlib.pyplot as plt
+
+        figs = {}
+        modules = {"contrast scale": self.contrast_scale_module,
+                   "high contrast": self.high_contrast_module,
+                   "noise uniformity": self.noise_uniformity_module}
+        modules |= self.low_contrast_multi_slice.slices
+        for key, module in modules.items():
+            fig, ax = plt.subplots(**plt_kwargs)
+            module.plot(ax)
+            figs[key] = fig
+        fig, ax = plt.subplots(**plt_kwargs)
+        self.high_contrast_module.mtf.plot(ax)
+        figs["mtf"] = fig
+        fig, ax = plt.subplots(**plt_kwargs)
+        self.plot_side_view(ax)
+        figs["side"] = fig
+        if show:
+            plt.show()
+        return figs
+
+    def save_images(self, directory=None, to_stream: bool = False, **plt_kwargs) -> list:
+        """:meth:`plot_images` as PNG files in ``directory`` or as streams."""
+        return save_figures(self.plot_images(show=False, **plt_kwargs), directory, to_stream)
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        return {
+            "Contrast Difference": QuaacDatum(
+                value=data["contrast_scale"]["hu_difference"], unit="HU"),
+            "Noise Center Std": QuaacDatum(
+                value=data["noise_uniformity"]["noise_center_std"], unit="HU"),
+            "Uniformity Difference": QuaacDatum(
+                value=data["noise_uniformity"]["means_diff"], unit="HU"),
+            "Low Contrast Mean": QuaacDatum(value=data["low_contrast"]["mean"], unit="HU"),
+        }
+
+    def publish_pdf(self, filename, notes: str | None = None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The results and a page per module image; the images need
+        matplotlib."""
+        images = self.save_images(to_stream=True)
+        publish_images_pdf(filename, f"{self._model} Analysis",
+                           wrapped(self.results(as_str=False)), (2.5, 24), images,
+                           notes, open_file, metadata, logo)
 
     def results(self, as_str: bool = True) -> str | tuple:
         lines = [f" - {self._model} Results - ",

@@ -5,8 +5,9 @@ Port of ``pylinac_tpu/metrics/image.py``: ``MetricBase`` (``:38``),
 ``GlobalSizedDiskLocator`` (``:145``), ``SizedDiskRegion`` (``:188``),
 ``SizedDiskLocator`` (``:298``), ``GlobalSizedFieldLocator`` (``:314``),
 ``GlobalFieldLocator`` (``:407``) and ``WeightedCentroid`` (``:424``),
-without their plotting. The ROI metrics and the weighted centroid are
-numpy on the host. The locators label the image on their ``device``
+with their ``plot`` methods (``:68-72``, ``:105``, ``:140``, ``:179``,
+``:290``, ``:305``, ``:397``), which draw on a matplotlib axes. The ROI
+metrics and the weighted centroid are numpy on the host. The locators label the image on their ``device``
 (``None`` means CUDA): the disk locators through
 :func:`~pylinac_tpu_torch.metrics.utils.find_features` (4-connected), the
 field locators through :func:`~pylinac_tpu_torch.ops.label.regionprops` of
@@ -79,6 +80,9 @@ class MetricBase(ABC):
     def calculate(self) -> Any:
         pass
 
+    def plot(self, axis, **kwargs) -> None:
+        pass
+
 
 class DiskROIMetric(MetricBase):
     """Sample a disk ROI of the image."""
@@ -106,6 +110,10 @@ class DiskROIMetric(MetricBase):
             self.center = self.center * self.image.dpmm
         self.roi = DiskROI(array=self.image.array, center=self.center, radius=self.radius)
         return self.roi
+
+    def plot(self, axis, **kwargs) -> None:
+        edgecolor = kwargs.pop("edgecolor", self.edge_color)
+        self.roi.plot2axes(axis, edgecolor=edgecolor, **{**self.kwargs, **kwargs})
 
 
 class RectangleROIMetric(MetricBase):
@@ -137,6 +145,10 @@ class RectangleROIMetric(MetricBase):
         self.roi = RectangleROI(array=self.image.array, center=self.center,
                                 width=self.width, height=self.height)
         return self.roi
+
+    def plot(self, axis, **kwargs) -> None:
+        edgecolor = kwargs.pop("edgecolor", self.edge_color)
+        self.roi.plot2axes(axis, edgecolor=edgecolor, **{**self.kwargs, **kwargs})
 
 
 class GlobalSizedDiskLocator(MetricBase):
@@ -175,6 +187,14 @@ class GlobalSizedDiskLocator(MetricBase):
             self.y_boundaries.append(by)
             self.x_boundaries.append(bx)
         return self.points
+
+    def plot(self, axis, show_boundaries: bool = True, color: str = "red",
+             markersize: float = 3, alpha: float = 0.25) -> None:
+        for point in self.points:
+            axis.plot(point.x, point.y, "o", color=color)
+        if show_boundaries:
+            for by, bx in zip(self.y_boundaries, self.x_boundaries):
+                axis.scatter(bx, by, c=color, marker="s", alpha=alpha, s=markersize)
 
 
 class SizedDiskRegion(MetricBase):
@@ -281,6 +301,13 @@ class SizedDiskRegion(MetricBase):
         self.points = points
         return regions
 
+    def plot(self, axis, show_boundaries: bool = True, color: str = "red",
+             markersize: float = 3, alpha: float = 0.25) -> None:
+        if show_boundaries:
+            for boundary in self.boundaries:
+                by, bx = np.nonzero(boundary)
+                axis.scatter(bx, by, c=color, marker="s", alpha=alpha, s=markersize)
+
 
 class SizedDiskLocator(SizedDiskRegion):
     """The weighted centroids of the found disks."""
@@ -288,6 +315,14 @@ class SizedDiskLocator(SizedDiskRegion):
     def calculate(self) -> list[Point]:
         super().calculate()
         return self.points
+
+    def plot(self, axis, show_boundaries: bool = True, color: str = "red",
+             markersize: float = 3, alpha: float = 0.25) -> None:
+        super().plot(axis, show_boundaries=show_boundaries, color=color,
+                     markersize=markersize, alpha=alpha)
+        for point in self.points:
+            axis.plot(point.x, point.y, color=color, marker="o", alpha=1,
+                      markersize=markersize)
 
 
 class GlobalSizedFieldLocator(MetricBase):
@@ -376,6 +411,15 @@ class GlobalSizedFieldLocator(MetricBase):
         self.fields = fields
         self.boundaries = boundaries
         return fields
+
+    def plot(self, axis, show_boundaries: bool = True, color: str = "red",
+             markersize: float = 3, alpha: float = 0.25) -> None:
+        for point in self.fields:
+            axis.plot(point.x, point.y, color=color, marker="+", alpha=alpha)
+        if show_boundaries:
+            for boundary in self.boundaries:
+                by, bx = np.nonzero(boundary)
+                axis.scatter(bx, by, c=color, marker="s", alpha=alpha, s=markersize)
 
 
 class GlobalFieldLocator(GlobalSizedFieldLocator):

@@ -20,7 +20,14 @@ functions of each class's own body, as in JAX: ``QuartDVT.analyze``
 captures the roll warnings; ``HypersightQuartDVT``'s deprecation warning,
 raised in ``__init__``, is not captured.
 
-Not ported: the plots, ``save_images`` and ``publish_pdf``.
+The reports (``QuartGeometryModule.plot_rois`` ``:214``, ``QuartDVT``
+``:314-433``, and what it inherits from ``CatPhanBase``: ``plot_side_view``,
+the generic ``plotly_analyzed_images`` and ``to_quaac``): the plots,
+``save_images`` and ``publish_pdf``, which embeds the saved images, import
+matplotlib inside and raise ``ModuleNotFoundError`` where it is missing;
+``plotly_analyzed_images`` needs none. As in JAX, ``to_quaac`` reaches
+``CatPhanBase``'s datapoints, which read a ``ctp404`` the class has not,
+and raises ``AttributeError``.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 
 from .core.geometry import Line, Point
 from .core.profile import FWXMProfilePhysical
-from .core.utilities import DataModel, ResultBase, not_ported, resolve_device
+from .core.utilities import DataModel, ResultBase, resolve_device
 from .core.warnings import capture_warnings
 from .ct import (
     AIR,
@@ -45,7 +52,10 @@ from .ct import (
     CatPhanModule,
     Slice,
     get_regions,
+    publish_images_pdf,
     rois_to_results,
+    save_figures,
+    wrapped,
 )
 from .ops.filters import median_filter
 
@@ -54,11 +64,6 @@ GEOMETRY_OFFSET_MM = 45
 ACRYLIC = 120
 POLY = -35
 TEFLON = 990
-
-# CatPhanBase's reports draw the CatPhan family's modules; these classes
-# have reports of their own, which wait for ROADMAP item 11
-_REPORTS = ("plot_analyzed_image", "plot_analyzed_subimage", "plot_images", "plot_side_view",
-             "plotly_analyzed_images", "publish_pdf", "to_quaac")
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -214,6 +219,10 @@ class QuartGeometryModule(CatPhanModule):
                     Point(self.phan_center.x, round(prof.field_edge_idx("right"))))
         self.profiles["vertical"] = {"width (mm)": prof.field_width_mm, "line": line}
 
+    def plot_rois(self, axis) -> None:
+        for profile_data in self.profiles.values():
+            profile_data["line"].plot2axes(axis, width=2, color="blue")
+
     def distances(self) -> dict[str, float]:
         return {f"{name} mm": p["width (mm)"] for name, p in self.profiles.items()}
 
@@ -240,7 +249,6 @@ class QuartGeometryModule(CatPhanModule):
         return float(np.mean(list(self.high_contrast_resolutions().values())))
 
 
-@not_ported(*_REPORTS)
 @capture_warnings
 class QuartDVT(CatPhanBase):
     """Quart DVT CBCT phantom analysis."""
@@ -309,6 +317,24 @@ class QuartDVT(CatPhanBase):
         self.geometry_module = self.geometry_module_class(
             self, tolerance=3, offset=GEOMETRY_OFFSET_MM)
 
+    def plot_analyzed_image(self, show: bool = True, **plt_kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        plt.figure(**plt_kwargs)
+        grid_size = (2, 3)
+        self.hu_module.plot(plt.subplot2grid(grid_size, (0, 1)))
+        self.hu_module.plot_linearity(plt.subplot2grid(grid_size, (0, 2)))
+        self.uniformity_module.plot(plt.subplot2grid(grid_size, (1, 0)))
+        self.uniformity_module.plot_profiles(plt.subplot2grid(grid_size, (1, 2)))
+        self.geometry_module.plot(plt.subplot2grid(grid_size, (0, 0)))
+        self.plot_side_view(plt.subplot2grid(grid_size, (1, 1)))
+        plt.tight_layout()
+        if show:
+            plt.show()
+
+    def plot_analyzed_subimage(self, *args, **kwargs) -> None:
+        raise NotImplementedError()
+
     def results(self, as_str: bool = True) -> str | tuple:
         items = (
             f"\n - {self._model} QA Test - \n",
@@ -350,6 +376,41 @@ class QuartDVT(CatPhanBase):
                 measured_slice_thickness_mm=self.hu_module.meas_slice_thickness,
                 signal_to_noise=self.hu_module.signal_to_noise,
                 contrast_to_noise=self.hu_module.contrast_to_noise))
+
+    def plot_images(self, show: bool = True, **plt_kwargs) -> dict:
+        """A figure per module and the side view: ``{name: Figure}``."""
+        import matplotlib.pyplot as plt
+
+        figs = {}
+        modules = {"HU linearity": self.hu_module,
+                   "HU uniformity": self.uniformity_module,
+                   "Geometry": self.geometry_module}
+        for key, module in modules.items():
+            fig, ax = plt.subplots(**plt_kwargs)
+            module.plot(ax)
+            figs[key] = fig
+        fig, ax = plt.subplots(**plt_kwargs)
+        self.plot_side_view(ax)
+        figs["side"] = fig
+        if show:
+            plt.show()
+        return figs
+
+    def save_images(self, directory=None, to_stream: bool = False, **plt_kwargs):
+        """:meth:`plot_images` as PNG files in ``directory`` (their paths),
+        or as streams (``{name: BytesIO}``)."""
+        figs = self.plot_images(show=False, **plt_kwargs)
+        paths = save_figures(figs, directory, to_stream)
+        return dict(zip(figs, paths)) if to_stream else paths
+
+    def publish_pdf(self, filename, notes: str | None = None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The results and a page per module image; the images need
+        matplotlib."""
+        images = self.save_images(to_stream=True)
+        publish_images_pdf(filename, f"{self._model} Analysis",
+                           wrapped(self.results(as_str=False)), (1.5, 25),
+                           images.values(), notes, open_file, metadata, logo)
 
     def _module_offsets(self) -> list[float]:
         absolute_origin_position = self.dicom_stack[self.origin_slice].z_position

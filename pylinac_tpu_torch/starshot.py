@@ -14,9 +14,12 @@ placed it (its arrays are far below ``pylinac_tpu/ops/route.py:22``'s
 the stack on its device once and runs
 :func:`pylinac_tpu_torch.ops.star_pipeline.starshot_batch` there.
 
-Left out: the plots, ``plotly_analyzed_images``, ``publish_pdf``, the QuAAC
-datapoints, ``from_url``, ``from_demo_image``, ``run_demo`` and the capture
-of warnings into ``results_data().warnings``.
+The reports (``LineManager.plot`` ``:93``, ``Starshot`` ``:326-419``):
+``publish_pdf`` through :mod:`.core.pdf`, ``to_quaac`` and
+``plotly_analyzed_images`` need no matplotlib; the plots import it inside,
+and raise ``ModuleNotFoundError`` where it is missing.
+
+Left out: ``from_url``, ``from_demo_image`` and ``run_demo``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from .core import image
 from .core.geometry import Circle, Line, Point
 from .core.io import TemporaryZipDirectory
 from .core.profile import CollapsedCircleProfile, FWXMProfile
-from .core.utilities import ResultBase, ResultsDataMixin, resolve_device
+from .core.utilities import QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin, resolve_device
 from .core.warnings import capture_warnings
 from .ops.optimize import nelder_mead
 from .ops.star_pipeline import (StarParams, _combo_table, _max_distance, n_angles,
@@ -97,6 +100,10 @@ class LineManager:
         self.lines = [Line(points[i], points[i + num_rad_lines])
                       for i in range(num_rad_lines)]
 
+    def plot(self, axis) -> None:
+        for line in self.lines:
+            line.plot2axes(axis, color="blue")
+
 
 class StarProfile(CollapsedCircleProfile):
     """The thick circular profile that localises the spokes."""
@@ -143,7 +150,7 @@ def calculate_angles(lines: list[Line]) -> list[float]:
 
 
 @capture_warnings
-class Starshot(ResultsDataMixin):
+class Starshot(ResultsDataMixin, QuaacMixin):
     """Determine the wobble of a starshot image (gantry, collimator, couch or
     MLC)."""
 
@@ -305,6 +312,104 @@ class Starshot(ResultsDataMixin):
             angles=self.angles,
             passed=self.passed,
         )
+
+    # -- reports (JAX starshot.py:326-419) ------------------------------------
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        return {
+            "Circle diameter": QuaacDatum(
+                value=self.wobble.diameter_mm, unit="mm",
+                description="Minimum circle diameter touching all radiation lines"),
+            "Circle center": QuaacDatum(
+                value=f"({self.wobble.center.x:.1f}, {self.wobble.center.y:.1f})",
+                unit="px"),
+        }
+
+    def plot_analyzed_image(self, show: bool = True, **plt_kwargs):
+        """The image with the lines, the wobble circle and the profile's
+        circles, whole and zoomed on the wobble."""
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(1, 2, **plt_kwargs)
+        for ax, zoom in zip(axes, (False, True)):
+            ax.imshow(self.image.array, cmap="gray")
+            self.lines.plot(ax)
+            self.wobble.plot2axes(ax, edgecolor="green")
+            self.circle_profile.plot2axes(ax, edgecolor="green")
+            if zoom:
+                xlim = (self.wobble.center.x + self.wobble.diameter,
+                        self.wobble.center.x - self.wobble.diameter)
+                ylim = (self.wobble.center.y + self.wobble.diameter,
+                        self.wobble.center.y - self.wobble.diameter)
+                ax.set_xlim(xlim)
+                ax.set_ylim(ylim)
+        if show:
+            plt.show()
+        return fig, axes
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`): the image with
+        the lines and the wobble circle, whole and zoomed on the wobble:
+        ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        if not self._is_analyzed:
+            raise RuntimeError("The image must be analyzed first. Use .analyze().")
+        figs: dict[str, pu.Figure] = {}
+        for name, zoom in zip(("Image", "Wobble"), (False, True)):
+            fig = pu.image_figure(self.image.array, title="Starshot Analysis",
+                                  show_colorbar=show_colorbar, **kwargs)
+            for idx, line in enumerate(self.lines):
+                fig.add_trace(pu.scatter_trace(
+                    [line.point1.x, line.point2.x], [line.point1.y, line.point2.y],
+                    mode="lines", name=f"Line {idx}",
+                    line={"color": "blue", "width": 1}, showlegend=show_legend))
+            theta = np.linspace(0, 2 * np.pi, 100)
+            fig.add_trace(pu.scatter_trace(
+                self.wobble.center.x + self.wobble.radius * np.cos(theta),
+                self.wobble.center.y + self.wobble.radius * np.sin(theta),
+                mode="lines", name="Wobble",
+                line={"color": "green", "width": 2}, showlegend=show_legend))
+            if zoom:
+                pu.set_axis_range(
+                    fig,
+                    x=[self.wobble.center.x - self.wobble.diameter,
+                       self.wobble.center.x + self.wobble.diameter],
+                    y=[self.wobble.center.y - self.wobble.diameter,
+                       self.wobble.center.y + self.wobble.diameter])
+            figs[name] = fig
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def plot_analyzed_subimage(self, subimage: str = "wholeimage", ax=None,
+                               show: bool = True):
+        """The image with the lines and the wobble circle on one axes."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.imshow(self.image.array, cmap="gray")
+        self.lines.plot(ax)
+        self.wobble.plot2axes(ax, edgecolor="green")
+        if show:
+            plt.show()
+        return ax
+
+    def publish_pdf(self, filename: str, notes: str | list[str] | None = None,
+                    open_file: bool = False, metadata: dict | None = None,
+                    logo: str | None = None) -> None:
+        """The results as a one-page PDF (:mod:`.core.pdf`); needs no
+        matplotlib."""
+        from .core import pdf
+
+        canvas = pdf.PylinacCanvas(filename, page_title="Starshot Analysis",
+                                   metadata=metadata, logo=logo)
+        canvas.add_text(text=self.results(as_list=True), location=(2, 25.5), font_size=11)
+        if notes is not None:
+            canvas.add_text(text=notes, location=(2, 4))
+        canvas.finish()
 
 
 class StarshotBatch:

@@ -19,8 +19,13 @@ frame on ``device`` (``ops/filters.median_filter``, the general sort: JAX
 has no kernel for it either); the constructors take ``device=None``, which
 means CUDA and raises without it.
 
-Not ported: ``from_url``, ``from_demo_images`` and ``run_demo`` (downloads),
-the plots, ``publish_pdf`` and ``_quaac_datapoints``.
+The reports (``VMATBase`` ``:234-344``, DRCS's QuAAC ``:550``):
+``publish_pdf`` through :mod:`.core.pdf`, ``to_quaac`` and
+``plotly_analyzed_images`` need no matplotlib; ``plot_analyzed_image``
+imports it inside, and raises ``ModuleNotFoundError`` where it is missing.
+
+Not ported: ``from_url``, ``from_demo_images`` and ``run_demo``
+(downloads).
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ from .core.io import TemporaryZipDirectory
 from .core.profile import CircleProfile, FWXMProfile, Normalization
 from .core.roi import RectangleROI
 from .core.scale import wrap180
-from .core.utilities import DataModel, ResultBase, ResultsDataMixin, resolve_device
+from .core.utilities import (DataModel, QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin,
+                              resolve_device)
 from .core.warnings import capture_warnings
 from .ops.filters import median_filter
 
@@ -143,7 +149,7 @@ class CollimatorDeviation:
         return wrap180(self.angle_measured - self.angle_nominal)
 
 
-class VMATBase(ABC, ResultsDataMixin):
+class VMATBase(ABC, ResultsDataMixin, QuaacMixin):
     """The machinery the VMAT tests share."""
 
     _result_header: str
@@ -236,6 +242,17 @@ class VMATBase(ABC, ResultsDataMixin):
                    f"Absolute Mean Deviation: {self.avg_abs_r_deviation:2.3}%")
         return string
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        rd = self.results_data(as_dict=True)
+        data = {
+            "Max Deviation": QuaacDatum(value=rd["max_deviation_percent"], unit="%"),
+            "Absolute Mean Deviation": QuaacDatum(value=rd["abs_mean_deviation"], unit="%"),
+        }
+        for segment, seg_data in rd["named_segment_data"].items():
+            data[f"{segment} Rcorr"] = QuaacDatum(value=seg_data["r_corr"])
+            data[f"{segment} Rdev"] = QuaacDatum(value=seg_data["r_dev"], unit="%")
+        return data
+
     def _update_r_corrs(self):
         avg_r_corr = np.array([s.r_corr for s in self.segments]).mean()
         for segment in self.segments:
@@ -260,6 +277,84 @@ class VMATBase(ABC, ResultsDataMixin):
     @property
     def max_r_deviation(self) -> float:
         return float(np.max(np.abs(self.r_devs)))
+
+    # -- reports (JAX vmat.py:270-344) ----------------------------------------
+    def plot_analyzed_image(self, show: bool = True, show_text: bool = True, **plt_kwargs):
+        """The open and DMLC images with the segments, and the median
+        profiles."""
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(ncols=3, sharex=True, **plt_kwargs)
+        for img, ax, title in zip((self.open_image, self.dmlc_image), axes, ("Open", "DMLC")):
+            ax.imshow(img.array, cmap="gray")
+            for segment in self.segments:
+                segment.plot2axes(ax, edgecolor=segment.get_bg_color())
+            ax.set_title(title)
+        dmlc_prof, open_prof = self._roi_profiles(self.dmlc_image, self.open_image)
+        axes[2].plot(dmlc_prof.values, label="DMLC")
+        axes[2].plot(open_prof.values, label="Open")
+        axes[2].set_title("Median Profiles")
+        axes[2].legend(loc="lower center")
+        if show:
+            plt.tight_layout(h_pad=1.5)
+            plt.show()
+        return fig, axes
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`): the open and
+        DMLC images with the segments as paths (rotated ones too), and the
+        median profiles: ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        if not getattr(self, "segments", None):
+            raise RuntimeError("The images must be analyzed first. Use .analyze().")
+        figs: dict[str, pu.Figure] = {}
+        for img, title in zip((self.open_image, self.dmlc_image), ("Open", "DMLC")):
+            fig = pu.image_figure(img.array, title=f"{title} Image",
+                                  show_colorbar=show_colorbar, **kwargs)
+            for segment in self.segments:
+                path = "M " + " L ".join(f"{p.x},{p.y}" for p in segment.vertices) + " Z"
+                fig.layout.setdefault("shapes", []).append({
+                    "type": "path", "path": path,
+                    "line": {"color": segment.get_bg_color(), "width": 2}})
+            figs[title] = fig
+        dmlc_prof, open_prof = self._roi_profiles(self.dmlc_image, self.open_image)
+        prof_fig = pu.Figure()
+        prof_fig.add_trace(pu.scatter_trace(
+            np.arange(len(dmlc_prof.values)), dmlc_prof.values, name="DMLC"))
+        prof_fig.add_trace(pu.scatter_trace(
+            np.arange(len(open_prof.values)), open_prof.values, name="Open"))
+        pu.add_title(prof_fig, "Median Profiles")
+        prof_fig.update_layout(xaxis_title="Pixel", showlegend=show_legend)
+        figs["Median Profiles"] = prof_fig
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def publish_pdf(self, filename: str, notes=None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None):
+        """The results as a one-page PDF (:mod:`.core.pdf`); needs no
+        matplotlib."""
+        from .core import pdf
+
+        canvas = pdf.PylinacCanvas(filename,
+                                   page_title=f"{self._result_short_header} VMAT Analysis",
+                                   metadata=metadata, logo=logo)
+        text = [
+            f"{self._result_header} VMAT results:",
+            f"Source-to-Image Distance (mm): {self.open_image.sid:2.0f}",
+            f"Tolerance (%): {self._tolerance * 100:2.1f}",
+            f"Absolute mean deviation (%): {self.avg_abs_r_deviation:2.2f}",
+            f"Maximum deviation (%): {self.max_r_deviation:2.2f}",
+        ]
+        if hasattr(self, "rotation_offset_deg"):
+            text.append(f"Rotation offset (deg): {self.rotation_offset_deg:2.2f}")
+        canvas.add_text(text=text, location=(2, 25.5))
+        if notes is not None:
+            canvas.add_text(text=notes, location=(2, 5))
+        canvas.finish()
 
     def _segment_results(self, position_key: str, angle) -> tuple[list, dict]:
         segment_data, named = [], {}
@@ -446,6 +541,12 @@ class DRCS(VMATBase):
             named_segment_data=named,
             rotation_offset_deg=self.rotation_offset_deg,
             collimator_data=coll_data)
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        rd = self.results_data(as_dict=True)
+        data = super()._quaac_datapoints()
+        data["Rotation Offset"] = QuaacDatum(value=rd["rotation_offset_deg"], unit="deg")
+        return data
 
     def _calculate_segments(self, segment_size_mm):
         dpmm = self.open_image.dpmm

@@ -58,7 +58,6 @@ around its projection. As in the JAX class, ``WinstonLutz._load_image``
 gives every image the collection's detection conditions, so the image
 class's own ``[is_round, is_modest_size, is_symmetric]`` is never used.
 
-Not ported: ``from_cbct``, ``from_cbct_zip``, zip, URL and demo loading
 A CBCT scan of a BB (``WinstonLutz.from_cbct``) becomes four maximum
 intensity projections on the host, as in the JAX package; ``analyze`` then
 forces a low-density BB and an open field: no field fill, and the four
@@ -69,8 +68,16 @@ kernel 4-connected).
 capture the warnings their own methods raise into
 ``results_data().warnings`` (``capture_warnings``, as in the JAX package).
 
+The reports (``WLBaseImage.plot`` ``:707``, ``WinstonLutz`` ``:1333-1520``
+and the multi-target QuAAC ``:1685``): ``publish_pdf`` through
+:mod:`.core.pdf`, ``to_quaac`` and ``plotly_analyzed_images`` need no
+matplotlib; the plots and the saved images import it inside, and raise
+``ModuleNotFoundError`` where it is missing. As in JAX, ``plot_location``
+and ``plotly_analyzed_images`` of the multi-target class read a
+``measured_position`` that ``BB3D`` has not, and raise ``AttributeError``.
+
 Not ported: URL and demo loading (``from_url``, ``from_demo_images``,
-``run_demo``); plots, the PDF, plotly and QuAAC.
+``run_demo``).
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ import os.path as osp
 import statistics
 import tempfile
 from functools import cached_property
+from itertools import zip_longest
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Iterable, Sequence
@@ -96,8 +104,8 @@ from .core.array_utils import array_to_dicom
 from .core.geometry import Line, Point, Vector, cos, sin
 from .core.io import TemporaryZipDirectory
 from .core.scale import MachineScale, convert
-from .core.utilities import (DataModel, ResultBase, ResultsDataMixin, convert_to_enum,
-                             resolve_device)
+from .core.utilities import (DataModel, QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin,
+                             convert_to_enum, resolve_device)
 from .core.warnings import capture_warnings
 from .metrics.batch_find import batched_bb_windows, bb_scan_core, reference_cutoffs
 from .metrics.features import (
@@ -781,6 +789,20 @@ class WLBaseImage(image.LinacDicomImage):
             self.crop(window_size)
             safety_stop -= 1
 
+    def plot(self, ax=None, show: bool = True, clear_fig: bool = False, **kwargs):
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.imshow(self.array, cmap="gray")
+        if getattr(self, "_is_analyzed", False):
+            for match in self.arrangement_matches.values():
+                ax.plot(match.field.x, match.field.y, "gs", ms=8, fillstyle="none")
+                ax.plot(match.bb.x, match.bb.y, "ro", ms=8, fillstyle="none")
+        if show:
+            plt.show()
+        return ax
+
 
 @capture_warnings
 class WinstonLutz2D(WLBaseImage, ResultsDataMixin):
@@ -844,7 +866,7 @@ class WinstonLutz2D(WLBaseImage, ResultsDataMixin):
 
 
 @capture_warnings
-class WinstonLutz(ResultsDataMixin):
+class WinstonLutz(ResultsDataMixin, QuaacMixin):
     """Winston-Lutz analysis of a set of images."""
 
     images: list[WinstonLutz2D]
@@ -1319,6 +1341,197 @@ class WinstonLutz(ResultsDataMixin):
             keyed_image_details=keyed,
         )
 
+    # -- reports (JAX winston_lutz.py:1333-1520) -----------------------------
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        return {
+            "Max 2D CAX->BB distance": QuaacDatum(value=self.cax2bb_distance("max"), unit="mm"),
+            "Median 2D CAX->BB distance": QuaacDatum(value=self.cax2bb_distance("median"), unit="mm"),
+            "Gantry 3D isocenter diameter": QuaacDatum(value=self.gantry_iso_size, unit="mm"),
+            "Collimator 2D isocenter diameter": QuaacDatum(value=self.collimator_iso_size, unit="mm"),
+            "Couch 2D isocenter diameter": QuaacDatum(value=self.couch_iso_size, unit="mm"),
+        }
+
+    def plot_images(self, show: bool = True, **kwargs):
+        """Every image with its field and BB marks, four to a row."""
+        import matplotlib.pyplot as plt
+
+        n = len(self.images)
+        cols = min(4, n)
+        rows = int(np.ceil(n / cols))
+        fig, axes = plt.subplots(rows, cols, figsize=(cols * 3, rows * 3))
+        for ax, img in zip_longest(np.atleast_1d(axes).ravel(), self.images):
+            if img is None:
+                ax.axis("off")
+                continue
+            img.plot(ax=ax, show=False)
+        if show:
+            plt.show()
+        return fig, axes
+
+    def plot_summary(self, show: bool = True, **kwargs):
+        return self.plot_images(show=show, **kwargs)
+
+    def plot_axis_images(self, axis=Axis.GANTRY, show: bool = True, ax=None):
+        """The first image of ``axis`` with the BB and field marks of every
+        image of that axis (and the reference images) over it."""
+        import matplotlib.pyplot as plt
+
+        axis = convert_to_enum(axis, Axis)
+        images = [img for img in self.images
+                  if img.variable_axis in (axis, Axis.REFERENCE)]
+        if not images:
+            raise ValueError(f"No images found for axis {axis}")
+        if ax is None:
+            _, ax = plt.subplots()
+        images[0].plot(ax=ax, show=False)
+        for img in images:
+            for match in img.arrangement_matches.values():
+                ax.plot(match.bb.x, match.bb.y, "r+", markersize=8)
+                ax.plot(match.field.x, match.field.y, "bx", markersize=8)
+        ax.set_title(f"{axis.value} images")
+        if show:
+            plt.show()
+        return ax
+
+    def plot_location(self, show: bool = True, viewbox_mm: float | None = None,
+                      plot_bb: bool = True, plot_isocenter_sphere: bool = True,
+                      plot_couch_iso: bool = True, plot_coll_iso: bool = True,
+                      show_legend: bool = True):
+        """The BBs and the gantry isocentre sphere in 3D, the isocentre at
+        the origin."""
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure()
+        ax = fig.add_subplot(projection="3d")
+        limit = viewbox_mm or max(3.0, 2 * self.cax2bb_distance("max") + 2)
+        if plot_bb:
+            for bb in getattr(self, "bbs", []):
+                m = bb.measured_position
+                ax.scatter(m.x, m.y, m.z, color="green", label="BB")
+        if plot_isocenter_sphere:
+            u, v = np.mgrid[0: 2 * np.pi: 20j, 0: np.pi: 10j]
+            try:
+                r = self.gantry_iso_size / 2
+            except NotImplementedError:
+                r = 0
+            ax.plot_wireframe(r * np.cos(u) * np.sin(v), r * np.sin(u) * np.sin(v),
+                              r * np.cos(v), color="blue", alpha=0.3,
+                              label="Gantry iso")
+        ax.set_xlim(-limit, limit)
+        ax.set_ylim(-limit, limit)
+        ax.set_zlim(-limit, limit)
+        ax.set_xlabel("X (mm), LEFT (+)")
+        ax.set_ylabel("Y (mm), IN (+)")
+        ax.set_zlabel("Z (mm), UP (+)")
+        if show_legend:
+            ax.legend()
+        if show:
+            plt.show()
+        return fig, ax
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`): one per image
+        with its field and BB marks, and the isocentre in 3D:
+        ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        if not self._is_analyzed:
+            raise RuntimeError("The images must be analyzed first. Use .analyze().")
+        figs: dict[str, pu.Figure] = {}
+        for idx, img in enumerate(self.images):
+            fig = pu.image_figure(img.array, title=str(img.to_axes()),
+                                  show_colorbar=show_colorbar, **kwargs)
+            for match in img.arrangement_matches.values():
+                fig.add_trace(pu.marker_trace(
+                    [match.field.x], [match.field.y], name="Field CAX",
+                    symbol="square-open", color="green", showlegend=show_legend))
+                fig.add_trace(pu.marker_trace(
+                    [match.bb.x], [match.bb.y], name="BB",
+                    symbol="circle-open", color="red", showlegend=show_legend))
+            figs[f"{idx} - {img.to_axes()}"] = fig
+
+        iso_fig = pu.Figure()
+        for bb in getattr(self, "bbs", []):
+            m = bb.measured_position
+            iso_fig.add_trace({
+                "type": "scatter3d", "x": [m.x], "y": [m.y], "z": [m.z],
+                "mode": "markers", "name": "BB",
+                "marker": {"color": "green", "size": 4}})
+        try:
+            r = self.gantry_iso_size / 2
+            u, v = np.mgrid[0:2 * np.pi:20j, 0:np.pi:10j]
+            iso_fig.add_trace({
+                "type": "surface",
+                "x": r * np.cos(u) * np.sin(v),
+                "y": r * np.sin(u) * np.sin(v),
+                "z": r * np.cos(v),
+                "opacity": 0.2, "showscale": False, "name": "Isocenter sphere"})
+        except (NotImplementedError, ValueError):
+            pass
+        pu.add_title(iso_fig, "Isocenter Visualization")
+        iso_fig.update_layout(showlegend=show_legend)
+        figs["Isocenter Visualization"] = iso_fig
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def save_images(self, prefix: str = "", **kwargs) -> list[str]:
+        """Each image's plot as a PNG file named by its file name (or the
+        image's ``id`` where it has none); the names written."""
+        import matplotlib.pyplot as plt
+
+        names = []
+        for img in self.images:
+            fig, ax = plt.subplots()
+            img.plot(ax=ax, show=False)
+            name = f"{prefix}{img.base_path if hasattr(img, 'base_path') else id(img)}.png"
+            fig.savefig(name, **kwargs)
+            plt.close(fig)
+            names.append(name)
+        return names
+
+    def save_images_to_stream(self, **kwargs) -> dict:
+        """Each image's plot as PNG in a ``BytesIO``, keyed by its axes and
+        index."""
+        import io as _io
+
+        import matplotlib.pyplot as plt
+
+        streams = {}
+        for idx, img in enumerate(self.images):
+            fig, ax = plt.subplots()
+            img.plot(ax=ax, show=False)
+            stream = _io.BytesIO()
+            fig.savefig(stream, **kwargs)
+            plt.close(fig)
+            title = (f"G{img.gantry_angle:.0f}, C{img.collimator_angle:.0f}, "
+                     f"P{img.couch_angle:.0f} ({idx})")
+            streams[title] = stream
+        return streams
+
+    def save_summary(self, filename, **kwargs) -> None:
+        """The summary plot written to ``filename``."""
+        import matplotlib.pyplot as plt
+
+        fig, _ = self.plot_summary(show=False)
+        fig.savefig(filename, **kwargs)
+        plt.close(fig)
+
+    def publish_pdf(self, filename, notes=None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None) -> None:
+        """The results as a one-page PDF (:mod:`.core.pdf`); needs no
+        matplotlib."""
+        from .core import pdf
+
+        canvas = pdf.PylinacCanvas(filename, page_title="Winston-Lutz Analysis",
+                                   metadata=metadata, logo=logo)
+        canvas.add_text(text=self.results(as_list=True), location=(2, 25.5), font_size=11)
+        if notes is not None:
+            canvas.add_text(text=notes, location=(2, 4))
+        canvas.finish()
+
 
 class WinstonLutzMultiTargetMultiFieldImage(WLBaseImage):
     """A Winston-Lutz image of several fields and BBs."""
@@ -1453,3 +1666,9 @@ class WinstonLutzMultiTargetMultiField(WinstonLutz):
             bb_shift_pitch=pitch,
             bb_shift_roll=roll,
         )
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        return {
+            "Max 2D BB->Field distance": QuaacDatum(value=self.cax2bb_distance("max"), unit="mm"),
+            "Mean 2D BB->Field distance": QuaacDatum(value=self.cax2bb_distance("mean"), unit="mm"),
+        }

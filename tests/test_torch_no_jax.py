@@ -26,8 +26,11 @@ runtime (``pylinac_tpu_torch.parallel``: the picket fence batch, the gamma
 batch and ``QABatchRunner`` on a two-shard CPU mesh) and the picket fence's
 reports that need no matplotlib (``publish_pdf``, ``to_quaac``,
 ``plotly_analyzed_images`` through ``core/plotly_utils.py``, with
-``settings.py`` imported), while its matplotlib plot raises, on the CPU: the
-native codecs build and run without any of these packages.
+``settings.py`` imported), while its matplotlib plot raises, and the same
+reports of the Winston-Lutz set, the single ``FieldAnalysis``, the
+``Starshot`` and the DRGS pair, while their plots, the DLG plot and the Quart
+PDF (which embeds module images) raise, on the CPU: the native codecs build
+and run without any of these packages.
 """
 
 import json
@@ -284,6 +287,25 @@ CHILD = textwrap.dedent("""
         plot_error = None
     except ImportError as e:
         plot_error = type(e).__name__
+    beam_reports = []
+    for name, obj in (("wl", wl), ("fa", fa_single), ("star", star), ("drgs", drgs)):
+        obj.publish_pdf(report_dir + f"/{name}.pdf")
+        obj.to_quaac(report_dir + f"/{name}.json")
+        beam_reports.append([open(report_dir + f"/{name}.pdf", "rb").read(5).decode(),
+                             len(json.load(open(report_dir + f"/{name}.json"))["datapoints"]),
+                             len(obj.plotly_analyzed_images(show=False))])
+    plot_errors = []
+    for draw in (lambda: wl.plot_images(show=False),
+                 lambda: fa_single.plot_analyzed_image(show=False),
+                 lambda: star.plot_analyzed_image(show=False),
+                 lambda: drgs.plot_analyzed_image(show=False),
+                 lambda: dlg.plot_dlg(show=False),
+                 lambda: quart.publish_pdf(report_dir + "/quart.pdf")):
+        try:
+            draw()
+            plot_errors.append(None)
+        except ImportError as e:
+            plot_errors.append(type(e).__name__)
     print(json.dumps({
         "mesh": [pf_mesh.results_data()[2].number_of_pickets, bool(np.isnan(g_mesh).any()),
                  float(np.abs(g_mesh - g[None]).max()), runner_mean],
@@ -291,6 +313,7 @@ CHILD = textwrap.dedent("""
                     len(json.load(open(report_dir + "/pf.json"))["datapoints"]),
                     sorted(pf_figs), len(pf_figs["Picket Fence"].to_json()) > 1000,
                     plot_error, settings.get_dicom_cmap()],
+        "beam_reports": [beam_reports, plot_errors],
         "tg51": [round(sheet.dose_mu_dmax, 4), open(pdf_path, "rb").read(5).decode()],
         "plan_fluence": [list(fl.shape), float(fl[0, 200, 100]), float(fl[0, 200, 5])],
         "nm_uniformity": pu.results_data(as_dict=True)["Frame 1"]["ufov_integral_uniformity"],
@@ -367,6 +390,10 @@ def test_port_runs_without_jax_or_pydantic():
     assert abs(out["mesh"][3] - 32) < 2
     assert out["reports"] == ["%PDF-", 6, ["Histogram", "Picket Fence"], True, "ImportError",
                               "gray"]
+    # WL, FA, Starshot and DRGS: PDF, QuAAC and plotly without matplotlib;
+    # the plots, and Quart's PDF of module images, raise
+    assert out["beam_reports"] == [[["%PDF-", 5, 5], ["%PDF-", 10, 3], ["%PDF-", 2, 2],
+                                    ["%PDF-", 16, 3]], ["ImportError"] * 6]
     # within half an AS500 pixel (0.78 mm at the isocentre) of the fields
     assert out["mtmf"][0] == 4 and out["mtmf"][1] < 0.4 and out["mtmf"][2] == ["Iso", "1"]
     # a lazy zip of JPEG Lossless slices through the native decoder

@@ -337,12 +337,17 @@ def test_catphan_matplotlib_figures_match(cp, plt):
 
 
 def test_sibling_reports_wait(cp):
-    """The CT siblings inherit CatPhanBase; their own reports are not ported
-    yet and raise rather than draw the CatPhan family's."""
+    """The CT siblings inherit CatPhanBase; their reports no longer wait: as
+    in JAX, each class publishes and draws its own modules rather than the
+    CatPhan family's (``tests/test_torch_reports_ct.py`` holds them to
+    JAX's)."""
+    from pylinac_tpu import acr, cheese, helios, quart
+    from pylinac_tpu import ct as jct
     from pylinac_tpu_torch import ACRCT, GEHeliosCTDaily, QuartDVT, TomoCheese
 
-    for cls in (ACRCT, GEHeliosCTDaily, QuartDVT, TomoCheese):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            cls.publish_pdf(cp.port, "x.pdf")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            cls.to_quaac(cp.port, "x.json")
+    for cls, ref in ((ACRCT, acr.ACRCT), (GEHeliosCTDaily, helios.GEHeliosCTDaily),
+                     (QuartDVT, quart.QuartDVT), (TomoCheese, cheese.TomoCheese)):
+        for name in ("publish_pdf", "plot_analyzed_image"):
+            assert getattr(ref, name) is not getattr(jct.CatPhanBase, name)
+            assert getattr(cls, name) is not getattr(tct.CatPhanBase, name)
+        assert cls.to_quaac is tct.CatPhanBase.to_quaac
