@@ -4105,6 +4105,12 @@ def check_planar_results(name: str, obj, data: dict, what: str) -> None:
         raise RuntimeError(f"{what}: off the drawn phantom: {bad}")
 
 
+# the long-tail classes analysed with their own detection (no override, nothing
+# patched); Doselab MC2 is left out: its angle search runs 14 times an analysis
+PLANAR_AUTO = ("LasVegas", "ElektaLasVegas", "PTWEPIDQC", "SNCMV", "SNCMV12510", "LeedsTOR",
+               "LeedsTORBlue")
+
+
 def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     """The planar phantoms on the card: a QC-3 on an AS1200 frame (full
     detection), an FC-2 on AS1200 (150 mm field, the 15 x 15 BB set, every
@@ -4155,6 +4161,8 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
             key = f"lt_{spec[0].__name__}"
             paths[key] = os.path.join(tmp, f"{key}.dcm")
             overrides[key] = draw_longtail(spec, paths[key])
+        for name in PLANAR_AUTO:  # the same drawings, found as a user's analysis finds them
+            paths[f"auto_{name}"] = paths[f"lt_{name}"]
         fpa_path = os.path.join(tmp, "open.dcm")
         sim = AS1200Image(sid=1000)
         sim.add_layer(FilteredFieldLayer(field_size_mm=(150, 150)))
@@ -4173,7 +4181,8 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
                    "speck_group_visibility_threshold": MAMMO_SPECK_VISIBILITY})]
                 + [(name, name, {}) for name, _, _ in fc2_variants]
                 + [(specs[k][0].__name__, k, {"ssd": 1000, "angle_override": specs[k][1],
-                                             "size_override": overrides[k]}) for k in specs])
+                                             "size_override": overrides[k]}) for k in specs]
+                + [(name, f"auto_{name}", {}) for name in PLANAR_AUTO])
 
         def run(name, key, analyze, device="cuda"):
             cls = getattr(p, name)
@@ -4205,7 +4214,7 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
                                    (tfilters, "median3x3", "median")]
         closings = []
         pairs = {**kernel_pairs(ccl), "median": (median.median3x3, median.median3x3_reference)}
-        totals, seen_all, worst, card_data = Counter(), [], {}, {}
+        totals, seen_all, worst, card_data, card_objs = Counter(), [], {}, {}, {}
         for name, key, analyze in runs:
             median.median3x3.launches = 0
             ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
@@ -4217,8 +4226,8 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
                       "median": median.median3x3.launches}
             what = f"{name} on {key}"
             check_counts(seen, counts, what)
-            detects = key in ("qc3", "mammo") or name in ("LasVegas", "ElektaLasVegas",
-                                                          "PTWEPIDQC")
+            detects = key in ("qc3", "mammo") or key.startswith("auto_") or name in (
+                "LasVegas", "ElektaLasVegas", "PTWEPIDQC")
             needs = (("median", "label") if "field_size_x_mm" in data
                      else ("label", "holes") if detects else ())
             if any(counts[m] < 1 for m in needs):
@@ -4230,7 +4239,7 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
             seen_all += seen
             print(f"{what}: launches {counts}")
             check_planar_results(name, obj, data, f"card {what}")
-            card_data[key] = data
+            card_data[key], card_objs[key] = data, obj
         if totals["median"] < 1 + 4:
             raise RuntimeError(f"the FC-2 family's medians: {totals['median']} launches")
         # the fibres' binary counts are a cuDNN convolution on the card
@@ -4250,13 +4259,45 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
                 obj, data = run(name, key, analyze)
                 check_planar_results(name, obj, data, f"card {name} on {key}")
             else:
-                data = card_data[key]
-            _, cpu_data = run(name, key, analyze, "cpu")
+                obj, data = card_objs[key], card_data[key]
+            cpu_obj, cpu_data = run(name, key, analyze, "cpu")
             worst_cpu = max(worst_cpu, compare_tree(data, cpu_data, f"{name} {key} card vs CPU",
                                                     planar_tol))
             same_warnings(data, cpu_data, f"{name} {key}")
+            # as in JAX, the FC-2 family's plotly centre marker reads a phantom
+            # size that the family has not
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                check_reports(obj, cpu_obj, tmp, f"{name} ({key})",
+                              raises={"plotly": AttributeError} if "field_size_x_mm" in data
+                              else None)
         print(f"planar card vs CPU: agree on {len(runs)} inputs (max difference "
               f"{worst_cpu:.2e})")
+        plot_needs_matplotlib(lambda: card_objs["qc3"].plot_analyzed_image(show=False),
+                              "StandardImagingQC3.plot_analyzed_image")
+
+        for name in PLANAR_AUTO:  # the long tail's own detection, warm on the card
+            key = f"auto_{name}"
+            fresh = [getattr(p, name)(paths[key]) for _ in range(3)]
+
+            def warm_auto():
+                obj = fresh.pop()
+                ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    obj.analyze(device="cuda")
+                    data = obj.results_data(as_dict=True)
+                torch.cuda.synchronize()
+                return data, ccl.label_batch.launches, ccl.hole_roots_batch.launches
+
+            warm, outs = median_runs(card, f"warm {name} analyze with automatic detection "
+                                     f"(AS1000)", warm_auto, 3)
+            check_same_texts([results_text(o[0]) for o in outs], f"{name} warm runs")
+            obj = card_objs[key]
+            print(f"[{card}] {name} automatic detection: {warm:.1f} ms a warm analysis, "
+                  f"ccl.cu launches {outs[-1][1]} label + {outs[-1][2]} holes a run; centre "
+                  f"{obj.phantom_center}, angle {obj.phantom_angle:.4f}, radius "
+                  f"{obj.phantom_radius:.4f} (card equal to the CPU above)")
 
         for name, key, analyze in runs[:3]:
             n_warm = WARM_RUNS if key == "qc3" else 4  # 1 + 3 for the slower two
@@ -4318,6 +4359,12 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
                 raise RuntimeError(f"FieldProfileAnalysis {edge}: widths {widths[edge]}, drawn 150")
             print(f"[{card}] FieldProfileAnalysis {edge} on the AS1200 open field (host): "
                   f"{ms:.1f} ms, widths {widths[edge]} mm")
+        again = p.FieldProfileAnalysis(fpa_path)
+        again.analyze(edge_type="Inflection Hill")
+        for obj in (fpa, again):  # the PDF prints the result's date
+            fixed_date(obj)
+        check_reports(fpa, again, tmp, "FieldProfileAnalysis Inflection Hill (host: against a "
+                      "second run)", reports=("pdf", "plotly", "plot_analyzed_images"))
         print(f"planar launches: {dict(totals)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4619,6 +4666,12 @@ def nuclear_phase(card: str, ccl) -> list[dict]:
             cpu_obj = nm_make(name, files)
             cpu_data = nm_analyze(name, cpu_obj, "cpu")
             diff = compare_tree(data, cpu_data, f"{what} card vs CPU", nm_tol)
+            if name in ("SimpleSensitivity", "TomographicResolution"):
+                check_reports(obj, cpu_obj, tmp, what, reports=("quaac",))
+                if name == "TomographicResolution":  # its plot takes no show
+                    plot_needs_matplotlib(obj.plot, f"{what}.plot")
+            else:
+                check_reports(obj, cpu_obj, tmp, what, reports=("quaac", "plot"))
             if name in ("PlanarUniformity", "TomographicUniformity"):
                 for key, r in cpu_obj.frame_results.items():
                     for part in ("binned_frame", "ufov", "cfov"):
@@ -4740,6 +4793,9 @@ def log_phase(card: str, median) -> int:
             median_runs(card, f"warm {what} gamma (calc_map of the cached maps)", gamma_run)
             median_runs(card, f"warm {what} calc_map(equal_aspect=True) (4000 x 4000)",
                         lambda: fluence_run(True))
+            fluence_run()  # the maps of the reports, at their defaults
+            check_reports(card_log, cpu_log, tmp, f"{what} (VMAT arc)",
+                          reports=("pdf", "plot_summary"))
 
         # interval_fluence alone at the arc's shape, by CUDA events
         log = tl.load_log(tlog, device="cuda")
@@ -5030,6 +5086,8 @@ def plan_phase(card: str, median, ccl) -> list[dict]:
         median_runs(card, "warm to_dicom_images of the picket fence plan (AS1200)",
                     lambda: plans["pf"].to_dicom_images(AS1200Image, device="cuda"),
                     PLAN_WARM_RUNS)
+        plot_needs_matplotlib(lambda: plans["pf"].plot_fluences(device="cuda"),
+                              "PlanGenerator.plot_fluences")
         rng = np.random.default_rng(17)
         spiked = frame.copy()
         spiked.flat[rng.choice(spiked.size, int(spiked.size * PLAN_HOT_PIXELS),
@@ -5104,6 +5162,7 @@ def plan_phase(card: str, median, ccl) -> list[dict]:
               + ", ".join(f"{k} {v:.2f}" for k, v in angles.items())
               + f" degrees; launches {jaw_counts}; edges, Hough space and angles equal to the "
                 "CPU's")
+        check_reports(jaw, cpu_jaw, tmp, "JawOrthogonality", reports=("plot_analyzed_image",))
         edge_input = torch.from_numpy(stretch(jaw.image.array).astype(np.float32)).to("cuda")
 
         canny_ms, _ = median_runs(card, "warm Canny of the AS1200 frame (to the host)",
@@ -5422,6 +5481,22 @@ def _report(obj, name: str, tmp: str, tag: str):
 
     plt.close("all")
     return None
+
+
+def fixed_date(obj) -> None:
+    """``obj``'s results dated at a fixed time, as the frozen clocks of
+    :func:`frozen_reports` date its reports: for a report that prints the
+    date of analysis (the field profile PDF)."""
+    import datetime as dt
+
+    make = type(obj)._generate_results_data
+
+    def generate():
+        data = make(obj)
+        data.date_of_analysis = dt.datetime(2024, 5, 6, 7, 8, 9)
+        return data
+
+    obj._generate_results_data = generate
 
 
 def _matplotlib_missing(e: Exception) -> bool:

@@ -5,10 +5,8 @@ Port of ``pylinac_tpu/contrib/orthogonality.py`` (``JawOrthogonality``
 :func:`..ops.edges.canny` runs on ``analyze``'s device, its hysteresis
 labelled by ``csrc/ccl.cu`` on the card; the Hough transform over 3600
 angles and its peaks run on the host (``planar_imaging.hough_line``, one
-``bincount``).
-
-Not ported (ROADMAP item 11): ``plot_analyzed_image`` (``:72``) raises
-``NotImplementedError``.
+``bincount``). ``plot_analyzed_image`` (``:72``) is JAX's and imports
+matplotlib inside.
 """
 
 from __future__ import annotations
@@ -20,12 +18,11 @@ import torch
 
 from ..core.array_utils import stretch
 from ..core.image import load
-from ..core.utilities import not_ported, resolve_device
+from ..core.utilities import resolve_device
 from ..ops.edges import canny
 from ..planar_imaging import hough_line, hough_line_peaks
 
 
-@not_ported("plot_analyzed_image")
 class JawOrthogonality:
     """Angles between the 4 jaw edges of a (nominally square) field."""
 
@@ -80,3 +77,20 @@ class JawOrthogonality:
     def results(self) -> dict[str, float]:
         """Keys: 'top_left', 'top_right', 'bottom_left', 'bottom_right' (deg)."""
         return self.result
+
+    def plot_analyzed_image(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        colors = ["r", "b", "c", "m"]
+        fig, axes = plt.subplots()
+        axes.imshow(self.image.array, cmap="gray")
+        for idx, (key, data) in enumerate(self.line_angles.items()):
+            (x0, y0) = data["dist"] * np.array(
+                [np.cos(data["angle"]), np.sin(data["angle"])])
+            axes.axline((x0, y0), slope=np.tan(data["angle"] + np.pi / 2),
+                        label=key, color=colors[idx])
+        axes.set_title("Jaw Orthogonality")
+        axes.set_axis_off()
+        axes.legend()
+        if show:
+            plt.show()

@@ -281,23 +281,3 @@ def assign2machine(source_file: str, machine_file: str) -> None:
     for beam in dcm_source.BeamSequence:
         beam.TreatmentMachineName = dcm_machine.BeamSequence[0].TreatmentMachineName
     dcm.dcmwrite(source_file, dcm_source)
-
-
-def not_ported(*names: str):
-    """Class decorator: each of ``names`` becomes a method that raises
-    ``NotImplementedError``: the reports (plots, PDF, QuAAC) wait for the
-    ROADMAP's item 11."""
-
-    def stub(name):
-        def method(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} waits for ROADMAP item 11 (reports: plots, PDF, QuAAC) in the port")
-        method.__name__ = name
-        return method
-
-    def deco(cls):
-        for name in names:
-            setattr(cls, name, stub(name))
-        return cls
-
-    return deco

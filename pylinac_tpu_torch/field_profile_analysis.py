@@ -6,20 +6,23 @@ Port of ``pylinac_tpu/field_profile_analysis.py:47-180``:
 a chosen centre and width and runs the plugins of
 :mod:`pylinac_tpu_torch.metrics.profile` on each. Host numpy in both
 packages: the path reaches no kernel, so ``analyze`` takes no device. The
-plots, ``plotly_analyzed_images`` and ``publish_pdf`` wait for ROADMAP
-item 11 and raise ``NotImplementedError``.
+reports are JAX's (``:194-306``): ``plotly_analyzed_images`` needs no
+matplotlib; ``plot_analyzed_images`` and ``publish_pdf`` (which embeds the
+plots' PNGs) import it inside.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import io
+import webbrowser
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
-from .core import image
+from .core import image, pdf
 from .core.exceptions import NotAnalyzed
 from .core.geometry import Point, Rectangle
 from .core.profile import (
@@ -31,7 +34,7 @@ from .core.profile import (
     Normalization,
 )
 from .core.roi import RectangleROI
-from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum, not_ported
+from .core.utilities import ResultBase, ResultsDataMixin, convert_to_enum
 from .core.warnings import capture_warnings
 from .metrics.profile import (
     CAXToLeftEdgeMetric,
@@ -72,7 +75,6 @@ PROFILES = {
 
 
 @capture_warnings
-@not_ported("plot_analyzed_images", "plotly_analyzed_images", "publish_pdf")
 class FieldProfileAnalysis(ResultsDataMixin):
     """Field analysis through profile metric plugins."""
 
@@ -191,3 +193,116 @@ class FieldProfileAnalysis(ResultsDataMixin):
             else:
                 s += f"{key}: {value}\n"
         return s
+
+    def plot_analyzed_images(self, show: bool = True, mirror: str | None = None,
+                             grid: bool = True, **kwargs) -> list:
+        import matplotlib.pyplot as plt
+
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
+        figs = []
+        for profile, name in ((self.x_profile, "X"), (self.y_profile, "Y")):
+            fig, ax = plt.subplots()
+            profile.plot(axis=ax, show=False)
+            ax.set_title(f"{name} profile")
+            if grid:
+                ax.grid(True, alpha=0.3)
+            figs.append(fig)
+        ifig, iax = plt.subplots()
+        iax.imshow(self.image.array, cmap="gray")
+        for rect, color in ((self.x_rect, "b"), (self.y_rect, "g")):
+            iax.add_patch(plt.Rectangle(
+                (rect.center.x - rect.width / 2, rect.center.y - rect.height / 2),
+                rect.width, rect.height, edgecolor=color, fill=False, alpha=0.3))
+        iax.add_patch(plt.Rectangle(
+            (self.center_rect.center.x - self.center_rect.width / 2,
+             self.center_rect.center.y - self.center_rect.height / 2),
+            self.center_rect.width, self.center_rect.height,
+            edgecolor="r", fill=False, alpha=0.3, label="Center ROI"))
+        figs.append(ifig)
+        if show:
+            plt.show()
+        return figs
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`): the X and Y
+        profiles and the image with the sampling ROIs, ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
+        figs: dict[str, pu.Figure] = {}
+        for profile, name in ((self.x_profile, "X"), (self.y_profile, "Y")):
+            fig = pu.Figure()
+            fig.add_trace(pu.scatter_trace(profile.x_values, profile.values,
+                                           name=f"{name} profile"))
+            pu.add_title(fig, f"{name} profile")
+            fig.update_layout(showlegend=show_legend)
+            figs[f"{name} Profile"] = fig
+        ifig = pu.image_figure(self.image.array, title="Image",
+                               show_colorbar=show_colorbar, **kwargs)
+        shapes = ifig.layout.setdefault("shapes", [])
+        for rect, color in ((self.x_rect, "blue"), (self.y_rect, "green"),
+                            (self.center_rect, "red")):
+            shapes.append({
+                "type": "rect",
+                "x0": rect.center.x - rect.width / 2,
+                "x1": rect.center.x + rect.width / 2,
+                "y0": rect.center.y - rect.height / 2,
+                "y1": rect.center.y + rect.height / 2,
+                "line": {"color": color}, "opacity": 0.5})
+        figs["Image"] = ifig
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def publish_pdf(self, filename: str, notes: str | list[str] | None = None,
+                    open_file: bool = False, metadata: dict | None = None,
+                    logo=None, plot_kwargs: dict | None = None) -> None:
+        import matplotlib.pyplot as plt
+
+        plt.ioff()
+        if not self._is_analyzed:
+            raise NotAnalyzed("Image is not analyzed yet. Use analyze() first.")
+        canvas = pdf.PylinacCanvas(filename, page_title="Field Analysis",
+                                   metadata=metadata, metadata_location=(2, 5),
+                                   logo=logo)
+        data = self.results_data(as_dict=True)
+        data.pop("pylinac_version")
+        data["x_metrics"].pop("values")
+        data["y_metrics"].pop("values")
+        offset = 0.0
+        for key, value in data.items():
+            if isinstance(value, str):
+                canvas.add_text(text=f"{key}: {value}", location=(1, 25 - offset),
+                                font_size=12)
+                offset += 0.75
+            elif isinstance(value, dict):
+                canvas.add_text(text=f"{key}:", location=(1, 25 - offset),
+                                font_size=12)
+                offset += 0.75
+                for subkey, subvalue in value.items():
+                    try:
+                        text = f"{subkey}: {subvalue:.3f}"
+                    except (TypeError, ValueError):
+                        text = f"{subkey}: {subvalue}"
+                    canvas.add_text(text=text, location=(2, 25 - offset),
+                                    font_size=12)
+                    offset += 0.75
+        plot_kwargs = plot_kwargs or {}
+        figs = self.plot_analyzed_images(show=False, **plot_kwargs)
+        for fig in figs[::-1]:
+            canvas.add_new_page()
+            with io.BytesIO() as stream:
+                fig.savefig(stream, format="png")
+                stream.seek(0)
+                canvas.add_image(stream, location=(-4, 13), dimensions=(28, 12))
+        plt.close("all")
+        if notes is not None:
+            canvas.add_text(text="Notes:", location=(1, 5.5), font_size=14)
+            canvas.add_text(text=notes, location=(1, 5))
+        canvas.finish()
+        if open_file:
+            webbrowser.open(filename)

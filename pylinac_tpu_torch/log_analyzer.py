@@ -17,9 +17,13 @@ on both devices, and the gamma is :meth:`.core.image.BaseImage.gamma`
 (:func:`.ops.gamma.gamma_bakai`, plain torch). ``anonymize`` reads logs to
 rename them and does no device work, so it reads them for the CPU.
 
-Not ported: the plots and ``save_*`` images and ``publish_pdf``, which wait
-for the reports item of the ROADMAP and raise ``NotImplementedError``;
-``from_url`` and URL loading, which fetch files from outside.
+The reports are JAX's (``:97-132``, ``:270-283``, ``:349-387``,
+``:619-645``, ``:780-870``, ``:1084``, ``:1354``): the axes', maps',
+histograms' and summaries' plots and saves, and each reader's
+``publish_pdf``, which embeds their PNGs; all import matplotlib inside. The
+maps they draw are host arrays already: ``calc_map`` brings each map back
+from the device once. Not ported: ``from_url`` and URL loading, which fetch
+files from outside.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import itertools
 import os
 import os.path as osp
 import shutil
+import webbrowser
 import zipfile
 from io import BufferedReader, BytesIO
 from pathlib import Path
@@ -39,14 +44,13 @@ from typing import BinaryIO, Sequence
 import numpy as np
 import torch
 
-from .core import image
+from .core import image, pdf
 from .core.io import TemporaryZipDirectory, retrieve_filenames
 from .core.utilities import (
     Structure,
     convert_to_enum,
     decode_binary,
     is_iterable,
-    not_ported,
     resolve_device,
 )
 from .ops.fluence import interval_fluence
@@ -94,8 +98,6 @@ class DynalogMatchError(IOError):
     """The dynalog companion file (A/B) cannot be found."""
 
 
-@not_ported("plot_actual", "save_plot_actual", "plot_expected", "save_plot_expected",
-             "plot_difference", "save_plot_difference")
 class Axis:
     """Actual, expected and difference values of one machine axis."""
 
@@ -114,6 +116,43 @@ class Axis:
         if self.expected is not None:
             return self.actual - self.expected
         raise AttributeError("Expected positions not passed to Axis")
+
+    def plot_actual(self) -> None:
+        self._plot("actual")
+
+    def save_plot_actual(self, filename: str, **kwargs) -> None:
+        self._plot("actual", show=False)
+        self._save(filename, **kwargs)
+
+    def plot_expected(self) -> None:
+        self._plot("expected")
+
+    def save_plot_expected(self, filename: str, **kwargs) -> None:
+        self._plot("expected", show=False)
+        self._save(filename, **kwargs)
+
+    def plot_difference(self) -> None:
+        self._plot("difference")
+
+    def save_plot_difference(self, filename: str, **kwargs) -> None:
+        self._plot("difference", show=False)
+        self._save(filename, **kwargs)
+
+    def _plot(self, param: str, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        if param not in ("actual", "expected", "difference"):
+            raise ValueError("param must be actual, expected, or difference")
+        plt.plot(getattr(self, param))
+        plt.grid(True)
+        plt.autoscale(axis="x", tight=True)
+        if show:
+            plt.show()
+
+    def _save(self, filename: str, **kwargs):
+        import matplotlib.pyplot as plt
+
+        plt.savefig(filename, **kwargs)
 
 
 class AxisMovedMixin:
@@ -146,7 +185,10 @@ class BeamAxis(Axis):
     pass
 
 
-@not_ported("plot_map", "save_map")
+def _get_array_cmap():
+    return "viridis"
+
+
 class FluenceBase:
     """Base of the actual and expected fluence maps: ``calc_map`` gathers
     every leaf pair's aperture edges on the host, then builds the map in
@@ -235,6 +277,21 @@ class FluenceBase:
         positions = np.cumsum([0] + sizes).astype(int)
         return np.diff(positions)[:self._mlc.num_pairs]
 
+    def plot_map(self, show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        self.is_map_calced(raise_error=True)
+        plt.clf()
+        plt.imshow(self.array, aspect="auto", cmap=_get_array_cmap())
+        if show:
+            plt.show()
+
+    def save_map(self, filename: str, **kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        self.plot_map(show=False)
+        plt.savefig(filename, **kwargs)
+
 
 class ActualFluence(FluenceBase):
     FLUENCE_TYPE = "actual"
@@ -244,7 +301,6 @@ class ExpectedFluence(FluenceBase):
     FLUENCE_TYPE = "expected"
 
 
-@not_ported("plot_map", "plot_histogram", "save_histogram", "plot_passfail_map")
 class GammaFluence(FluenceBase):
     """The gamma (Bakai) of the actual fluence against the expected."""
 
@@ -303,6 +359,42 @@ class GammaFluence(FluenceBase):
         self.is_map_calced(raise_error=True)
         return np.histogram(self.array, bins=bins if bins is not None else self.bins)
 
+    def plot_map(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        self.is_map_calced(raise_error=True)
+        plt.imshow(self.array, aspect="auto", vmax=1, cmap=_get_array_cmap())
+        plt.colorbar()
+        if show:
+            plt.show()
+
+    def plot_histogram(self, scale: str = "log", bins: list | None = None,
+                       show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        if scale not in ("log", "linear"):
+            raise ValueError("scale must be log or linear")
+        self.is_map_calced(raise_error=True)
+        plt.clf()
+        plt.hist(self.array.flatten(), bins=bins if bins is not None else self.bins)
+        plt.yscale(scale)
+        if show:
+            plt.show()
+
+    def save_histogram(self, filename: str, scale: str = "log",
+                       bins: list | None = None, **kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        self.plot_histogram(scale, bins, show=False)
+        plt.savefig(filename, **kwargs)
+
+    def plot_passfail_map(self) -> None:
+        import matplotlib.pyplot as plt
+
+        self.is_map_calced(raise_error=True)
+        plt.imshow(self.passfail_array, cmap=_get_array_cmap())
+        plt.show()
+
 
 class FluenceStruct:
     """The actual, expected and gamma fluence of one log."""
@@ -313,8 +405,6 @@ class FluenceStruct:
         self.gamma = GammaFluence(self.actual, self.expected, mlc_struct, device)
 
 
-@not_ported("plot_mlc_error_hist", "save_mlc_error_hist", "plot_rms_by_leaf",
-             "save_rms_by_leaf")
 class MLC:
     """MLC leaf data and its RMS and error statistics. Leaf numbers are
     1-indexed, as Varian numbers them: bank A is leaves 1 .. num_pairs, bank
@@ -518,6 +608,34 @@ class MLC:
             leaves = bank_or_leaf
         return self._snapshot_array(dtype)[leaves, :]
 
+    def plot_mlc_error_hist(self, show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        plt.hist(self._abs_error_all_leaves.flatten())
+        if show:
+            plt.show()
+
+    def save_mlc_error_hist(self, filename: str, **kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        self.plot_mlc_error_hist(show=False)
+        plt.savefig(filename, **kwargs)
+
+    def plot_rms_by_leaf(self, show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        plt.clf()
+        rms = self.get_RMS(MLCBank.BOTH)
+        plt.bar(np.arange(len(rms))[::-1], rms, align="center")
+        if show:
+            plt.show()
+
+    def save_rms_by_leaf(self, filename: str, **kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        self.plot_rms_by_leaf(show=False)
+        plt.savefig(filename, **kwargs)
+
 
 class JawStruct:
     """The X1, Y1, X2 and Y2 jaw axes."""
@@ -629,8 +747,6 @@ class SubbeamManager:
         return len(self.subbeams)
 
 
-@not_ported("plot_summary", "save_summary", "plot_subfluence", "save_subimage",
-             "plot_subgraph", "save_subgraph", "publish_pdf")
 class LogBase:
     """Base of the dynalog and trajectory-log readers; ``device`` is where
     the fluence maps and the gamma run."""
@@ -701,6 +817,98 @@ class LogBase:
             raise NotADirectoryError(
                 f"Specified destination `{destination}` was not a valid directory")
         return destination
+
+    def plot_summary(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        self.fluence.gamma.is_map_calced(raise_error=True)
+        ax = plt.subplot(2, 3, 1)
+        self.plot_subfluence(Fluence.ACTUAL, ax, show=False)
+        ax = plt.subplot(2, 3, 2)
+        self.plot_subfluence(Fluence.EXPECTED, ax, show=False)
+        ax = plt.subplot(2, 3, 3)
+        self.plot_subfluence(Fluence.GAMMA, ax, show=False)
+        ax = plt.subplot(2, 3, 4)
+        self.plot_subgraph(Graph.GAMMA, ax, show=False)
+        ax = plt.subplot(2, 3, 5)
+        self.plot_subgraph(Graph.HISTOGRAM, ax, show=False)
+        ax = plt.subplot(2, 3, 6)
+        self.plot_subgraph("rms", ax, show=False)
+        if show:
+            plt.show()
+
+    def save_summary(self, filename: str, **kwargs) -> None:
+        import matplotlib.pyplot as plt
+
+        self.plot_summary(show=False)
+        plt.savefig(filename, **kwargs)
+        plt.close()
+
+    def plot_subfluence(self, img, ax=None, show: bool = True,
+                        fontsize: int = 10):
+        import matplotlib.pyplot as plt
+
+        img = convert_to_enum(img, Fluence)
+        if ax is None:
+            ax = plt.subplot()
+        ax.tick_params(axis="both", labelsize=8)
+        if img in (Fluence.ACTUAL, Fluence.EXPECTED):
+            title = img.value.capitalize() + " Image"
+            ax.imshow(getattr(self.fluence, img.value).array.astype(np.float32),
+                      aspect="auto", interpolation="none", cmap=_get_array_cmap())
+        else:
+            ax.imshow(self.fluence.gamma.array.astype(np.float32),
+                      aspect="auto", interpolation="none", vmax=1,
+                      cmap=_get_array_cmap())
+            title = "Gamma Map"
+        ax.autoscale(tight=True)
+        ax.set_title(title, fontsize=fontsize)
+        if show:
+            plt.show()
+
+    def save_subimage(self, filename, img, fontsize: int = 10, **kwargs):
+        import matplotlib.pyplot as plt
+
+        plt.figure()
+        self.plot_subfluence(img, show=False, fontsize=fontsize)
+        plt.savefig(filename, **kwargs)
+        plt.close()
+
+    def plot_subgraph(self, graph, ax=None, show: bool = True,
+                      fontsize: int = 10, labelsize: int = 8):
+        import matplotlib.pyplot as plt
+
+        graph = convert_to_enum(graph, Graph)
+        if ax is None:
+            ax = plt.subplot()
+        if graph == Graph.GAMMA:
+            title = "Gamma Histogram"
+            ax.hist(self.fluence.gamma.array.flatten(),
+                    bins=self.fluence.gamma.bins)
+            ax.set_yscale("log")
+        elif graph == Graph.HISTOGRAM:
+            title = "Leaf Histogram"
+            ax.hist(self.axis_data.mlc._abs_error_all_leaves.flatten())
+        else:
+            title = "Leaf RMS (mm)"
+            ax.set_xlim([-0.5, self.axis_data.mlc.num_leaves + 0.5])
+            rms = self.axis_data.mlc.get_RMS("both")
+            ax.bar(np.arange(len(rms))[::-1], rms * 10, align="center")
+        ax.set_title(title, fontsize=fontsize)
+        ax.tick_params(axis="both", labelsize=labelsize)
+        ax.grid(True)
+        if show:
+            plt.show()
+
+    def save_subgraph(self, filename, graph, fontsize: int = 10,
+                      labelsize: int = 8, **kwargs):
+        import matplotlib.pyplot as plt
+
+        plt.figure()
+        self.plot_subgraph(graph, show=False, fontsize=fontsize,
+                           labelsize=labelsize)
+        plt.savefig(filename, **kwargs)
+        plt.close()
 
 
 class DynalogHeader(Structure):
@@ -847,6 +1055,43 @@ class Dynalog(LogBase):
             raise FileNotFoundError(
                 "Complementary dlg file not found; ensure A and B-file are in same directory.")
         return None
+
+    def publish_pdf(self, filename: str, notes=None, metadata: dict = None,
+                    open_file: bool = False, logo=None):
+        self.fluence.gamma.calc_map()
+        canvas = pdf.PylinacCanvas(filename, page_title="Dynalog Analysis",
+                                   metadata=metadata, logo=logo)
+        mlc = self.axis_data.mlc
+        canvas.add_text(text=[
+            "Dynalog results:",
+            f"Average RMS (mm): {mlc.get_RMS_avg() * 10:2.2f}",
+            f"Max RMS (mm): {mlc.get_RMS_max() * 10:2.2f}",
+            f"95th Percentile error (mm): {mlc.get_error_percentile(95) * 10:2.2f}",
+            f"Number of beam holdoffs: {self.num_beamholds}",
+            f"Gamma pass (%): {self.fluence.gamma.pass_prcnt:2.1f}",
+            f"Gamma average: {self.fluence.gamma.avg_gamma:2.2f}",
+        ], location=(10, 25.5))
+        for idx, (x, y, graph) in enumerate(zip(
+                (2, 11, 2, 11), (14, 14, 6, 6),
+                (Fluence.ACTUAL, Fluence.EXPECTED, Fluence.GAMMA, ""))):
+            data = BytesIO()
+            if idx != 3:
+                self.save_subimage(data, graph, fontsize=20)
+            else:
+                self.save_subgraph(data, Graph.GAMMA, fontsize=20, labelsize=12)
+            canvas.add_image(data, location=(x, y), dimensions=(9, 9))
+        if notes is not None:
+            canvas.add_text(location=(1, 5.5), font_size=14, text="Notes:")
+            canvas.add_text(location=(1, 5), text=notes)
+        canvas.add_new_page()
+        for x, y, graph in zip((5, 5), (13, 2), (Graph.HISTOGRAM, Graph.RMS)):
+            data = BytesIO()
+            self.save_subgraph(data, graph, fontsize=20, labelsize=12)
+            canvas.add_image(location=(x, y), dimensions=(13, 13),
+                             image_data=data)
+        canvas.finish()
+        if open_file:
+            webbrowser.open(filename)
 
 
 class TrajectoryLogAxisData:
@@ -1062,6 +1307,47 @@ class TrajectoryLog(LogBase):
             for leaf_num, leaf in self.axis_data.mlc.leaf_axes.items():
                 write_array(writer, "Leaf " + str(leaf_num), leaf, "cm")
         return filename
+
+    def publish_pdf(self, filename, metadata: dict = None, notes=None,
+                    open_file: bool = False, logo=None):
+        if self.treatment_type == TreatmentType.IMAGING.value:
+            raise ValueError(
+                "Log is of imaging type (e.g. kV setup) and does not contain "
+                "relevant gamma/leaf data")
+        self.fluence.gamma.calc_map()
+        canvas = pdf.PylinacCanvas(filename, page_title="Trajectory Log Analysis",
+                                   metadata=metadata, logo=logo)
+        mlc = self.axis_data.mlc
+        canvas.add_text(text=[
+            "Trajectory Log results:",
+            f"Average RMS (mm): {mlc.get_RMS_avg() * 10:2.2f}",
+            f"Max RMS (mm): {mlc.get_RMS_max() * 10:2.2f}",
+            f"95th Percentile error (mm): {mlc.get_error_percentile(95) * 10:2.2f}",
+            f"Number of beam holdoffs: {self.num_beamholds}",
+            f"Gamma pass (%): {self.fluence.gamma.pass_prcnt:2.1f}",
+            f"Gamma average: {self.fluence.gamma.avg_gamma:2.2f}",
+        ], location=(10, 25.5))
+        for x, y, graph in zip((2, 11, 2, 11), (14, 14, 6, 6),
+                               (Fluence.ACTUAL, Fluence.EXPECTED,
+                                Fluence.GAMMA, "")):
+            data = BytesIO()
+            if graph != "":
+                self.save_subimage(data, graph, fontsize=20)
+            else:
+                self.save_subgraph(data, Graph.GAMMA, fontsize=20, labelsize=12)
+            canvas.add_image(data, location=(x, y), dimensions=(9, 9))
+        if notes is not None:
+            canvas.add_text(location=(1, 5.5), font_size=14, text="Notes:")
+            canvas.add_text(location=(1, 5), text=notes)
+        canvas.add_new_page()
+        for x, y, graph in zip((5, 5), (13, 2), (Graph.HISTOGRAM, Graph.RMS)):
+            data = BytesIO()
+            self.save_subgraph(data, graph, fontsize=20, labelsize=12)
+            canvas.add_image(location=(x, y), dimensions=(13, 13),
+                             image_data=data)
+        canvas.finish()
+        if open_file:
+            webbrowser.open(filename)
 
 
 class MachineLogs(list):

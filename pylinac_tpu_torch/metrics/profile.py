@@ -3,7 +3,8 @@ CAX-to-edge, FFF top distance, slope, Dmax and PDD.
 
 Port of ``pylinac_tpu/metrics/profile.py`` (``ProfileMetric`` ``:18`` and
 the thirteen metrics after it), host numpy in both packages, the float64
-``np.polyfit`` fits included; ``plot`` draws nothing (ROADMAP item 11).
+``np.polyfit`` fits included. ``ProfileMetric.plot`` draws nothing, as
+JAX's (``:34``) does, and no metric overrides it in either package.
 """
 
 from __future__ import annotations

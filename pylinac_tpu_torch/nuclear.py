@@ -34,9 +34,10 @@ every entry point's, and unused. The fits' float32 sines and exponentials
 and the LM step (a float64 solve here, float32 in JAX) are held to JAX's at
 the parity bar, not to the bit.
 
-Not ported (they wait for the reports item of the ROADMAP): ``plot``,
-``plot_to``, ``_quaac_datapoints`` and ``publish_pdf``, which raise
-``NotImplementedError``.
+The reports are JAX's: every class's ``to_quaac`` (its
+``_quaac_datapoints``) needs no matplotlib; ``plot`` and ``plot_to`` import
+it inside. JAX's nuclear classes have no ``publish_pdf``, and neither do
+these.
 """
 
 from __future__ import annotations
@@ -53,15 +54,16 @@ import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from .core.contrast import michelson
-from .core.geometry import Point, direction_to_coords
+from .core.geometry import Circle, Point, direction_to_coords
 from .core.image import DicomImage, NMImageStack
 from .core.mtf import MomentMTF
-from .core.roi import HighContrastDiskROI, RectangleROI
+from .core.roi import DiskROI, HighContrastDiskROI, RectangleROI
 from .core.utilities import (
     DataModel,
+    QuaacDatum,
+    QuaacMixin,
     ResultBase,
     ResultsDataMixin,
-    not_ported,
     resolve_device,
 )
 from .core.warnings import capture_warnings
@@ -78,9 +80,6 @@ from .ops.morphology import (
 )
 from .ops.optimize import levenberg_marquardt
 from .ops.peaks import find_peaks
-
-
-_REPORTS = ("plot", "publish_pdf", "_quaac_datapoints")
 
 
 def _curve_fit(model, xs, ys, p0, device) -> np.ndarray:
@@ -107,8 +106,7 @@ class MaxCountRateResults(ResultBase):
 
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class MaxCountRate(ResultsDataMixin):
+class MaxCountRate(ResultsDataMixin, QuaacMixin):
     """Maximum count rate of a gamma camera (NMQC 4.2)."""
 
     def __init__(self, path: str | Path) -> None:
@@ -147,6 +145,27 @@ class MaxCountRate(ResultsDataMixin):
             max_countrate=self.max_countrate, max_frame=self.max_frame,
             frame_duration=self.frame_duration, sums=self.sums)
 
+    def plot(self, show: bool = True) -> None:
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        ax.plot(np.asarray(list(self.sums.keys())) * self.frame_duration,
+                list(self.sums.values()))
+        ax.grid(True)
+        ax.set_xlabel("Time (s)")
+        ax.set_ylabel("Count Rate (cps)")
+        ax2 = ax.twiny()
+        ax2.set_xlabel("Frame")
+        ax2.set_xlim(np.asarray(ax.get_xlim()) / self.frame_duration)
+        plt.tight_layout()
+        ax.plot(self.max_time, self.max_countrate, "ro")
+        if show:
+            plt.show()
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        return {"Max Count Rate": QuaacDatum(
+            value=self.max_countrate, unit="counts/s")}
+
 
 @dataclasses.dataclass
 class PlanarUniformityResults(DataModel):
@@ -156,7 +175,6 @@ class PlanarUniformityResults(DataModel):
     cfov_differential_uniformity: float
 
 
-@not_ported("plot_to")
 @dataclasses.dataclass
 class FOV:
     """A field of view of a gamma camera."""
@@ -210,10 +228,35 @@ class FOV:
         p = np.unravel_index(np.nanargmin(nan_array), self.fov.shape)
         return int(p[0]), int(p[1])
 
+    def plot_to(self, axis, color: str) -> None:
+        from matplotlib.patches import Rectangle
+
+        axis.scatter(self.boundary_x, self.boundary_y, color=color,
+                     label=f"{self.name} Boundary", marker=".")
+        axis.scatter(self.max_point[1], self.max_point[0], color=color,
+                     marker="s", label=f"{self.name} Max")
+        axis.scatter(self.min_point[1], self.min_point[0], color=color,
+                     marker="x", label=f"{self.name} Min")
+        max_x = max(self._differential_uniformities[1].values())
+        max_y = max(self._differential_uniformities[0].values())
+        if max_x > max_y:
+            max_point = max(self._differential_uniformities[1],
+                            key=self._differential_uniformities[1].get)
+            width, height = self.window_size, 1
+        else:
+            max_point = max(self._differential_uniformities[0],
+                            key=self._differential_uniformities[0].get)
+            width, height = 1, self.window_size
+        rect = Rectangle((max_point[1] - 0.5, max_point[0] - 0.5), width,
+                         height, linewidth=1, edgecolor=color,
+                         facecolor="none",
+                         label=f"{self.name} Max Diff. Window")
+        axis.add_patch(rect)
+        axis.legend()
+
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class PlanarUniformity:
+class PlanarUniformity(QuaacMixin):
     """NEMA planar uniformity of each frame's UFOV and CFOV."""
 
     def __init__(self, path: str | Path) -> None:
@@ -293,6 +336,40 @@ class PlanarUniformity:
         array[~binary_frame.cpu().numpy()] = 0
         return array, bin_size
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        first = data["Frame 1"]
+        return {
+            "UFOV Integral Uniformity": QuaacDatum(
+                value=first["ufov_integral_uniformity"], unit="%"),
+            "UFOV Differential Uniformity": QuaacDatum(
+                value=first["ufov_differential_uniformity"], unit="%"),
+            "CFOV Integral Uniformity": QuaacDatum(
+                value=first["cfov_integral_uniformity"], unit="%"),
+            "CFOV Differential Uniformity": QuaacDatum(
+                value=first["cfov_differential_uniformity"], unit="%"),
+        }
+
+    def plot(self, show: bool = True, cmap: str = "gray"):
+        import matplotlib.pyplot as plt
+
+        figs, axes = [], []
+        for key, result in self.frame_results.items():
+            fig, axis = plt.subplots()
+            nan_array = np.where(result["binned_frame"] == 0, np.nan,
+                                 result["binned_frame"])
+            axis.imshow(result["binned_frame"], cmap=cmap,
+                        vmin=np.nanmin(nan_array), vmax=np.nanmax(nan_array))
+            result["ufov"].plot_to(axis, color="y")
+            result["cfov"].plot_to(axis, color="r")
+            axis.legend(loc="upper right")
+            fig.suptitle(f"Frame {key}")
+            figs.append(fig)
+            axes.append(axis)
+        if show:
+            plt.show()
+        return figs, axes
+
 
 def _largest_region(binary_frame: np.ndarray, array: np.ndarray, device):
     """The largest 4-connected region of a binary frame (``regionprops``,
@@ -342,8 +419,7 @@ class CenterOfRotationResults(ResultBase):
 
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class CenterOfRotation(ResultsDataMixin):
+class CenterOfRotation(ResultsDataMixin, QuaacMixin):
     """Centre-of-rotation deviation from a sinusoid fit of the point
     source's centroid against the projection angle."""
 
@@ -397,6 +473,44 @@ class CenterOfRotation(ResultsDataMixin):
         return CenterOfRotationResults(x_deviation_mm=self.x_cor_deviation_mm,
                                        y_deviation_mm=self.y_cor_deviation_mm)
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        return {
+            "X-axis Center of Rotation Deviation": QuaacDatum(
+                value=self.x_cor_deviation_mm, unit="mm"),
+            "Y-axis Center of Rotation Deviation": QuaacDatum(
+                value=self.y_cor_deviation_mm, unit="mm"),
+        }
+
+    def plot(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        figs, axes = [], []
+        fig, ax = plt.subplots()
+        ax.plot(self.cor_x["x_values"], self.cor_x["y_values"], "bo")
+        ax.plot(self.cor_x["x_values"], self.cor_x["fitted_y_values"], "r-",
+                label=f"{self.cor_x['a']:2.2f}{self.cor_x['b']:+2.3f}"
+                      f"*sin({self.cor_x['c']:2.2f}*\N{GREEK SMALL LETTER THETA}"
+                      f"{self.cor_x['phi']:+2.2f})")
+        ax.legend()
+        ax.set_xlabel("Angle (radians)")
+        ax.set_ylabel("Position (mm)")
+        ax.grid(True)
+        fig.suptitle("Sine fit (X-axis)")
+        figs.append(fig)
+        axes.append(ax)
+        for cor, axis_name in zip([self.cor_x, self.cor_y], ["X-axis", "Y-axis"]):
+            fig, ax = plt.subplots()
+            ax.plot(cor["x_values"], cor["residuals"], "bo")
+            ax.set_xlabel("Angle (radians)")
+            ax.set_ylabel("Residual Error (mm)")
+            ax.grid(True)
+            fig.suptitle(f"Residual error ({axis_name})")
+            figs.append(fig)
+            axes.append(ax)
+        if show:
+            plt.show()
+        return figs, axes
+
 
 def sinusoidal_fit(theta, a, b, c, phi):
     """IAEA p 176, method B (2): ``a + b sin(c theta + phi)``; numpy for
@@ -424,7 +538,6 @@ class TomographicResolutionResults(ResultBase):
     z_fwtm: float
 
 
-@not_ported("plot")
 @dataclasses.dataclass
 class TomographicResolutionAxisData:
     axis: str
@@ -447,10 +560,27 @@ class TomographicResolutionAxisData:
     def fwtm(self) -> float:
         return fwtm_from_gaussian(self.popt[2])
 
+    def plot(self):
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        xs = np.arange(len(self.profile_array)) * self.pixel_size
+        x_interp = np.linspace(0, len(self.profile_array),
+                               num=len(self.profile_array) * 20) * self.pixel_size
+        ax.plot(xs, self.profile_array, "bo", label="Raw Data")
+        ax.set_xlim((self.popt[1] - 10 * self.popt[2]),
+                    (self.popt[1] + 10 * self.popt[2]))
+        ax.plot(x_interp, gaussian_fit(x_interp, *self.popt), "r-",
+                label="Gaussian Fit")
+        ax.grid(True)
+        ax.set_xlabel("Distance (mm)")
+        ax.set_ylabel("Counts")
+        fig.suptitle(f"{self.axis}-axis profile")
+        return fig, ax
+
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class TomographicResolution(ResultsDataMixin):
+class TomographicResolution(ResultsDataMixin, QuaacMixin):
     """Gaussian FWHM and FWTM along each axis through the 3D weighted
     centroid of a point source (IAEA 4.3.4)."""
 
@@ -488,6 +618,24 @@ class TomographicResolution(ResultsDataMixin):
             x_fwhm=self.x_axis.fwhm, y_fwhm=self.y_axis.fwhm,
             z_fwhm=self.z_axis.fwhm, x_fwtm=self.x_axis.fwtm,
             y_fwtm=self.y_axis.fwtm, z_fwtm=self.z_axis.fwtm)
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        return {name: QuaacDatum(value=data[key], unit="mm")
+                for key, name in (("x_fwhm", "X-axis FWHM"),
+                                  ("y_fwhm", "Y-axis FWHM"),
+                                  ("z_fwhm", "Z-axis FWHM"),
+                                  ("x_fwtm", "X-axis FWTM"),
+                                  ("y_fwtm", "Y-axis FWTM"),
+                                  ("z_fwtm", "Z-axis FWTM"))}
+
+    def plot(self):
+        figs, axes = [], []
+        for axis in (self.x_axis, self.y_axis, self.z_axis):
+            fig, ax = axis.plot()
+            figs.append(fig)
+            axes.append(ax)
+        return figs, axes
 
 
 def fwhm_from_gaussian(std: float) -> float:
@@ -534,8 +682,7 @@ class SimpleSensitivityResults(ResultBase):
 
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class SimpleSensitivity(ResultsDataMixin):
+class SimpleSensitivity(ResultsDataMixin, QuaacMixin):
     """IAEA 2.3.9 'simple' sensitivity."""
 
     def __init__(self, phantom_path: str | Path,
@@ -602,8 +749,18 @@ class SimpleSensitivity(ResultsDataMixin):
             sensitivity_mbq=self.sensitivity_mbq,
             sensitivity_uci=self.sensitivity_uci)
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        return {
+            "Phantom Counts per Second": QuaacDatum(
+                value=data["phantom_cps"], unit="cps"),
+            "Sensitivity (MBq)": QuaacDatum(
+                value=data["sensitivity_mbq"], unit="MBq"),
+            "Sensitivity (uCi)": QuaacDatum(
+                value=data["sensitivity_uci"], unit="uCi"),
+        }
 
-@not_ported("plot")
+
 @dataclasses.dataclass
 class DoubleGaussianProfile:
     """Two-peak Gaussian fit of a bar profile."""
@@ -642,6 +799,23 @@ class DoubleGaussianProfile:
     def pixel_size_difference(self) -> float:
         return (self.measured_pixel_size - self.pixel_size) / self.pixel_size * 100
 
+    def plot(self):
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        xs = np.arange(len(self.profile_array)) * self.pixel_size
+        x_interp = np.linspace(0, len(self.profile_array),
+                               num=len(self.profile_array) * 20) * self.pixel_size
+        ax.plot(xs, self.profile_array, "bo", label="Raw Data")
+        ax.plot(x_interp, two_peak_gaussian_fit(x_interp, *self.popt), "r-",
+                label="Gaussian Fit")
+        ax.grid(True)
+        ax.legend()
+        ax.set_xlabel("Distance (mm)")
+        ax.set_ylabel("Counts")
+        fig.suptitle(f"{self.axis}-axis profile")
+        return fig, ax
+
 
 @dataclasses.dataclass(kw_only=True)
 class FourBarResolutionResults(ResultBase):
@@ -656,8 +830,7 @@ class FourBarResolutionResults(ResultBase):
 
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class FourBarResolution(ResultsDataMixin):
+class FourBarResolution(ResultsDataMixin, QuaacMixin):
     """X and Y line-spread resolution and pixel size from a four-bar
     phantom."""
 
@@ -705,6 +878,36 @@ class FourBarResolution(ResultsDataMixin):
             x_pixel_size_difference=self.x_axis.pixel_size_difference,
             y_pixel_size_difference=self.y_axis.pixel_size_difference)
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        return {
+            "X-axis FWHM": QuaacDatum(value=data["x_fwhm"], unit="mm"),
+            "Y-axis FWHM": QuaacDatum(value=data["y_fwhm"], unit="mm"),
+            "X-axis Measured Pixel Size": QuaacDatum(
+                value=data["x_measured_pixel_size"], unit="mm"),
+            "Y-axis Measured Pixel Size": QuaacDatum(
+                value=data["y_measured_pixel_size"], unit="mm"),
+        }
+
+    def plot(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        figs, axes = [], []
+        fig, ax = plt.subplots()
+        figs.append(fig)
+        axes.append(ax)
+        ax.imshow(self.stack.frames[0].array, cmap="gray")
+        self.x_prof.plot2axes(ax, edgecolor="y")
+        self.y_prof.plot2axes(ax, edgecolor="y")
+        fig.suptitle(f"Four Bar Resolution for {self.path.name}")
+        for axis in (self.x_axis, self.y_axis):
+            fig, ax = axis.plot()
+            figs.append(fig)
+            axes.append(ax)
+        if show:
+            plt.show()
+        return figs, axes
+
 
 @dataclasses.dataclass(kw_only=True)
 class QuadrantResolutionResults(ResultBase):
@@ -712,8 +915,7 @@ class QuadrantResolutionResults(ResultBase):
 
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class QuadrantResolution(ResultsDataMixin):
+class QuadrantResolution(ResultsDataMixin, QuaacMixin):
     """Bar-pattern MTF and FWHM of four quadrants by moments."""
 
     def __init__(self, path: str | Path) -> None:
@@ -753,6 +955,35 @@ class QuadrantResolution(ResultsDataMixin):
                            "spacing": float(1 / (lpmm * 2))}
             for idx, ((lpmm, mtf), fwhm) in enumerate(
                 zip(self.mtf.mtfs.items(), self.mtf.fwhms.values()))})
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        return {f"Quadrant {key} MTF": QuaacDatum(value=value["mtf"], unit="")
+                for key, value in data["quadrants"].items()}
+
+    def plot(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        figs, axes = [], []
+        fig, ax = plt.subplots()
+        figs.append(fig)
+        axes.append(ax)
+        ax.imshow(self.stack.frames[0].array, cmap="gray")
+        for idx, (spacing, roi) in enumerate(self.rois.items()):
+            roi.plot2axes(ax, edgecolor="y",
+                          text=f"{idx + 1}: {spacing:.2f}mm")
+        fig.suptitle(f"Quadrant Resolution for {self.path.name}")
+        fig, ax = plt.subplots()
+        figs.append(fig)
+        axes.append(ax)
+        self.mtf.plot(ax)
+        fig, ax = plt.subplots()
+        figs.append(fig)
+        axes.append(ax)
+        self.mtf.plot_fwhms(ax)
+        if show:
+            plt.show()
+        return figs, axes
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -850,8 +1081,27 @@ class TomographicUniformity(ResultsDataMixin, PlanarUniformity):
             f"{self.frame_result['ufov'].differential_uniformity:.3f}%\n"
             f"Center-to-Border ratio: {self.center_ratio:.3f}\n")
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        return {
+            "CFOV Integral Uniformity": QuaacDatum(
+                value=data["cfov_integral_uniformity"], unit="%"),
+            "UFOV Integral Uniformity": QuaacDatum(
+                value=data["ufov_integral_uniformity"], unit="%"),
+            "Center-to-Border Ratio": QuaacDatum(
+                value=data["center_border_ratio"], unit=""),
+        }
 
-@not_ported("plot_to")
+    def plot(self, show: bool = True, cmap: str = "gray"):
+        import matplotlib.pyplot as plt
+
+        figs, axes = super().plot(show=False, cmap=cmap)
+        self.frame_result["center_fov"].plot_to(axes[0], color="b")
+        if show:
+            plt.show()
+        return figs, axes
+
+
 @dataclasses.dataclass
 class TomographicROI:
     """A spherical sample of a 3D array."""
@@ -884,6 +1134,11 @@ class TomographicROI:
     def max_contrast(self) -> float:
         return michelson(np.asarray([self.min_value, self.uniformity_baseline])) * 100
 
+    def plot_to(self, axis):
+        d = DiskROI(array=self.array3d[int(round(self.z))],
+                    radius=self.radius, center=Point(self.x, self.y))
+        d.plot2axes(axes=axis, edgecolor="r", text=str(self.number))
+
 
 @dataclasses.dataclass(kw_only=True)
 class TomographicContrastResults(ResultBase):
@@ -892,8 +1147,7 @@ class TomographicContrastResults(ResultBase):
 
 
 @capture_warnings
-@not_ported(*_REPORTS)
-class TomographicContrast(ResultsDataMixin):
+class TomographicContrast(ResultsDataMixin, QuaacMixin):
     """Jaszczak sphere contrast against the most uniform slice."""
 
     def __init__(self, path: str | Path):
@@ -998,6 +1252,48 @@ class TomographicContrast(ResultsDataMixin):
                            "mean_contrast": roi.mean_contrast,
                            "max_contrast": roi.max_contrast}
                      for idx, roi in self.rois.items()})
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data(as_dict=True)
+        datum = {f"Sphere {idx} Mean": QuaacDatum(value=s["mean"], unit="")
+                 for idx, s in data["spheres"].items()}
+        datum["Uniformity Baseline"] = QuaacDatum(
+            value=data["uniformity_baseline"], unit="")
+        return datum
+
+    def plot(self, show: bool = True):
+        import matplotlib.pyplot as plt
+
+        roi_fig, roi_ax = plt.subplots()
+        median_slice = int(round(np.median(
+            [roi.z for roi in self.rois.values()])))
+        roi_ax.imshow(self.stack.frames[median_slice].array, cmap="gray")
+        for roi in self.rois.values():
+            roi.plot_to(roi_ax)
+        roi_ax.set_title(f"Sphere frame ({median_slice + 1})")
+        unif_fig, unif_ax = plt.subplots()
+        unif_ax.imshow(self.stack.frames[int(self.uniformity_frame) - 1].array,
+                       cmap="gray")
+        un_data = self.slice_data[self.uniformity_frame]
+        Circle((un_data["center"].x, un_data["center"].y),
+               radius=un_data["fov diameter"] / 2).plot2axes(
+            unif_ax, edgecolor="b")
+        unif_ax.set_title(f"Uniformity frame ({self.uniformity_frame})")
+        cont_fig, cont_ax = plt.subplots()
+        cont_ax.plot([int(i) for i in self.rois],
+                     [roi.mean_contrast for roi in self.rois.values()],
+                     color="b", marker="o", label="Mean Contrast")
+        cont_ax.plot([int(i) for i in self.rois],
+                     [roi.max_contrast for roi in self.rois.values()],
+                     color="r", marker="o", label="Max Contrast")
+        cont_ax.set_xlabel("Sphere Number")
+        cont_ax.set_ylabel("Contrast (Michelson * 100)")
+        cont_ax.legend()
+        cont_ax.grid(True)
+        cont_ax.set_title("Contrast vs Sphere Number")
+        if show:
+            plt.show()
+        return (roi_fig, unif_fig, cont_fig), (roi_ax, unif_ax, cont_ax)
 
 
 def _minimize_nm(f, x0: np.ndarray) -> np.ndarray:

@@ -41,9 +41,14 @@ def label_reference(masks: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
     """Plain PyTorch twin of the label mode: (B, H, W) bool → int32, -1 for
     background, each component its minimum per-image linear index.
 
-    Port of ``_label_xla`` (``ops/label.py:81-153``) with the CPU schedule:
-    a neighbour-min pass and two pointer jumps per iteration, repeated until
-    nothing changes. There is no iteration cap."""
+    The labels of ``_label_xla`` (``ops/label.py:81-153``) by root hooking:
+    each pixel's label points to a pixel of its component with no larger
+    index; a round takes the smallest label next to each pixel, lowers the
+    pixel's root to it (``scatter_reduce`` of ``amin``, which no order
+    changes) and jumps every pointer to its root. The fixpoint is reached in
+    a few rounds where the neighbour-min propagation of ``_label_xla`` takes
+    one round a pixel of a component's length, and its labels are the same:
+    every component's minimum. There is no iteration cap."""
     b, h, w = masks.shape
     n = h * w
     shifts = _CROSS if connectivity == 1 else _CROSS + _DIAG
@@ -57,9 +62,13 @@ def label_reference(masks: torch.Tensor, connectivity: int = 1) -> torch.Tensor:
         for dy, dx in shifts:
             best = torch.minimum(best, padded[:, 1 - dy:1 - dy + h, 1 - dx:1 - dx + w])
         best = torch.where(masks, best, n)
-        flat = torch.cat([best.reshape(b, n), sentinel], dim=1)  # sentinel maps to itself
-        flat = flat.gather(1, flat)
-        flat = flat.gather(1, flat)
+        flat = torch.cat([lab.reshape(b, n), sentinel], dim=1)  # sentinel maps to itself
+        flat = flat.scatter_reduce(1, lab.reshape(b, n), best.reshape(b, n), "amin")
+        while True:
+            jumped = flat.gather(1, flat)
+            if torch.equal(jumped, flat):
+                break
+            flat = jumped
         new = flat[:, :n].reshape(b, h, w)
         if torch.equal(new, lab):
             break

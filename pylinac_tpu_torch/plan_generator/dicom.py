@@ -11,10 +11,8 @@ dual-stack picket fence). Plans are the port's own ``core/dcm.py``
 datasets and files, byte-equal to JAX's for the same UIDs and clock.
 ``to_dicom_images`` (``:388``) renders each beam's fluence on ``device``
 (:func:`.fluence.generate_fluences`) into a simulated EPID frame on the
-host.
-
-Not ported (ROADMAP item 11): ``PlanGenerator.plot_fluences`` (``:383``)
-raises ``NotImplementedError``.
+host, and ``plot_fluences`` (``:383``) draws those maps, one figure a beam
+(:func:`.fluence.plot_fluences`).
 """
 
 from __future__ import annotations
@@ -31,8 +29,7 @@ import numpy as np
 
 from ..core import dcm, scale
 from ..core.dcm import Dataset, generate_uid
-from ..core.utilities import not_ported
-from .fluence import generate_fluences
+from .fluence import generate_fluences, plot_fluences
 from .mlc import MLCShaper
 
 
@@ -287,7 +284,6 @@ class HalcyonBeam(_Beam):
             couch_lng=couch_lng, couch_rot=0)
 
 
-@not_ported("plot_fluences")
 class PlanGenerator(ABC):
     """Generates QA RT plans from a template plan."""
 
@@ -394,6 +390,13 @@ class PlanGenerator(ABC):
 
     def as_dicom(self) -> Dataset:
         return self.ds
+
+    def plot_fluences(self, width_mm: float = 400, resolution_mm: float = 0.5,
+                      dtype=np.uint16, device=None) -> list:
+        """One figure a beam of the plan's fluence, made on ``device``
+        (``None`` means CUDA)."""
+        return plot_fluences(self.as_dicom(), width_mm, resolution_mm, dtype, show=True,
+                             device=device)
 
     def to_dicom_images(self, simulator, invert: bool = True,
                         device=None) -> list[Dataset]:

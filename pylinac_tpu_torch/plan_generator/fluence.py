@@ -8,9 +8,8 @@ rows; :func:`..ops.fluence.interval_fluence` accumulates the apertures on
 both devices, so the float32 map equals JAX's bit for bit. The map comes
 back to the host and is cast to ``dtype`` only then, as in JAX; a dual-stack
 (Halcyon) beam keeps the elementwise minimum of its stacks.
-
-Not ported (ROADMAP item 11): ``plot_fluences`` (``:99``) raises
-``NotImplementedError``.
+``plot_fluences`` (``:99``) draws one figure a beam of those maps, its
+matplotlib imported inside; ``device`` is where the maps are made.
 """
 
 from __future__ import annotations
@@ -109,7 +108,19 @@ def generate_fluences(rt_plan, width_mm: float, resolution_mm: float = 0.1,
 
 
 def plot_fluences(plan, width_mm: float, resolution_mm: float, dtype=np.uint16,
-                  show: bool = True) -> list:
-    """One figure a beam: waits for the port's reports."""
-    raise NotImplementedError(
-        "plot_fluences waits for ROADMAP item 11 (reports: plots, PDF, QuAAC) in the port")
+                  show: bool = True, device=None) -> list:
+    """One figure per beam."""
+    import matplotlib.pyplot as plt
+
+    fluences = generate_fluences(plan, width_mm, resolution_mm, dtype, device=device)
+    figs = []
+    for i, fluence in enumerate(fluences):
+        fig, ax = plt.subplots()
+        m = ax.imshow(fluence, aspect="auto")
+        fig.colorbar(m)
+        name = str(plan.BeamSequence[i].BeamName)
+        ax.set_title(name)
+        figs.append(fig)
+    if show:
+        plt.show()
+    return figs

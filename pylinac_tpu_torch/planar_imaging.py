@@ -23,31 +23,37 @@ a binary closing and ``regionprops`` on the device. ROI sampling, MTF and
 contrast are host numpy, as in JAX; the circle profiles stay on the CPU.
 The class-level ROI lists are shared between instances, as in JAX.
 
-Not ported (ROADMAP item 11): the plots, ``save_analyzed_image``,
-``publish_pdf``, ``plotly_analyzed_images`` and the QuAAC datapoints, which
-raise ``NotImplementedError``; the demo and URL loaders.
+The reports (``ImagePhantomBase`` ``:521-784``, the FC-2 family's
+``:930-999``, Las Vegas's contrast graph ``:1141``, the mammography ROIs'
+drawing ``:1986``, ``:2061`` and ``ACRDigitalMammography`` ``:2195-2230``)
+are JAX's: ``to_quaac`` and ``plotly_analyzed_images`` need no matplotlib;
+the plots, ``save_analyzed_image`` and ``publish_pdf`` (which embeds their
+PNGs) import it inside and raise ``ModuleNotFoundError`` without it. Not
+ported: the demo and URL loaders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import math
 import warnings
+import webbrowser
 from pathlib import Path
 from typing import BinaryIO, Callable
 
 import numpy as np
 import torch
 
-from .core import image
-from .core import contrast
+from .core import contrast, image, pdf
 from .core.contrast import Contrast
 from .core.exceptions import NotAnalyzed
 from .core.geometry import Circle, Point, Rectangle, Vector
 from .core.mtf import MTF
 from .core.profile import CollapsedCircleProfile, FWXMProfilePhysical, Normalization
 from .core.roi import DiskROI, HighContrastDiskROI, LowContrastDiskROI, RectangleROI
-from .core.utilities import ResultBase, ResultsDataMixin, not_ported, resolve_device
+from .core.utilities import (QuaacDatum, QuaacMixin, ResultBase, ResultsDataMixin,
+                             resolve_device)
 from .core.warnings import capture_warnings
 from .metrics.image import SizedDiskLocator
 from .metrics.utils import RegionView, valid_region_views
@@ -201,9 +207,7 @@ class _CannyRegion:
         return self._intensity[r0:r1, c0:c1]
 
 
-@not_ported("plot_analyzed_image", "plotly_analyzed_images", "save_analyzed_image",
-             "publish_pdf", "_quaac_datapoints")
-class ImagePhantomBase(ResultsDataMixin):
+class ImagePhantomBase(ResultsDataMixin, QuaacMixin):
     """Planar phantom analysis engine."""
 
     _demo_filename: str
@@ -544,6 +548,266 @@ class ImagePhantomBase(ResultsDataMixin):
                               for p in list(range(10, 100, 10))[::-1]]
         return data
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data()
+        return {
+            "Median Contrast": QuaacDatum(
+                value=data.median_contrast, unit="",
+                description="Median contrast of the low contrast ROIs"),
+            "Median CNR": QuaacDatum(
+                value=data.median_cnr, unit="",
+                description="Median contrast-to-noise ratio"),
+            "Num Contrast ROIs Seen": QuaacDatum(
+                value=data.num_contrast_rois_seen, unit=""),
+            "Percent Integral Uniformity": QuaacDatum(
+                value=data.percent_integral_uniformity, unit="%"),
+            "Phantom area": QuaacDatum(value=data.phantom_area, unit="pixels"),
+        }
+
+    def plot_analyzed_image(self, image: bool = True, low_contrast: bool = True,
+                            high_contrast: bool = True, show: bool = True,
+                            split_plots: bool = False,
+                            show_roi_labels: bool = False,
+                            roi_label_font_size="medium", **plt_kwargs):
+        import matplotlib.pyplot as plt
+
+        plot_low = low_contrast and bool(self.low_contrast_rois)
+        plot_high = high_contrast and bool(self.high_contrast_rois)
+        num_plots = sum((image, plot_low, plot_high))
+        figs, names = [], []
+        if split_plots:
+            axes = []
+            for _ in range(num_plots):
+                fig, axis = plt.subplots(1)
+                figs.append(fig)
+                axes.append(axis)
+        else:
+            fig, axes = plt.subplots(1, num_plots)
+            figs = [fig]
+            if num_plots < 2:
+                axes = [axes]
+            axes = list(np.atleast_1d(np.asarray(axes)).ravel())
+        if image:
+            img_ax = axes.pop(0)
+            names.append("image")
+            img_ax.imshow(self.image.array, cmap="gray",
+                          vmin=self.window_floor(), vmax=self.window_ceiling())
+            img_ax.axis("off")
+            img_ax.set_title(f"{self.common_name} Phantom Analysis")
+            if self.phantom_outline_object is not None:
+                outline = self._create_phantom_outline_object()
+                if isinstance(outline, Circle):
+                    img_ax.add_patch(plt.Circle(
+                        (outline.center.x, outline.center.y), outline.radius,
+                        fill=False, edgecolor="b"))
+                else:
+                    img_ax.add_patch(plt.Rectangle(
+                        (outline.center.x - outline.width / 2,
+                         outline.center.y - outline.height / 2),
+                        outline.width, outline.height, angle=0,
+                        fill=False, edgecolor="b"))
+            for roi in self.low_contrast_background_rois:
+                img_ax.add_patch(plt.Circle((roi.center.x, roi.center.y),
+                                            roi.radius, fill=False, edgecolor="b"))
+            for roi in self.low_contrast_rois:
+                img_ax.add_patch(plt.Circle((roi.center.x, roi.center.y),
+                                            roi.radius, fill=False,
+                                            edgecolor=roi.plot_color))
+            if self.high_contrast_rois:
+                for roi, mtf in zip(self.high_contrast_rois,
+                                    self.mtf.norm_mtfs.values()):
+                    color = ("b" if mtf > self._high_contrast_threshold else "r")
+                    img_ax.add_patch(plt.Circle((roi.center.x, roi.center.y),
+                                                roi.radius, fill=False,
+                                                edgecolor=color))
+            img_ax.scatter(x=self.phantom_center.x, y=self.phantom_center.y,
+                           marker="x")
+        if plot_low:
+            lowcon_ax = axes.pop(0)
+            names.append("low_contrast")
+            self._plot_lowcontrast_graph(lowcon_ax)
+        if plot_high:
+            hicon_ax = axes.pop(0)
+            names.append("high_contrast")
+            self._plot_highcontrast_graph(hicon_ax)
+        if show:
+            plt.show()
+        return figs, names
+
+    def plotly_analyzed_images(self, show: bool = True, show_colorbar: bool = True,
+                               show_legend: bool = True, **kwargs):
+        """Plotly-schema figures (:mod:`.core.plotly_utils`): the marked
+        image and the low- and high-contrast graphs, ``{name: Figure}``."""
+        from .core import plotly_utils as pu
+
+        figs: dict[str, pu.Figure] = {}
+        fig = pu.image_figure(self.image.array,
+                              title=f"{self.common_name} Phantom Analysis",
+                              show_colorbar=show_colorbar,
+                              zmin=self.window_floor(), zmax=self.window_ceiling(),
+                              **kwargs)
+        shapes = fig.layout.setdefault("shapes", [])
+        if self.phantom_outline_object is not None:
+            outline = self._create_phantom_outline_object()
+            if isinstance(outline, Circle):
+                shapes.append({
+                    "type": "circle",
+                    "x0": outline.center.x - outline.radius,
+                    "x1": outline.center.x + outline.radius,
+                    "y0": outline.center.y - outline.radius,
+                    "y1": outline.center.y + outline.radius,
+                    "line": {"color": "blue"}})
+            else:
+                shapes.append({
+                    "type": "rect",
+                    "x0": outline.center.x - outline.width / 2,
+                    "x1": outline.center.x + outline.width / 2,
+                    "y0": outline.center.y - outline.height / 2,
+                    "y1": outline.center.y + outline.height / 2,
+                    "line": {"color": "blue"}})
+        for roi in self.low_contrast_background_rois:
+            shapes.append({
+                "type": "circle",
+                "x0": roi.center.x - roi.radius, "x1": roi.center.x + roi.radius,
+                "y0": roi.center.y - roi.radius, "y1": roi.center.y + roi.radius,
+                "line": {"color": "blue"}})
+        for roi in self.low_contrast_rois:
+            shapes.append({
+                "type": "circle",
+                "x0": roi.center.x - roi.radius, "x1": roi.center.x + roi.radius,
+                "y0": roi.center.y - roi.radius, "y1": roi.center.y + roi.radius,
+                "line": {"color": roi.plot_color}})
+        if self.high_contrast_rois:
+            for roi, mtf in zip(self.high_contrast_rois,
+                                self.mtf.norm_mtfs.values()):
+                color = "blue" if mtf > self._high_contrast_threshold else "red"
+                shapes.append({
+                    "type": "circle",
+                    "x0": roi.center.x - roi.radius, "x1": roi.center.x + roi.radius,
+                    "y0": roi.center.y - roi.radius, "y1": roi.center.y + roi.radius,
+                    "line": {"color": color}})
+        fig.add_trace(pu.marker_trace([self.phantom_center.x],
+                                      [self.phantom_center.y], name="Center",
+                                      symbol="x", showlegend=show_legend))
+        figs["Image"] = fig
+
+        if self.low_contrast_rois:
+            low = pu.Figure()
+            low.add_trace(pu.scatter_trace(
+                np.arange(len(self.low_contrast_rois)),
+                [r.contrast for r in self.low_contrast_rois],
+                name="Contrast", mode="lines+markers"))
+            low.add_trace(pu.scatter_trace(
+                np.arange(len(self.low_contrast_rois)),
+                [r.contrast_to_noise for r in self.low_contrast_rois],
+                name="CNR", mode="lines+markers", yaxis="y2"))
+            pu.add_horizontal_line(low, self._low_contrast_threshold,
+                                   color="magenta")
+            pu.add_title(low, "Low-frequency Contrast")
+            low.update_layout(xaxis_title="ROI #", yaxis_title="Contrast",
+                              showlegend=show_legend)
+            low.layout["yaxis2"] = {"title": "CNR", "overlaying": "y",
+                                    "side": "right"}
+            figs["Low Contrast"] = low
+        if self.high_contrast_rois:
+            hi = pu.Figure()
+            hi.add_trace(pu.scatter_trace(
+                list(self.mtf.norm_mtfs.keys()),
+                list(self.mtf.norm_mtfs.values()),
+                name="rMTF", mode="lines+markers"))
+            pu.add_horizontal_line(hi, self._high_contrast_threshold)
+            pu.add_title(hi, "High-frequency rMTF")
+            hi.update_layout(xaxis_title="Line pairs / mm",
+                             yaxis_title="relative MTF", showlegend=show_legend)
+            figs["High Contrast"] = hi
+        if show:
+            for f in figs.values():
+                f.show()
+        return figs
+
+    def _plot_lowcontrast_graph(self, axes):
+        (line1,) = axes.plot(
+            [roi.contrast for roi in self.low_contrast_rois],
+            marker="o", color="m", label="Contrast")
+        axes.axhline(self._low_contrast_threshold, color="m")
+        axes.grid(True)
+        axes.set_title("Low-frequency Contrast")
+        axes.set_xlabel("ROI #")
+        axes.set_ylabel("Contrast")
+        axes2 = axes.twinx()
+        axes2.set_ylabel("CNR")
+        (line2,) = axes2.plot(
+            [roi.contrast_to_noise for roi in self.low_contrast_rois],
+            marker="^", label="CNR")
+        axes.legend(handles=[line1, line2])
+
+    def _plot_highcontrast_graph(self, axes):
+        axes.plot(list(self.mtf.norm_mtfs.keys()),
+                  list(self.mtf.norm_mtfs.values()), marker="*")
+        axes.axhline(self._high_contrast_threshold, color="k")
+        axes.grid(True)
+        axes.set_title("High-frequency rMTF")
+        axes.set_xlabel("Line pairs / mm")
+        axes.set_ylabel("relative MTF")
+
+    def save_analyzed_image(self, filename=None, split_plots: bool = False,
+                            to_streams: bool = False, **kwargs):
+        import matplotlib.pyplot as plt
+
+        if filename is None and to_streams is False:
+            raise ValueError("Must pass in a filename unless saving to streams.")
+        figs, names = self.plot_analyzed_image(show=False, split_plots=split_plots,
+                                               **kwargs)
+        for key in ("image", "low_contrast", "high_contrast", "show",
+                    *self._LABEL_KWARGS):
+            kwargs.pop(key, None)
+        if not split_plots:
+            plt.savefig(filename, **kwargs)
+            return None
+        if not to_streams:
+            import os.path as osp
+
+            f, ext = osp.splitext(filename)
+            filenames = [f + "_" + name + ext for name in names]
+        else:
+            filenames = [io.BytesIO() for _ in names]
+        for fig, fname in zip(figs, filenames):
+            fig.savefig(fname, **kwargs)
+        if to_streams:
+            return dict(zip(names, filenames))
+        return filenames
+
+    def publish_pdf(self, filename: str, notes: str | None = None,
+                    open_file: bool = False, metadata: dict | None = None,
+                    logo=None):
+        canvas = pdf.PylinacCanvas(
+            filename, page_title=f"{self.common_name} Phantom Analysis",
+            metadata=metadata, logo=logo)
+        canvas.add_text(text=self.results(as_list=True), location=(1.5, 25),
+                        font_size=14)
+        if notes is not None:
+            canvas.add_text(text="Notes:", location=(1, 5.5), font_size=12)
+            canvas.add_text(text=notes, location=(1, 5))
+        data = io.BytesIO()
+        self.save_analyzed_image(data, image=True, low_contrast=False,
+                                 high_contrast=False)
+        canvas.add_image(data, location=(1, 3.5), dimensions=(19, 19))
+        if self.high_contrast_rois:
+            canvas.add_new_page()
+            data = io.BytesIO()
+            self.save_analyzed_image(data, image=False, low_contrast=False,
+                                     high_contrast=True)
+            canvas.add_image(data, location=(1, 7), dimensions=(19, 19))
+        if self.low_contrast_rois:
+            canvas.add_new_page()
+            data = io.BytesIO()
+            self.save_analyzed_image(data, image=False, low_contrast=True,
+                                     high_contrast=False)
+            canvas.add_image(data, location=(1, 7), dimensions=(19, 19))
+        canvas.finish()
+        if open_file:
+            webbrowser.open(filename)
+
 # --------------------------------------------------------------------------- #
 #                          light/rad (FC-2 family)                            #
 # --------------------------------------------------------------------------- #
@@ -694,6 +958,76 @@ class StandardImagingFC2(ImagePhantomBase):
             field_bb_offset_x_mm=self.field_bb_offset_mm.x,
             field_bb_offset_y_mm=self.field_bb_offset_mm.y)
 
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data()
+        return {
+            "Field size (X)": QuaacDatum(value=data.field_size_x_mm, unit="mm"),
+            "Field size (Y)": QuaacDatum(value=data.field_size_y_mm, unit="mm"),
+            "Field EPID offset (X)": QuaacDatum(
+                value=data.field_epid_offset_x_mm, unit="mm"),
+            "Field EPID offset (Y)": QuaacDatum(
+                value=data.field_epid_offset_y_mm, unit="mm"),
+            "Field BB offset (X)": QuaacDatum(
+                value=data.field_bb_offset_x_mm, unit="mm"),
+            "Field BB offset (Y)": QuaacDatum(
+                value=data.field_bb_offset_y_mm, unit="mm"),
+        }
+
+    def plot_analyzed_image(self, show: bool = True, **kwargs):
+        import matplotlib.pyplot as plt
+
+        for key in ImagePhantomBase._LABEL_KWARGS:
+            kwargs.pop(key, None)
+        fig, axes = plt.subplots(1)
+        axes.imshow(self.image.array, cmap="gray")
+        axes.axis("off")
+        axes.set_title(f"{self.common_name} Phantom Analysis")
+        axes.axhline(y=self.bb_center.y, color="g", xmin=0.25, xmax=0.75,
+                     label="BB Centroid")
+        axes.axvline(x=self.bb_center.x, color="g", ymin=0.25, ymax=0.75)
+        axes.axhline(y=self.epid_center.y, color="b", label="EPID Center")
+        axes.axvline(x=self.epid_center.x, color="b")
+        axes.axhline(y=self.field_center.y, xmin=0.15, xmax=0.85, color="red",
+                     label="Field Center")
+        axes.axvline(x=self.field_center.x, ymin=0.15, ymax=0.85, color="red")
+        axes.legend()
+        if show:
+            plt.show()
+        return [fig], ["image"]
+
+    def save_analyzed_image(self, filename=None, to_streams: bool = False,
+                            **kwargs):
+        import matplotlib.pyplot as plt
+
+        if filename is None and to_streams is False:
+            raise ValueError("Must pass in a filename unless saving to streams.")
+        figs, names = self.plot_analyzed_image(show=False, **kwargs)
+        if not to_streams:
+            plt.savefig(filename, **kwargs)
+            return None
+        streams = [io.BytesIO() for _ in names]
+        for fig, stream in zip(figs, streams):
+            fig.savefig(stream, **kwargs)
+        return dict(zip(names, streams))
+
+    def publish_pdf(self, filename: str, notes=None, open_file: bool = False,
+                    metadata: dict | None = None, logo=None):
+        canvas = pdf.PylinacCanvas(
+            filename, page_title=f"{self.common_name} Phantom Analysis",
+            metadata=metadata, logo=logo)
+        canvas.add_text(text=self.results(as_list=True), location=(1.5, 25),
+                        font_size=14)
+        if notes is not None:
+            canvas.add_text(text="Notes:", location=(1, 5.5), font_size=12)
+            canvas.add_text(text=notes, location=(1, 5))
+        data = io.BytesIO()
+        self.save_analyzed_image(data, to_streams=True)
+        canvas.add_image(list(self.save_analyzed_image(to_streams=True).values())[0],
+                         location=(1, 3.5), dimensions=(19, 19))
+        canvas.finish()
+        if open_file:
+            webbrowser.open(filename)
+
 @capture_warnings
 class IMTLRad(StandardImagingFC2):
     """IMT L-Rad single-center-BB light/rad phantom."""
@@ -832,6 +1166,27 @@ class LasVegas(ImagePhantomBase):
 
     def _phantom_angle_calc(self) -> float:
         return 0.0
+
+    def _plot_lowcontrast_graph(self, axes):
+        (line1,) = axes.plot([r.contrast for r in self.low_contrast_rois],
+                             marker="o", color="m", label="Contrast")
+        axes.axhline(self._low_contrast_threshold, color="m")
+        axes.grid(True)
+        axes.set_title("Low-frequency Contrast")
+        axes.set_xlabel("ROI #")
+        axes.set_ylabel("Contrast")
+        axes2 = axes.twinx()
+        axes2.set_ylabel("CNR")
+        (line2,) = axes2.plot(
+            [r.contrast_to_noise for r in self.low_contrast_rois],
+            marker="^", label="CNR")
+        axes3 = axes.twinx()
+        axes3.set_ylabel("Visibility")
+        (line3,) = axes3.plot([r.visibility for r in self.low_contrast_rois],
+                              marker="*", color="blue", label="Visibility")
+        axes3.axhline(self.visibility_threshold, color="blue")
+        axes3.spines.right.set_position(("axes", 1.2))
+        axes.legend(handles=[line1, line2, line3])
 
     def results(self, as_list: bool = False) -> str | list[str]:
         text = [f"{self.common_name} results:",
@@ -1654,6 +2009,16 @@ class ACRDigitalMammography(ImagePhantomBase):
             if self.num_specks_visible >= full_thresh:
                 self.score = 1
 
+        def plot2axes(self, axes, fill: bool = False, alpha: float = 1.0,
+                      **kwargs):
+            color = ACR_SCORE_COLORS[self.score]
+            super().plot2axes(axes, edgecolor=color, fill=fill, alpha=alpha)
+            for roi in self.specks:
+                roi.plot2axes(
+                    axes,
+                    edgecolor="green" if roi.passed_visibility else "red",
+                    fill=fill, alpha=alpha)
+
         def as_dict(self) -> dict:
             return {"num_specks_visible": self.num_specks_visible,
                     "score": self.score,
@@ -1708,6 +2073,10 @@ class ACRDigitalMammography(ImagePhantomBase):
                 "fiber_len_full_thresh": self.fiber_len_full_thresh,
                 "score": self.score,
             }
+
+        def plot2axes(self, axes, fill: bool = False, alpha: float = 1.0,
+                      **kwargs):
+            super().plot2axes(axes=axes, edgecolor=self.plot_color)
 
     def _phantom_radius_calc(self) -> float:
         """Mammography ROIs are placed in physical mm: radius = dpmm."""
@@ -1840,3 +2209,40 @@ class ACRDigitalMammography(ImagePhantomBase):
             speck_group_rois=[s.as_dict() for s in self.speck_groups],
             fiber_score=sum(f.score for f in self.fibers),
             fiber_rois=[f.as_dict() for f in self.fibers])
+
+    def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
+        data = self.results_data()
+        return {
+            "Mass ROI Score": QuaacDatum(
+                value=data.mass_score, unit="",
+                description="Number of Mass ROIs 'seen'"),
+            "Fiber Score": QuaacDatum(value=data.fiber_score, unit="",
+                                      description="Fiber ACR score"),
+            "Speck Group Score": QuaacDatum(
+                value=data.speck_group_score, unit="",
+                description="Speck Group ACR score"),
+        }
+
+    def plot_analyzed_image(self, image: bool = True, low_contrast: bool = True,
+                            high_contrast: bool = True, show: bool = True,
+                            split_plots: bool = False, **plt_kwargs):
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        ax.imshow(self.image.array, cmap="gray", vmin=self.window_floor(),
+                  vmax=self.window_ceiling())
+        for roi in self.low_contrast_background_rois:
+            ax.add_patch(plt.Circle((roi.center.x, roi.center.y), roi.radius,
+                                    fill=False, edgecolor="b"))
+        for roi in self.low_contrast_rois:
+            color = "green" if roi.contrast > roi.contrast_threshold else "red"
+            ax.add_patch(plt.Circle((roi.center.x, roi.center.y), roi.radius,
+                                    fill=False, edgecolor=color))
+        for grp in self.speck_groups:
+            grp.plot2axes(ax)
+        for fiber in self.fibers:
+            fiber.plot2axes(ax)
+        ax.set_title(f"{self.common_name} Phantom Analysis")
+        if show:
+            plt.show()
+        return [fig], ["image"]

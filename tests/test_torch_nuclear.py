@@ -296,8 +296,8 @@ def test_errors_and_stubs(files):
     tu = tn.TomographicUniformity(files["tu"])
     with pytest.raises(ValueError):
         tu.analyze(first_frame=4, last_frame=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tn.MaxCountRate(files["mcr"]).plot()
+    with pytest.raises(AttributeError, match="sums"):  # not analysed, as in JAX
+        tn.MaxCountRate(files["mcr"]).plot(show=False)
     assert tn.determine_binning(1.2) == 4
     assert tn.fwhm_from_gaussian(-1.0) == pytest.approx(2.3548, abs=1e-3)
     if not torch.cuda.is_available():

@@ -438,14 +438,15 @@ def test_boundaries_and_reports(jax_side):
     assert np.array_equal(np.diff(hd), [5] * 14 + [2.5] * 32 + [5] * 14)
     t, _ = _generators(jax_side)
     t.add_open_field_beam(x1=-20, x2=20, y1=-20, y2=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        t.plot_fluences()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tpg.plot_fluences(t.as_dicom(), 400, 1)
+    figs = tpg.plot_fluences(t.as_dicom(), 400, 1, show=False, device="cpu")
+    assert [f.axes[0].get_title() for f in figs] == \
+        [str(b.BeamName) for b in t.as_dicom().BeamSequence]
     assert tpg.generate_fluences(tdcm.Dataset(), 100, device="cpu").size == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tpg.generate_fluences(t.as_dicom(), 100)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t.plot_fluences()
 
 
 def test_jax_hd_boundaries_leave_hd_plans_without_fluence(jax_side, monkeypatch):

@@ -272,10 +272,18 @@ def test_not_analyzed_and_reports(jp, images):
         obj.results_data()
     with pytest.raises(NotAnalyzed):
         tp.StandardImagingFC2(images["fc2"]).results_data()
-    for name in ("plot_analyzed_image", "save_analyzed_image", "publish_pdf",
-                 "plotly_analyzed_images", "_quaac_datapoints"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            getattr(obj, name)()
+    # the reports of an unanalysed phantom raise as JAX's do; the plots
+    # search for the phantom first, on the default device (CUDA)
+    with pytest.raises(NotAnalyzed):
+        obj._quaac_datapoints()
+    with pytest.raises(ValueError, match="filename"):
+        obj.save_analyzed_image()
+    with pytest.raises(TypeError):
+        obj.publish_pdf()
+    if not torch.cuda.is_available():
+        for name in ("plot_analyzed_image", "plotly_analyzed_images"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                getattr(obj, name)(show=False)
 
 
 def _settings(cls):

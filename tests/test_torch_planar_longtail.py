@@ -9,10 +9,23 @@ the same DICOM files; ``results_data()`` without date and version, the
 results text and the warnings are equal (every float to the bit, where
 the bar is mm 0.01, % 0.1, contrast and rMTF 0.1 %). The drawings come
 from the JAX test file's own drawing function, imported; the ``cuda`` test draws
-its frame with the port's generator."""
+its frame with the port's generator.
+
+Seven of the long-tail classes are also analysed as a user would, with no
+override and nothing patched: each class's own ``_phantom_center_calc``,
+``_phantom_angle_calc`` and ``_phantom_radius_calc`` (Las Vegas's
+preprocessing and direction check, PTW's and Leeds's inversion checks,
+Leeds's rotation from its circle profile) on the same drawings, held to
+JAX at the bar (mm 0.01, % 0.1, contrast and rMTF 0.1 %, px 1e-3, integers
+and strings exact) or to JAX's exception type. Doselab MC2 is left out:
+its ``phantom_angle`` runs its Hough angle search 14 times an analysis.
+The reports of two of those analyses (Las Vegas's own contrast graph, the
+Leeds TOR's circle outline) are held to JAX's as
+``tests/test_torch_reports_planar.py`` holds the others'."""
 
 import json
 import warnings
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -23,6 +36,17 @@ from pylinac_tpu_torch.imggen.simulators import AS1000Image
 from pylinac_tpu_torch.imggen.utils import generate_lightrad
 
 from tests.test_torch_planar import _data, card_agrees
+from tests.test_torch_reports import frozen, jax_mods, plt
+from tests.test_torch_reports_beams import (_pdfs_equal, _plotly_equal, _quaac_equal,
+                                            _same_drawing)
+
+# the fixtures above are imported to be used here
+__all__ = ["frozen", "jax_mods", "plt"]
+
+# the classes analysed with automatic detection (Doselab MC2 left out)
+AUTO = ["LasVegas", "ElektaLasVegas", "PTWEPIDQC", "SNCMV", "SNCMV12510", "LeedsTOR",
+        "LeedsTORBlue"]
+_AUTO = {}
 
 FC2_VARIANTS = [
     ("IMTLRad", ((0, 0),), 3),
@@ -126,3 +150,65 @@ def test_fc2_variant_card_matches_cpu(cuda, tmp_path, name, bbs, bb_size):
     _, hd, htext, hwarn = _analyse(getattr(tp, name), path, (), "cpu")
     card_agrees(cd, hd)
     assert cwarn == hwarn
+
+
+def _auto(lt, tmp_path_factory, name):
+    """(JAX, port) of ``name`` on its long-tail drawing, analysed with no
+    override and nothing patched, once a module: each the ``_analyse``
+    tuple or the exception raised."""
+    if name not in _AUTO:
+        spec = next(s for s in lt.SPECS if s.cls.__name__ == name)
+        path = str(tmp_path_factory.mktemp("auto") / f"{name}.dcm")
+        lt._build_phantom_image(spec, path)
+        out = []
+        for cls, device in ((spec.cls, None), (getattr(tp, name), "cpu")):
+            try:
+                out.append(_analyse(cls, path, (), device))
+            except Exception as e:  # held to JAX's type below
+                out.append(e)
+        _AUTO[name] = out
+    return _AUTO[name]
+
+
+@pytest.mark.parametrize("name", AUTO)
+def test_longtail_automatic_detection_matches_jax(lt, tmp_path_factory, name):
+    """The phantom found as a user's analysis finds it: the centre, angle
+    and radius searches, then every ROI, at the bar; the text and the
+    warnings equal."""
+    ref, got = _auto(lt, tmp_path_factory, name)
+    if isinstance(ref, Exception):
+        assert type(got).__name__ == type(ref).__name__, (got, ref)
+        return
+    assert not isinstance(got, Exception), got
+    (j, jd, jtext, jwarn), (t, td, ttext, twarn) = ref, got
+    card_agrees(td, jd)
+    assert ttext == jtext and twarn == jwarn
+    for attr in ("phantom_angle", "phantom_radius"):
+        assert getattr(t, attr) == pytest.approx(getattr(j, attr), abs=1e-3), attr
+    assert (t.phantom_center.x, t.phantom_center.y) == pytest.approx(
+        (j.phantom_center.x, j.phantom_center.y), abs=1e-3)
+    assert td["analysis_type"] == j.common_name
+
+
+def _reported(lt, tmp_path_factory, name) -> SimpleNamespace:
+    ref, got = _auto(lt, tmp_path_factory, name)
+    return SimpleNamespace(port=got[0], jax=ref[0])
+
+
+@pytest.mark.parametrize("report", ["pdf", "quaac", "plotly", "plot"])
+@pytest.mark.parametrize("name", ["LasVegas", "LeedsTOR"])
+def test_longtail_reports_match_jax(lt, tmp_path_factory, frozen, plt, tmp_path, name, report):
+    """The reports of the analyses above: the PDF's bytes, the QuAAC text,
+    the plotly JSON and the figures' signatures (the contrast graphs, and
+    the outline: Las Vegas's rectangle, the Leeds TOR's circle)."""
+    pair = _reported(lt, tmp_path_factory, name)
+    if report == "pdf":
+        _pdfs_equal(pair, tmp_path, notes="long tail")
+    elif report == "quaac":
+        _quaac_equal(pair, tmp_path, "yaml")
+    elif report == "plotly":
+        names = ["Image", "Low Contrast"] + (["High Contrast"] if pair.jax.high_contrast_rois
+                                             else [])
+        _plotly_equal(pair, names, show_colorbar=False)
+    else:
+        _same_drawing(plt, pair, lambda o: o.plot_analyzed_image(show=False))

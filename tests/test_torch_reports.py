@@ -178,7 +178,10 @@ def _signature(fig) -> list[dict]:
     return out
 
 
-def _assert_same_figure(got, want):
+def _assert_same_figure(got, want, rtol=0.0, atol=PX_TOL, image_atol=0.0):
+    """The figures' signatures: texts, labels and colours exact, the image
+    arrays equal (or within ``image_atol``) and every other number within
+    ``atol`` (and ``rtol``)."""
     sg, sw = _signature(got), _signature(want)
     assert len(sg) == len(sw) > 0
     for g, w in zip(sg, sw):
@@ -186,21 +189,21 @@ def _assert_same_figure(got, want):
             assert g[key] == w[key], key
         assert len(g["images"]) == len(w["images"])
         for a, b in zip(g["images"], w["images"]):
-            np.testing.assert_array_equal(a, b)
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=image_atol)
         np.testing.assert_allclose(np.asarray(g["clims"], float), np.asarray(w["clims"], float),
-                                   atol=PX_TOL)
+                                   rtol=rtol, atol=atol)
         assert len(g["lines"]) == len(w["lines"])
         for a, b in zip(g["lines"], w["lines"]):
-            np.testing.assert_allclose(a[0], b[0], atol=PX_TOL)
-            np.testing.assert_allclose(a[1], b[1], atol=PX_TOL)
+            np.testing.assert_allclose(a[0], b[0], rtol=rtol, atol=atol)
+            np.testing.assert_allclose(a[1], b[1], rtol=rtol, atol=atol)
             assert a[2:] == b[2:]
         assert len(g["patches"]) == len(w["patches"])
         for a, b in zip(g["patches"], w["patches"]):
             assert a[0] == b[0] and a[2:] == b[2:]
-            np.testing.assert_allclose(a[1], b[1], atol=PX_TOL)
+            np.testing.assert_allclose(a[1], b[1], rtol=rtol, atol=atol)
         assert len(g["offsets"]) == len(w["offsets"])
         for a, b in zip(g["offsets"], w["offsets"]):
-            np.testing.assert_allclose(a, b, atol=PX_TOL)
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
 
 
 # ---------------------------------------------------------------------------

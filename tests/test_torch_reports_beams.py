@@ -183,18 +183,20 @@ def _plotly_equal(pair, names, **kwargs) -> None:
     _assert_close_tree(got, want)
 
 
-def _same_drawing(plt, pair, draw) -> None:
-    """``draw(obj)`` in both packages: the same figures opened, each with
-    the same signature."""
+def _same_drawing(plt, pair, draw, compare=_assert_same_figure) -> None:
+    """``draw(obj)`` in both packages, each on a fresh current figure (a
+    drawing may open its own figures or draw on pyplot's current one): the
+    same figures with axes, each compared by ``compare``."""
     figs = []
     for obj in (pair.port, pair.jax):
-        before = set(plt.get_fignums())
+        fresh = plt.figure()
+        before = set(plt.get_fignums()) - {fresh.number}
         draw(obj)
-        figs.append([plt.figure(n) for n in plt.get_fignums() if n not in before]
-                    or [plt.gcf()])
-    assert len(figs[0]) == len(figs[1])
+        figs.append([f for f in map(plt.figure, plt.get_fignums())
+                     if f.number not in before and f.axes])
+    assert len(figs[0]) == len(figs[1]) > 0
     for got, want in zip(*figs):
-        _assert_same_figure(got, want)
+        compare(got, want)
     plt.close("all")
 
 
@@ -512,19 +514,16 @@ def test_dlg_plot_before_analysis_raises(jx, dlg):
 
 
 # ---------------------------------------------------------------------------
-# the stubs left
+# the stubs
 # ---------------------------------------------------------------------------
-def test_stubs_left_belong_to_the_last_report_slice():
-    """Every report still raising ``NotImplementedError`` through
-    ``not_ported`` is one of the planar, FPA, nuclear, log analyzer, contrib
-    and plan generator classes."""
+def test_no_report_stub_is_left():
+    """No ``not_ported`` stub is left in the port and the helper is gone:
+    every report method of every class is ported."""
     import pylinac_tpu_torch as pkg
+    from pylinac_tpu_torch.core import utilities
 
     root = Path(pkg.__file__).parent
-    stubbed = set()
-    for path in root.rglob("*.py"):
-        if "@not_ported(" in path.read_text():
-            stubbed.add(path.relative_to(root).as_posix())
-    assert stubbed == {"planar_imaging.py", "field_profile_analysis.py", "nuclear.py",
-                       "log_analyzer.py", "contrib/orthogonality.py",
-                       "plan_generator/dicom.py"}
+    stubbed = [path.relative_to(root).as_posix() for path in root.rglob("*.py")
+               if "not_ported" in path.read_text() or "ROADMAP item 11" in path.read_text()]
+    assert stubbed == []
+    assert not hasattr(utilities, "not_ported")
