@@ -133,7 +133,9 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   FC-2 light/rad frame on AS1200 (150 mm field, the 15 x 15 BB set, every
   BB near the edge so each goes through the high-pass and a second 3x3
   median), the 13 long-tail phantoms and the 4 FC-2 variants on AS1000
-  frames by the JAX tests' recipes, and the ACR mammography phantom drawn
+  frames by the JAX tests' recipes (nine of the 13 also with their own
+  detection, ``PLANAR_AUTO``, the Doselab MC2 kV and MV among them), and
+  the ACR mammography phantom drawn
   at 0.07 mm on a 2560x3328 frame, each through ``analyze`` on the card
   with the median's and the CCL kernel's launches counted and every input
   held bit-equal to the twins (Canny's hysteresis, ``keep_largest``,
@@ -4106,16 +4108,20 @@ def check_planar_results(name: str, obj, data: dict, what: str) -> None:
 
 
 # the long-tail classes analysed with their own detection (no override, nothing
-# patched); Doselab MC2 is left out: its angle search runs 14 times an analysis
+# patched); IBA Primus A, QC-kV and SNC kV raise on their drawings, as in JAX
 PLANAR_AUTO = ("LasVegas", "ElektaLasVegas", "PTWEPIDQC", "SNCMV", "SNCMV12510", "LeedsTOR",
-               "LeedsTORBlue")
+               "LeedsTORBlue", "DoselabMC2kV", "DoselabMC2MV")
+# Doselab MC2's angle search (a host Hough over 1001 angles) runs a dozen
+# times an analysis, seconds each: its counted card run is the one timed
+PLANAR_AUTO_SLOW = ("DoselabMC2kV", "DoselabMC2MV")
 
 
 def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     """The planar phantoms on the card: a QC-3 on an AS1200 frame (full
     detection), an FC-2 on AS1200 (150 mm field, the 15 x 15 BB set, every
-    BB through the high-pass), the 13 long-tail classes and the 4 FC-2
-    variants on AS1000 frames by the JAX tests' recipes, and the ACR
+    BB through the high-pass), the 13 long-tail classes (nine of them also
+    with their own detection) and the 4 FC-2 variants on AS1000 frames by
+    the JAX tests' recipes, and the ACR
     mammography phantom on a 2560 x 3328 detector at 0.07 mm; the 3x3
     median's and the CCL kernel's launches counted with every input held
     bit-equal to the twins (Canny's hysteresis, ``keep_largest``,
@@ -4124,7 +4130,9 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
     0.2 mm: at 8.5 M pixels the CPU run takes about 200 s, so
     ``scripts/planar_mammo_cpu.py`` compares that size; the fibres'
     closings of the full frame are held card against CPU here), warm runs equal
-    (QC-3 1 + 5, FC-2 and mammography 1 + 3), a profile of a warm QC-3, the kernels timed at the new shapes; then
+    (QC-3 1 + 5, FC-2 and mammography 1 + 3, the automatic detection 1 + 2;
+    Doselab MC2 timed by its counted run), a profile of a warm QC-3, the kernels timed at the
+    new shapes; then
     ``FieldProfileAnalysis`` of an AS1200 open field under each edge (host
     code) against the drawn width. Returns the median's launches and
     largest error, and the CCL lines."""
@@ -4215,15 +4223,19 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
         closings = []
         pairs = {**kernel_pairs(ccl), "median": (median.median3x3, median.median3x3_reference)}
         totals, seen_all, worst, card_data, card_objs = Counter(), [], {}, {}, {}
+        counted = {}  # key: (wall ms, launches) of the counted card run
         for name, key, analyze in runs:
             median.median3x3.launches = 0
             ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+            t0 = time.perf_counter()
             with recording_inputs(entries) as seen, \
                     recording_inputs([(tplanar, "binary_closing", "closing")]) as closed:
                 obj, data = run(name, key, analyze)
+            wall = (time.perf_counter() - t0) * 1e3
             closings += closed
             counts = {"label": ccl.label_batch.launches, "holes": ccl.hole_roots_batch.launches,
                       "median": median.median3x3.launches}
+            counted[key] = wall, counts
             what = f"{name} on {key}"
             check_counts(seen, counts, what)
             detects = key in ("qc3", "mammo") or key.startswith("auto_") or name in (
@@ -4278,24 +4290,29 @@ def planar_phase(card: str, median, ccl) -> tuple[int, float, list[dict]]:
 
         for name in PLANAR_AUTO:  # the long tail's own detection, warm on the card
             key = f"auto_{name}"
-            fresh = [getattr(p, name)(paths[key]) for _ in range(3)]
+            if name in PLANAR_AUTO_SLOW:  # after the other classes: kernels and path warm
+                warm, counts = counted[key]
+                label, holes, how = counts["label"], counts["holes"], "its counted run"
+            else:
+                fresh = [getattr(p, name)(paths[key]) for _ in range(3)]
 
-            def warm_auto():
-                obj = fresh.pop()
-                ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore")
-                    obj.analyze(device="cuda")
-                    data = obj.results_data(as_dict=True)
-                torch.cuda.synchronize()
-                return data, ccl.label_batch.launches, ccl.hole_roots_batch.launches
+                def warm_auto():
+                    obj = fresh.pop()
+                    ccl.label_batch.launches = ccl.hole_roots_batch.launches = 0
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        obj.analyze(device="cuda")
+                        data = obj.results_data(as_dict=True)
+                    torch.cuda.synchronize()
+                    return data, ccl.label_batch.launches, ccl.hole_roots_batch.launches
 
-            warm, outs = median_runs(card, f"warm {name} analyze with automatic detection "
-                                     f"(AS1000)", warm_auto, 3)
-            check_same_texts([results_text(o[0]) for o in outs], f"{name} warm runs")
+                warm, outs = median_runs(card, f"warm {name} analyze with automatic detection "
+                                         f"(AS1000)", warm_auto, 3)
+                check_same_texts([results_text(o[0]) for o in outs], f"{name} warm runs")
+                label, holes, how = outs[-1][1], outs[-1][2], "a warm analysis"
             obj = card_objs[key]
-            print(f"[{card}] {name} automatic detection: {warm:.1f} ms a warm analysis, "
-                  f"ccl.cu launches {outs[-1][1]} label + {outs[-1][2]} holes a run; centre "
+            print(f"[{card}] {name} automatic detection: {warm:.1f} ms {how}, "
+                  f"ccl.cu launches {label} label + {holes} holes a run; centre "
                   f"{obj.phantom_center}, angle {obj.phantom_angle:.4f}, radius "
                   f"{obj.phantom_radius:.4f} (card equal to the CPU above)")
 

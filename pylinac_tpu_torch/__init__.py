@@ -25,7 +25,10 @@ Standard Imaging QC-3, QC-kV and FC-2, Las Vegas, PTW EPID QC, IBA Primus
 A, the SNC kV and MV phantoms, the Doselab MC2 and RLf, IMT L-Rad, PTW
 Iso-Align, SNC FSQA and the ACR digital mammography phantom), the machine
 log analyzer (``Dynalog``, ``TrajectoryLog``, ``MachineLogs``,
-``load_log``), the nuclear-medicine suite (``nuclear``), stage timing
+``load_log``), the nuclear-medicine suite (``nuclear``: ``MaxCountRate``,
+``PlanarUniformity``, ``CenterOfRotation``, ``TomographicResolution``,
+``SimpleSensitivity``, ``FourBarResolution``, ``QuadrantResolution``,
+``TomographicUniformity``, ``TomographicContrast``, ``Nuclide``), stage timing
 (``profiling``), QA plan generation with its fluence maps
 (``TrueBeamPlanGenerator``, ``HalcyonPlanGenerator``, ``MLCShaper``,
 ``generate_fluences``, ``assign2machine``), the contributed jaw
@@ -53,9 +56,12 @@ from .ct import CatPhan503, CatPhan504, CatPhan600, CatPhan604, CatPhan700, CatP
 from .dlg import DLG
 from .helios import GEHeliosCTDaily
 from .log_analyzer import Dynalog, MachineLogs, TrajectoryLog, load_log
-from .field_analysis import (DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch, Protocol,
-                             analyze_field_batch)
+from .field_analysis import (Device, DeviceFieldAnalysis, FieldAnalysis, FieldAnalysisBatch,
+                             Protocol, analyze_field_batch)
 from .field_profile_analysis import FieldProfileAnalysis
+from .nuclear import (CenterOfRotation, FourBarResolution, MaxCountRate, Nuclide,
+                      PlanarUniformity, QuadrantResolution, SimpleSensitivity, TomographicContrast,
+                      TomographicResolution, TomographicUniformity)
 from .plan_generator import HalcyonPlanGenerator, MLCShaper, TrueBeamPlanGenerator, generate_fluences
 from .planar_imaging import (PTWEPIDQC, SNCFSQA, SNCMV, SNCMV12510, ACRDigitalMammography,
                              DoselabMC2kV, DoselabMC2MV, DoselabRLf, ElektaLasVegas, IBAPrimusA,
@@ -72,16 +78,17 @@ from .winston_lutz import (BBArrangement, BBConfig, WinstonLutz, WinstonLutz2D,
                            WinstonLutzMultiTargetMultiField, WinstonLutzMultiTargetMultiFieldResult)
 
 __all__ = ["ACRCT", "ACRDigitalMammography", "ACRMRILarge", "BBArrangement", "BBConfig", "CIRS062M", "CatPhan503", "CatPhan504", "CatPhan600", "CatPhan604",
-           "CatPhan700", "CatPhanBatch", "Centering", "DLG", "DRCS", "DRGS", "DRMLC",
-           "DeviceFieldAnalysis", "DoselabMC2MV", "Dynalog", "DoselabMC2kV", "DoselabRLf", "Edge",
+           "CatPhan700", "CatPhanBatch", "CenterOfRotation", "Centering", "DLG", "DRCS", "DRGS",
+           "DRMLC", "Device", "DeviceFieldAnalysis", "DoselabMC2MV", "Dynalog", "DoselabMC2kV", "DoselabRLf", "Edge",
            "ElektaLasVegas", "FieldAnalysis", "FieldAnalysisBatch", "FieldProfileAnalysis",
-           "GEHeliosCTDaily", "HalcyonPlanGenerator", "IBAPrimusA", "IMTLRad", "IsoAlign", "LasVegas", "LeedsTOR",
+           "FourBarResolution", "GEHeliosCTDaily", "HalcyonPlanGenerator", "IBAPrimusA", "IMTLRad", "IsoAlign", "LasVegas", "LeedsTOR",
            "LeedsTORBlue", "PTWEPIDQC", "SNCFSQA", "SNCMV", "SNCMV12510", "SNCkV",
            "StandardImagingFC2", "StandardImagingQC3", "StandardImagingQCkV",
            "HypersightQuartDVT", "Interpolation", "MLC", "MLCArrangement", "MLCShaper", "MachineLogs",
-           "MachineScale",
-           "Normalization", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "Protocol",
-           "QuartDVT", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "TrajectoryLog",
+           "MachineScale", "MaxCountRate",
+           "Normalization", "Nuclide", "Orientation", "PFResult", "PicketFence", "PicketFenceBatch", "PlanarUniformity", "Protocol",
+           "QuadrantResolution", "QuartDVT", "SimpleSensitivity", "Starshot", "StarshotBatch", "StarshotResults", "TomoCheese", "TomographicContrast",
+           "TomographicResolution", "TomographicUniformity", "TrajectoryLog",
            "TrueBeamPlanGenerator",
            "WinstonLutz",
            "WinstonLutz2D",

@@ -5,7 +5,10 @@ Port of ``geometric_center_idx`` (``pylinac_tpu/core/array_utils.py:15``),
 (``:33``), ``bit_invert`` (``:38``), ``ground`` (``:49``), ``filter`` (``:53``), ``stretch``
 (``:73``), ``get_dtype_info`` (``:85``), ``convert_to_dtype`` (``:92``),
 ``array_to_dicom`` (``:143``), ``_rt_image_position`` (``:136``),
-``find_nearest_idx`` (``:104``) and ``fill_middle_zeros`` (``:108``), and ``median3x3_array``, the 3x3
+``find_nearest_idx`` (``:104``), ``fill_middle_zeros`` (``:108``), the
+``is_monotonic*`` trio (``:124-132``) and
+``create_dicom_files_from_3d_array`` (``:185``, written through the port's
+``core/dcm.py``), and ``median3x3_array``, the 3x3
 median of an image or a stack through the kernel. ``array_to_dicom``
 stretches a float array over uint16, as the JAX function does (the
 projections of ``WinstonLutz.from_cbct``). ``filter`` and
@@ -128,6 +131,18 @@ def fill_middle_zeros(array: np.ndarray, cutoff_px: int = 0) -> np.ndarray:
     return filled
 
 
+def is_monotonically_increasing(array: np.ndarray) -> bool:
+    return bool(np.all(np.diff(array) > 0))
+
+
+def is_monotonically_decreasing(array: np.ndarray) -> bool:
+    return bool(np.all(np.diff(array) < 0))
+
+
+def is_monotonic(array: np.ndarray) -> bool:
+    return is_monotonically_increasing(array) or is_monotonically_decreasing(array)
+
+
 def median3x3_array(array: np.ndarray, device=None) -> np.ndarray:
     """3x3 median (scipy "reflect" edges) of an (H, W) image, or of each
     image of a (B, H, W) stack, in the array's dtype: one
@@ -222,3 +237,27 @@ def array_to_dicom(array: np.ndarray, sid: float, gantry: float, coll: float,
         for key, value in extra_tags.items():
             setattr(ds, key, value)
     return ds
+
+
+def create_dicom_files_from_3d_array(array: np.ndarray, out_dir=None,
+                                     slice_thickness: float = 1, pixel_size: float = 1):
+    """A pseudo-CT DICOM series of a 3D array, one uint16 file a slice along
+    its last axis, named ``{i}.dcm`` in ``out_dir`` (a new temporary folder
+    when None); the folder."""
+    import tempfile
+    from pathlib import Path
+
+    series_uid = dcm.generate_uid()
+    out_dir = Path(out_dir) if out_dir is not None else Path(tempfile.mkdtemp())
+    out_dir.mkdir(exist_ok=True, parents=True)
+    for i in range(array.shape[-1]):
+        ds = array_to_dicom(
+            array[..., i].astype(np.uint16), sid=1000, gantry=0, coll=0, couch=0, dpi=25.4,
+            extra_tags={
+                "SeriesInstanceUID": series_uid,
+                "ImagePositionPatient": [0.0, 0.0, float(i * slice_thickness)],
+                "SliceThickness": slice_thickness,
+                "PixelSpacing": [float(pixel_size), float(pixel_size)],
+            })
+        dcm.dcmwrite(out_dir / f"{i}.dcm", ds)
+    return out_dir

@@ -1,14 +1,17 @@
 """Contrast algorithms, numpy only.
 
-Port of ``pylinac_tpu/core/contrast.py``; ``Contrast`` keeps its names
-without the ``options()`` listing of ``OptionListMixin``.
+Port of ``pylinac_tpu/core/contrast.py``; ``Contrast`` lists its names
+by ``OptionListMixin.options()``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-class Contrast:
+from .utilities import OptionListMixin
+
+
+class Contrast(OptionListMixin):
     """Contrast calculation technique options."""
 
     MICHELSON = "Michelson"  #:

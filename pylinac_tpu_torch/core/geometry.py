@@ -1,20 +1,29 @@
 """Host geometry primitives, numpy only.
 
-Port of ``pylinac_tpu/core/geometry.py``: the degree ``cos`` and ``sin``
-(``:26-31``), ``direction_to_coords`` ``:34``, ``Point`` ``:44``, ``Vector`` ``:125``, ``Circle`` ``:174``,
+Port of ``pylinac_tpu/core/geometry.py``: the degree ``tan``, ``atan``,
+``cos`` and ``sin`` (``:18-31``), ``direction_to_coords`` ``:34``, ``Point``
+``:44``, ``Vector`` ``:125``, ``vector_is_close`` ``:167``, ``Circle`` ``:174``,
 ``Line`` ``:213`` (with the 3D point distance) and ``Rectangle`` ``:282``,
 with their drawing (``:194-368``): ``plot2axes`` draws on a matplotlib axes,
 imported by the patch it adds; ``plotly`` raises ``NotImplementedError`` as
-in the JAX package. ``tan``, ``atan``, ``vector_is_close`` and ``to_json``
-wait for a caller.
+in the JAX package; and ``to_json`` ``:372``.
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Iterable
+from typing import Any
 
 import numpy as np
+
+
+def tan(degrees: float) -> float:
+    return math.tan(math.radians(degrees))
+
+
+def atan(x: float, y: float) -> float:
+    return math.degrees(math.atan2(x, y))
 
 
 def cos(degrees: float) -> float:
@@ -155,6 +164,11 @@ class Vector:
 
     def __eq__(self, other) -> bool:
         return self.x == other.x and self.y == other.y and self.z == other.z
+
+
+def vector_is_close(vector1: Vector, vector2: Vector, delta: float = 0.1) -> bool:
+    """Whether two vectors are within ``delta`` of each other in every component."""
+    return all(abs(getattr(vector1, c) - getattr(vector2, c)) <= delta for c in ("x", "y", "z"))
 
 
 class Circle:
@@ -335,3 +349,7 @@ class Rectangle:
 
     def plotly(self, fig, **kwargs) -> None:  # pragma: no cover
         raise NotImplementedError("plotly is not available in this environment")
+
+
+def to_json(data: Point | Vector) -> dict[str, Any]:
+    return data.dict()

@@ -3,44 +3,49 @@ arrays.
 
 Port of the part of ``pylinac_tpu/core/image.py`` that the analyses use:
 ``equate_images`` (``:45``), ``load`` (``:89``, DICOM, XIM and arrays),
-``load_multiples`` (``:113``),
-``BaseImage`` (``:201-470``: ``truncated_path``, ``center``,
-``physical_shape``, ``date_created``, ``filter`` (``:270``), ``crop`` with
-``edges``, ``flipud``, ``fliplr``, ``invert``, ``bit_invert``, ``roll``,
-``rot90``, ``rotate`` (``:308``, bilinear through
+``load_multiples`` (``:113``), ``ImageLike`` (``:42``), ``BaseImage``
+(``:201-470``: ``from_multiples`` (``:238``), ``truncated_path``,
+``center``, ``physical_shape``, ``date_created``, ``filter`` (``:270``),
+``crop`` with ``edges``, ``flipud``, ``fliplr``, ``invert``, ``bit_invert``,
+``roll``, ``rot90``, ``rotate`` (``:308``, bilinear through
 :func:`pylinac_tpu_torch.ops.interp.map_coordinates`), ``threshold``,
 ``as_binary``, ``dist2edge_min`` (``:336``), ``ground``, ``normalize``,
 ``check_inversion`` (``:352``), ``check_inversion_by_histogram``, ``gamma``,
 the Bakai approximation (``:377-402``), ``compute``, ``as_dicom``,
 ``as_type``, ``shape``, ``size``, ``ndim``, ``dtype``, ``sum``, indexing,
 the numpy array protocol, ``__sub__``, ``plot`` (``:471``) and the
-``base_path`` and ``source`` set at ``:222-227``), ``XIM`` (``:494``, the file
-parsed by :mod:`pylinac_tpu_torch.core.xim`), ``DicomImage`` (``:522``:
-load, ``save`` (``:548``) with ``_unscale_dicom_values``, ``z_position``,
-``slice_spacing``, ``sid``, ``sad``, ``dpi``, ``dpmm``, ``cax``,
-``as_dicom``), ``LinacDicomImage`` (``:635-694``: axis angles from tags,
-file names or overrides), ``ArrayImage`` (``:739``, with ``dpi``, ``sid``
-and ``dpmm``), ``z_position`` (``:775``), ``DicomImageStack``
-(``:796-879``: UID filter, z-sort, ``slice_spacing``, ``metadata``,
-``from_zip``, ``plot`` ``:865``, ``__delitem__`` ``:874``), ``LazyDicomImageStack`` (``:881``:
-paths and metadata kept, pixels decoded on each item access),
-``LazyZipDicomImageStack`` (``:949``), ``FileImage`` (``:696``: TIFF, PNG
-and JPEG files through Pillow, with ``dpi`` and ``dpmm``), ``NMImageStack``
-(``:963``), ``tiff_to_dicom``, ``load_raw_visionrt`` and
-``load_raw_cyberknife`` (``:991-1010``) and ``_rescale_dicom_values``
-(``:142``). Pixels stay on the host as numpy; the analyses stage them on the
-card. A compressed slice (``core/compressed_px.py``) loads as any other.
-Pillow is imported where a file is opened, never with the module.
+``base_path`` and ``source`` set at ``:222-227``), ``XIM`` (``:494``, the
+file parsed by :mod:`pylinac_tpu_torch.core.xim`), ``DicomImage`` (``:522``:
+load, ``from_dataset`` (``:542``), ``save`` (``:548``) with
+``_unscale_dicom_values``, ``z_position``, ``slice_spacing``, ``sid``,
+``sad``, ``dpi``, ``dpmm``, ``cax``, ``as_dicom``), ``LinacDicomImage``
+(``:635-694``: axis angles from tags, file names or overrides),
+``ArrayImage`` (``:739``, with ``dpi``, ``sid`` and ``dpmm``),
+``z_position`` (``:775``), ``DicomImageStack`` (``:796-879``: UID filter,
+z-sort, ``slice_spacing``, ``metadata``, ``from_zip``, ``side_view``
+``:847``, ``array_3d`` ``:857``, ``roll`` ``:861``, ``plot`` ``:865``,
+``__delitem__`` ``:874``), ``LazyDicomImageStack`` (``:881``: paths and
+metadata kept, pixels decoded on each item access, ``array_3d`` ``:945``
+filled a slice at a time), ``LazyZipDicomImageStack`` (``:949``),
+``FileImage`` (``:696``: TIFF, PNG and JPEG files through Pillow, with
+``dpi`` and ``dpmm``), ``NMImageStack`` (``:963``), ``tiff_to_dicom``,
+``load_raw_visionrt`` and ``load_raw_cyberknife`` (``:991-1010``) and
+``_rescale_dicom_values`` (``:142``). Pixels stay on the host as numpy; the
+analyses stage them on the card. A compressed slice
+(``core/compressed_px.py``) loads as any other. Pillow is imported where a
+file is opened, never with the module.
 """
 
 from __future__ import annotations
 
+import io as _io
 import os.path as osp
 import re
 import warnings
 from collections import Counter
 from datetime import datetime
 from pathlib import Path
+from typing import Union
 
 import numpy as np
 import torch
@@ -57,6 +62,8 @@ from .xim import XimImage, is_xim
 MM_PER_INCH = 25.4
 FILE_TYPE = "file"
 STREAM_TYPE = "stream"
+
+ImageLike = Union["DicomImage", "ArrayImage", "FileImage", "LinacDicomImage"]
 
 
 def _rescale_dicom_values(unscaled, metadata, raw_pixels, invert_pixels):
@@ -94,6 +101,7 @@ class BaseImage:
     """A numpy pixel array with the array operations the analyses use."""
 
     array: np.ndarray
+    path: str | Path
 
     def __init__(self, path):
         if isinstance(path, (str, Path)) and not osp.isfile(path):
@@ -106,6 +114,11 @@ class BaseImage:
         else:
             self.path = ""
             self.source = STREAM_TYPE
+
+    @classmethod
+    def from_multiples(cls, filelist, method="mean", stretch=True, **kwargs):
+        """The images of ``filelist`` combined by :func:`load_multiples`."""
+        return load_multiples(filelist, method, stretch, **kwargs)
 
     @property
     def truncated_path(self) -> str:
@@ -596,6 +609,14 @@ class DicomImage(BaseImage):
             self.array, self.metadata, raw_pixels=raw_pixels,
             invert_pixels=invert_pixels)
 
+    @classmethod
+    def from_dataset(cls, dataset: dcm.Dataset):
+        """The image of a dataset in memory, written out and read back."""
+        stream = _io.BytesIO()
+        dcm.dcmwrite(stream, dataset)
+        stream.seek(0)
+        return cls(path=stream)
+
     def save(self, filename):
         """Write the image back out as DICOM, its values unscaled to the
         stored dtype (stretched to fit when they do not)."""
@@ -794,11 +815,25 @@ class DicomImageStack:
     def metadatas(self) -> list[dcm.Dataset]:
         return [img.metadata for img in self.images]
 
+    def side_view(self, axis: int) -> np.ndarray:
+        """The stack's maximum projection along ``axis`` of the (H, W, Z)
+        volume."""
+        return np.stack([i.array for i in self.images], axis=-1).max(axis=axis)
+
     @property
     def slice_spacing(self) -> float:
         """Median z-gap between slices."""
         zs = sorted(img.z_position for img in self.images)
         return float(np.median(np.abs(np.diff(zs))))
+
+    def array_3d(self) -> np.ndarray:
+        """The (Z, H, W) float32 volume."""
+        return np.stack([img.array for img in self.images]).astype(np.float32)
+
+    def roll(self, direction: str = "x", amount: int = 1) -> None:
+        """Roll every slice by :meth:`BaseImage.roll`."""
+        for img in self.images:
+            img.roll(direction, amount)
 
     def plot(self, slice_idx: int = 0, **kwargs):
         """Slice ``slice_idx`` drawn by :meth:`BaseImage.plot`."""
@@ -863,6 +898,15 @@ class LazyDicomImageStack(DicomImageStack):
     def slice_spacing(self) -> float:
         zs = sorted(z_position(m) for m in self._metas)
         return float(np.median(np.abs(np.diff(zs))))
+
+    def array_3d(self) -> np.ndarray:
+        """The (Z, H, W) float32 volume, filled a decoded slice at a time."""
+        first = self[0].array
+        volume = np.empty((len(self), *first.shape), np.float32)
+        volume[0] = first
+        for i in range(1, len(self)):
+            volume[i] = self[i].array
+        return volume
 
     def __getitem__(self, item) -> DicomImage:
         return DicomImage(self._paths[item], dtype=self._dtype, raw_pixels=self._raw_pixels)

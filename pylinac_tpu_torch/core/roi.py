@@ -8,8 +8,9 @@ low-contrast plot colours (``:213-221``); matplotlib is imported inside the
 drawing. The
 mammography specks take the argmax of ``DiskROI.masked_array`` (``:100``)
 over the disk's bounding window (``masked_argmax``, the same pixel without
-a full-frame array a speck); the masked arrays themselves are not ported.
-The statistics stay on the host, where the JAX package
+a full-frame array a speck); the full-frame masked arrays
+(``DiskROI.masked_array``, ``RectangleROI.masked_array`` ``:320``) are
+kept for callers. The statistics stay on the host, where the JAX package
 computes them too.
 """
 
@@ -108,6 +109,16 @@ class DiskROI(Circle):
     def circle_mask(self) -> np.ndarray:
         """The pixel values inside the circular ROI."""
         return disk_pixels(self._array, self.center, self.radius)
+
+    def masked_array(self) -> np.ndarray:
+        """The image as float64 with every pixel outside the ROI NaN."""
+        h, w = self._array.shape
+        yy, xx = np.mgrid[:h, :w]
+        r = self.radius
+        mask = ((yy - self.center.y) / r) ** 2 + ((xx - self.center.x) / r) ** 2 < 1
+        img = np.full((h, w), np.nan, dtype=float)
+        img[mask] = self._array[mask]
+        return img
 
     def masked_argmax(self) -> Point:
         """The pixel of the ROI's maximum, the first in row-major order: the
@@ -336,6 +347,17 @@ class RectangleROI(Rectangle):
             int(np.round(self.tl_corner.y)): int(np.round(self.bl_corner.y)),
             int(np.round(self.bl_corner.x)): int(np.round(self.br_corner.x)),
         ]
+
+    @cached_property
+    def masked_array(self) -> np.ndarray:
+        """The image as float64 with every pixel outside the polygon of the
+        vertices NaN."""
+        h, w = self._array.shape
+        img = np.full((h, w), np.nan, dtype=float)
+        rr, cc = _polygon_pixels(self._array, [v.y for v in self.vertices],
+                                 [v.x for v in self.vertices])
+        img[rr, cc] = self._array[rr, cc]
+        return img
 
     @cached_property
     def pixel_value(self) -> float:

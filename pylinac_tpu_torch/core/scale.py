@@ -3,7 +3,7 @@ Standard.
 
 Port of ``pylinac_tpu/core/scale.py`` (``wrap360`` ``:11``, ``wrap180``
 ``:16``, ``MachineScale`` ``:33``,
-``convert`` ``:58``), numpy only.
+``convert`` ``:58``, ``MachineScaleEnumStr`` ``:71``), numpy only.
 """
 
 from __future__ import annotations
@@ -70,3 +70,7 @@ def convert(input_scale: MachineScale, output_scale: MachineScale,
         output_scale.value["collimator_from_iec"](c),
         output_scale.value["rotation_from_iec"](r),
     )
+
+
+class MachineScaleEnumStr(str, Enum):
+    """A string enum of machine scales, empty as in the JAX package."""

@@ -2,8 +2,11 @@
 
 Port of ``ResultBase`` (``pylinac_tpu/core/utilities.py:43``), a pydantic
 model there, as a dataclass with the same fields, of ``ResultsDataMixin``
-(``:59-78``), of ``is_iterable`` ``:80``, ``Structure`` ``:117`` and
-``decode_binary`` ``:127`` (the log analyzer's binary reader), of the QuAAC
+(``:59-78``), of ``OptionListMixin`` ``:34``, ``is_iterable`` ``:80``,
+``simple_round`` ``:84``, ``uniquify`` ``:91``, ``TemporaryAttribute``
+``:101``, ``Structure`` ``:117``, ``decode_binary`` ``:127`` (the log
+analyzer's binary reader), ``is_close`` ``:245`` and ``is_close_degrees``
+``:255``, of the QuAAC
 export (``QuaacDatum``, ``QuaacMixin.to_quaac`` and ``_to_yaml``,
 ``:162-234``), of ``assign2machine`` ``:266`` (through the port's
 ``core/dcm.py``) and of
@@ -24,7 +27,7 @@ import struct
 from abc import abstractmethod
 from collections.abc import Iterable
 from datetime import date, datetime
-from typing import BinaryIO
+from typing import BinaryIO, Generic, TypeVar
 
 import numpy as np
 import torch
@@ -129,13 +132,25 @@ class ResultBase(DataModel):
     warnings: list[dict] = dataclasses.field(default_factory=list)
 
 
-class ResultsDataMixin(WarningCollectorMixin):
+class OptionListMixin:
+    """A mixin that lists class attribute options."""
+
+    @classmethod
+    def options(cls) -> list[str]:
+        return [option for attr, option in cls.__dict__.items()
+                if not callable(option) and not attr.startswith("__")]
+
+
+T = TypeVar("T")
+
+
+class ResultsDataMixin(Generic[T], WarningCollectorMixin):
     """``results_data()`` from a class's own ``_generate_results_data()``,
     with the warnings its decorated methods captured. Defined here and not
     in each class's body, so that ``capture_warnings`` never wraps it, as in
     the JAX package."""
 
-    def _generate_results_data(self) -> ResultBase:
+    def _generate_results_data(self) -> T:
         raise NotImplementedError
 
     def results_data(self, as_dict: bool = False, as_json: bool = False):
@@ -150,6 +165,59 @@ class ResultsDataMixin(WarningCollectorMixin):
 
 def is_iterable(obj) -> bool:
     return isinstance(obj, Iterable)
+
+
+def simple_round(number, decimals: int | None = 0):
+    """Round a number but allow None decimals (no-op)."""
+    if decimals is None:
+        return number
+    return round(number, decimals)
+
+
+def uniquify(seq: list[str], value: str) -> str:
+    """``value``, or the first of ``value1``, ``value2``, ... not in ``seq``."""
+    if value not in seq:
+        return value
+    i = 1
+    while f"{value}{i}" in seq:
+        i += 1
+    return f"{value}{i}"
+
+
+class TemporaryAttribute:
+    """Context manager to temporarily set an attribute."""
+
+    def __init__(self, cls, attribute_name, temporary_value):
+        self.cls = cls
+        self.attribute_name = attribute_name
+        self.temporary_value = temporary_value
+        self.original_value = getattr(cls, attribute_name)
+
+    def __enter__(self):
+        setattr(self.cls, self.attribute_name, self.temporary_value)
+
+    def __exit__(self, exc_type, exc_value, traceback):
+        setattr(self.cls, self.attribute_name, self.original_value)
+
+
+def is_close(val: float, target, delta: float = 1) -> bool:
+    """True if ``val`` is within ``delta`` of the target (or any of a
+    sequence of targets)."""
+    try:
+        targets = iter(target)
+    except TypeError:
+        targets = iter([target])
+    return any(t - delta < val < t + delta for t in targets)
+
+
+def is_close_degrees(angle1: float, angle2: float, delta: float = 1) -> bool:
+    """:func:`is_close` on the circle: angles compared the short way around."""
+    from .scale import wrap360
+
+    if delta < 0:
+        raise ValueError("Delta must be positive")
+    simple_diff = abs(wrap360(angle1) - wrap360(angle2))
+    return min(simple_diff, 360 - simple_diff) <= delta
 
 
 class Structure:

@@ -1,6 +1,7 @@
 """EPID simulators: AS500/AS1000/AS1200 detector geometries, numpy only.
 
-Port of ``pylinac_tpu/imggen/simulators.py`` (``Simulator`` ``:15``,
+Port of ``pylinac_tpu/imggen/simulators.py`` (``Simulator`` ``:15``, with
+``plot`` ``:44``, which imports matplotlib inside,
 ``AS500Image`` ``:54``, ``AS1000Image`` ``:61``, ``AS1200Image`` ``:68``).
 """
 
@@ -42,6 +43,16 @@ class Simulator(ABC):
 
     def generate_dicom(self, file_out_name: str, *args, **kwargs) -> None:
         dcm.dcmwrite(file_out_name, self.as_dicom(*args, **kwargs))
+
+    def plot(self, show: bool = True):
+        """The image drawn in grey on a new figure; its axes."""
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        ax.imshow(self.image, cmap="gray")
+        if show:
+            plt.show()
+        return ax
 
 
 class AS500Image(Simulator):

@@ -6,7 +6,9 @@ Port of ``pylinac_tpu/metrics/image.py``: ``MetricBase`` (``:38``),
 ``SizedDiskLocator`` (``:298``), ``GlobalSizedFieldLocator`` (``:314``),
 ``GlobalFieldLocator`` (``:407``) and ``WeightedCentroid`` (``:424``),
 with their ``plot`` methods (``:68-72``, ``:105``, ``:140``, ``:179``,
-``:290``, ``:305``, ``:397``), which draw on a matplotlib axes. The ROI
+``:290``, ``:305``, ``:397``), which draw on a matplotlib axes
+(``MetricBase.plotly`` and ``additional_plots``, ``:71-75``, draw nothing,
+as in JAX). The ROI
 metrics and the weighted centroid are numpy on the host. The locators label the image on their ``device``
 (``None`` means CUDA): the disk locators through
 :func:`~pylinac_tpu_torch.metrics.utils.find_features` (4-connected), the
@@ -82,6 +84,12 @@ class MetricBase(ABC):
 
     def plot(self, axis, **kwargs) -> None:
         pass
+
+    def plotly(self, fig, **kwargs) -> None:
+        pass
+
+    def additional_plots(self) -> list:
+        return []
 
 
 class DiskROIMetric(MetricBase):

@@ -8,7 +8,8 @@ Port of ``pylinac_tpu/nuclear.py``: ``_curve_fit`` ``:47``,
 ``Nuclide`` ``:652``, ``FourBarResolution`` ``:732`` with
 ``DoubleGaussianProfile`` ``:801``, ``QuadrantResolution`` ``:889``,
 ``TomographicUniformity`` ``:975``, ``TomographicContrast`` ``:1084`` with
-``TomographicROI`` ``:1140``, and the host helpers ``_minimize_nm``
+``TomographicROI`` ``:1140`` and the ``TomgraphicSphere`` type of its
+results (``:1124``), and the host helpers ``_minimize_nm``
 ``:1300``, ``create_sphere_mask``, ``sample_sphere`` and ``contrast_f``
 (``:1333-1361``; the search's objective reads the sphere's bounding box
 only). The result models are dataclasses with the JAX models'
@@ -47,7 +48,7 @@ import json
 import math
 from functools import cached_property
 from pathlib import Path
-from typing import Sequence
+from typing import Sequence, TypedDict
 
 import numpy as np
 import torch
@@ -1140,10 +1141,20 @@ class TomographicROI:
         d.plot2axes(axes=axis, edgecolor="r", text=str(self.number))
 
 
+class TomgraphicSphere(TypedDict):
+    x: float
+    y: float
+    z: float
+    radius: float
+    mean: float
+    mean_contrast: float
+    max_contrast: float
+
+
 @dataclasses.dataclass(kw_only=True)
 class TomographicContrastResults(ResultBase):
     uniformity_baseline: float
-    spheres: dict[str, dict]
+    spheres: dict[str, TomgraphicSphere]
 
 
 @capture_warnings
@@ -1247,11 +1258,11 @@ class TomographicContrast(ResultsDataMixin, QuaacMixin):
     def _generate_results_data(self) -> TomographicContrastResults:
         return TomographicContrastResults(
             uniformity_baseline=self.uniformity_value,
-            spheres={idx: {"x": float(roi.x), "y": float(roi.y), "z": float(roi.z),
-                           "radius": float(roi.radius), "mean": roi.mean_value,
-                           "mean_contrast": roi.mean_contrast,
-                           "max_contrast": roi.max_contrast}
-                     for idx, roi in self.rois.items()})
+            spheres={idx: TomgraphicSphere(
+                x=float(roi.x), y=float(roi.y), z=float(roi.z), radius=float(roi.radius),
+                mean=roi.mean_value, mean_contrast=roi.mean_contrast,
+                max_contrast=roi.max_contrast)
+                for idx, roi in self.rois.items()})
 
     def _quaac_datapoints(self) -> dict[str, QuaacDatum]:
         data = self.results_data(as_dict=True)

@@ -30,7 +30,12 @@ reports that need no matplotlib (``publish_pdf``, ``to_quaac``,
 reports of the Winston-Lutz set, the single ``FieldAnalysis``, the
 ``Starshot`` and the DRGS pair, while their plots, the DLG plot and the Quart
 PDF (which embeds module images) raise, on the CPU: the native codecs build
-and run without any of these packages.
+and run without any of these packages. Then the public names added last:
+the nuclear classes and ``Device`` from the top level, a 3-slice series
+written by ``create_dicom_files_from_3d_array`` whose eager stack gives its
+``array_3d``, a ``DiskROI.masked_array``, and ``Simulator.plot``, which
+raises for its matplotlib import (``ImportError`` from the blocking finder
+here; ``ModuleNotFoundError``, a subclass, on a machine without it).
 """
 
 import json
@@ -306,7 +311,21 @@ CHILD = textwrap.dedent("""
             plot_errors.append(None)
         except ImportError as e:
             plot_errors.append(type(e).__name__)
+    from pylinac_tpu_torch.core.array_utils import create_dicom_files_from_3d_array
+    from pylinac_tpu_torch.core.roi import DiskROI
+    from pylinac_tpu_torch.core.geometry import Point
+    names = [getattr(pylinac_tpu_torch, n).__name__ for n in ("PlanarUniformity", "Device")]
+    vol = np.arange(3 * 8 * 6, dtype=np.uint16).reshape(8, 6, 3)
+    stack = timage.DicomImageStack(create_dicom_files_from_3d_array(vol), min_number=3)
+    masked = DiskROI(np.ones((9, 9)), radius=2, center=Point(4, 4)).masked_array()
+    try:
+        AS500Image(sid=1000).plot(show=False)
+        sim_plot = None
+    except ImportError as e:
+        sim_plot = [type(e).__name__, "matplotlib" in str(e)]
     print(json.dumps({
+        "new_names": [names, list(stack.array_3d().shape), str(stack.array_3d().dtype),
+                      int(np.isfinite(masked).sum()), sim_plot],
         "mesh": [pf_mesh.results_data()[2].number_of_pickets, bool(np.isnan(g_mesh).any()),
                  float(np.abs(g_mesh - g[None]).max()), runner_mean],
         "reports": [open(report_dir + "/pf.pdf", "rb").read(5).decode(),
@@ -420,3 +439,7 @@ def test_port_runs_without_jax_or_pydantic():
     assert out["plan_fluence"] == [[1, 401, 201], 1000.0, 0.0]
     assert out["stages"] == ["pf.dispatch", "pf.fetch_unpack", "pf.h2d_stage",
                              "pf.host_orient", "pf.wmax_est"]
+    # a 3-slice stack's (Z, H, W) float32 volume; the 9 pixels strictly inside a
+    # radius-2 disk; the simulator's plot needs matplotlib
+    assert out["new_names"] == [["PlanarUniformity", "Device"], [3, 8, 6], "float32", 9,
+                                ["ImportError", True]]

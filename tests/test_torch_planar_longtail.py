@@ -11,14 +11,16 @@ the bar is mm 0.01, % 0.1, contrast and rMTF 0.1 %). The drawings come
 from the JAX test file's own drawing function, imported; the ``cuda`` test draws
 its frame with the port's generator.
 
-Seven of the long-tail classes are also analysed as a user would, with no
+Ten of the long-tail classes are also analysed as a user would, with no
 override and nothing patched: each class's own ``_phantom_center_calc``,
 ``_phantom_angle_calc`` and ``_phantom_radius_calc`` (Las Vegas's
-preprocessing and direction check, PTW's and Leeds's inversion checks,
-Leeds's rotation from its circle profile) on the same drawings, held to
-JAX at the bar (mm 0.01, % 0.1, contrast and rMTF 0.1 %, px 1e-3, integers
-and strings exact) or to JAX's exception type. Doselab MC2 is left out:
-its ``phantom_angle`` runs its Hough angle search 14 times an analysis.
+preprocessing and direction check, PTW's, IBA's and Leeds's inversion
+checks, Leeds's rotation from its circle profile) on the same drawings,
+held to JAX at the bar (mm 0.01, % 0.1, contrast and rMTF 0.1 %, px 1e-3,
+integers and strings exact) or to JAX's exception, type and message.
+Doselab MC2 is held in ``tests/test_torch_planar_mc2.py``: its
+``phantom_angle`` runs its Hough angle search 14 times an analysis, so
+JAX's results are frozen there.
 The reports of two of those analyses (Las Vegas's own contrast graph, the
 Leeds TOR's circle outline) are held to JAX's as
 ``tests/test_torch_reports_planar.py`` holds the others'."""
@@ -43,9 +45,9 @@ from tests.test_torch_reports_beams import (_pdfs_equal, _plotly_equal, _quaac_e
 # the fixtures above are imported to be used here
 __all__ = ["frozen", "jax_mods", "plt"]
 
-# the classes analysed with automatic detection (Doselab MC2 left out)
+# the classes analysed with automatic detection (Doselab MC2 in its own file)
 AUTO = ["LasVegas", "ElektaLasVegas", "PTWEPIDQC", "SNCMV", "SNCMV12510", "LeedsTOR",
-        "LeedsTORBlue"]
+        "LeedsTORBlue", "IBAPrimusA", "StandardImagingQCkV", "SNCkV"]
 _AUTO = {}
 
 FC2_VARIANTS = [
@@ -164,7 +166,7 @@ def _auto(lt, tmp_path_factory, name):
         for cls, device in ((spec.cls, None), (getattr(tp, name), "cpu")):
             try:
                 out.append(_analyse(cls, path, (), device))
-            except Exception as e:  # held to JAX's type below
+            except Exception as e:  # held to JAX's type and message below
                 out.append(e)
         _AUTO[name] = out
     return _AUTO[name]
@@ -174,10 +176,12 @@ def _auto(lt, tmp_path_factory, name):
 def test_longtail_automatic_detection_matches_jax(lt, tmp_path_factory, name):
     """The phantom found as a user's analysis finds it: the centre, angle
     and radius searches, then every ROI, at the bar; the text and the
-    warnings equal."""
+    warnings equal. Where JAX raises, the port raises the same type with the
+    same message."""
     ref, got = _auto(lt, tmp_path_factory, name)
     if isinstance(ref, Exception):
         assert type(got).__name__ == type(ref).__name__, (got, ref)
+        assert str(got) == str(ref)
         return
     assert not isinstance(got, Exception), got
     (j, jd, jtext, jwarn), (t, td, ttext, twarn) = ref, got
