@@ -92,6 +92,12 @@ Builds the port's CUDA kernels from ``pylinac_tpu_torch/csrc`` (one
   falling MTF with its 50 % point measured), the zipped scan against the
   batch and the CPU, warm runs equal; batch scans/s, the zipped scan's
   load and decode and its analyze timed apart, a profile;
+- CatPhan 503, 604 and 600: four synthetic scans of each (512x512 int16,
+  60 slices for the 503 and 604, 80 for the 600, the 600's last scan
+  without its water vial) through ``CatPhanBatch(model=...)`` on the card,
+  every CCL input held bit-equal to its twin; the drawn phantom's bars,
+  scan 0 against the single-scan class on the CPU, warm runs equal,
+  scans/s over three warm runs;
 - Winston-Lutz from a CBCT: 160 slices of 512x512 of a 5 mm BB as JPEG-LS
   in a zip, ``WinstonLutz.from_cbct_zip`` then ``analyze`` on the card
   (the batched BB window scan, every CCL input held to its twin), the
@@ -1789,6 +1795,150 @@ def catphan700_phase(card: str, ccl) -> list[dict]:
                 timed_pair(card, f"CatPhan 700 ccl {mode} on the batch's largest input",
                            lambda x: kernel(x, *args, **kwargs),
                            lambda x: twin(x, *args, **kwargs), masks, ccl_bound)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+# CatPhan 503, 604 and 600 (``imggen.ct.CATPHAN_MODELS``): each model's
+# scans, the 600's last one without its water vial
+CT_MODELS = ("503", "604", "600")
+CT_MODEL_VIAL_LESS = {"600": CT_SCANS - 1}
+CT_MODEL_WARM_RUNS = 4    # 1 warm-up, then 3
+CT_MODEL_HU_TOL = 12      # plug against its nominal HU, tests/models/test_ct.py's bar
+CT_MODEL_GEOMETRY_MM = 0.5
+
+
+def make_model_scans(tmp: str) -> dict[str, list[str]]:
+    """Each model's CT_SCANS scans (``_generate_catphan`` at its default
+    size; seeds CT_SEED + i), all written in parallel."""
+    from pylinac_tpu_torch.imggen.ct import _generate_catphan
+
+    dirs = {m: [f"{tmp}/cp{m}_{i}" for i in range(CT_SCANS)] for m in CT_MODELS}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+        futures = [pool.submit(_generate_catphan, d, m, seed=CT_SEED + i,
+                               vial=CT_MODEL_VIAL_LESS.get(m) != i)
+                   for m in CT_MODELS for i, d in enumerate(dirs[m])]
+        for f in futures:
+            f.result()
+    return dirs
+
+
+def check_model_results(results: list[dict], model: str, what: str) -> None:
+    """The drawn phantom's bars on every scan: the model's plugs (the 600's
+    vial only where it was drawn) each within CT_MODEL_HU_TOL of nominal,
+    the nodes 50 mm apart within CT_MODEL_GEOMETRY_MM, the slice thickness
+    2.5 mm within CP700_THICKNESS_MM, the roll within CP700_ROLL_DEG of 0,
+    a uniform CTP486, the MTF falling with its 50 % point inside the
+    gauge's 0.1-0.8 lp/mm, and no CTP515 on the 503."""
+    from pylinac_tpu_torch.imggen.ct import CATPHAN_MODELS
+
+    for i, r in enumerate(results):
+        c404 = r["ctp404"]
+        plugs = [k for k in CATPHAN_MODELS[model]["plugs"]
+                 if k != "Vial" or CT_MODEL_VIAL_LESS.get(model) != i]
+        hu_err = max(abs(x["value"] - x["nominal_value"]) for x in c404["hu_rois"].values())
+        mtf = [r["ctp528"]["mtf_lp_mm"][str(p)] for p in range(10, 100, 10)]
+        checks = {
+            f"model {model}": r["catphan_model"] == model,
+            "the drawn plugs": list(c404["hu_rois"]) == plugs,
+            f"plugs within {CT_MODEL_HU_TOL} HU": hu_err < CT_MODEL_HU_TOL,
+            "HU linearity passed": c404["hu_linearity_passed"],
+            f"nodes 50 +- {CT_MODEL_GEOMETRY_MM} mm":
+                abs(c404["avg_line_distance_mm"] - 50) < CT_MODEL_GEOMETRY_MM,
+            "geometry passed": c404["geometry_passed"],
+            f"thickness 2.5 +- {CP700_THICKNESS_MM} mm":
+                abs(c404["measured_slice_thickness_mm"] - 2.5) < CP700_THICKNESS_MM,
+            f"|roll| < {CP700_ROLL_DEG} deg": abs(r["catphan_roll_deg"]) < CP700_ROLL_DEG,
+            "uniformity passed": r["ctp486"]["passed"],
+            "MTF falling": all(a > b for a, b in zip(mtf, mtf[1:])),
+            "0.1 < mtf50 < 0.8": 0.1 < r["ctp528"]["mtf_lp_mm"]["50"] < 0.8,
+            "CTP515 as the model": (r["ctp515"] is None) == (model == "503"),
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise RuntimeError(f"{what} scan {i} fails {failed}: {r}")
+        print(f"{what} scan {i}: origin {r['origin_slice']}, roll {r['catphan_roll_deg']:.4f} "
+              f"deg, {len(plugs)} plugs, max HU error {hu_err:.1f}, nodes "
+              f"{c404['avg_line_distance_mm']:.4f} mm, thickness "
+              f"{c404['measured_slice_thickness_mm']:.4f} mm, mtf50 "
+              f"{r['ctp528']['mtf_lp_mm']['50']:.4f} lp/mm: inside every bar")
+
+
+def catphan_models_phase(card: str, ccl) -> list[dict]:
+    """CatPhan 503, 604 and 600: for each model, ``CatPhanBatch(model=...)``
+    of its 4 scans on the card (the 600's last scan without its vial),
+    counted, with every CCL input held bit-equal to its twin; the drawn
+    phantom's bars; scan 0 against the single-scan class on the CPU; warm
+    runs equal; scans/s over 3 warm runs after 1. Returns the CCL kernel's
+    lines, label and holes for each model."""
+    from pylinac_tpu_torch import ct
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    lines = []
+    try:
+        t0 = time.perf_counter()
+        dirs = make_model_scans(tmp)
+        print(f"inputs: {CT_SCANS} scans of each of CatPhan {', '.join(CT_MODELS)} (512 x 512 "
+              f"int16, 2.5 mm slices; the 600's scan {CT_MODEL_VIAL_LESS['600']} without its "
+              f"vial) in {time.perf_counter() - t0:.1f} s")
+        for model in CT_MODELS:
+            cls = getattr(ct, f"CatPhan{model}")
+
+            def batch_run():
+                batch = ct.CatPhanBatch(dirs[model], model=cls)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    batch.analyze(device="cuda")
+                    return batch, batch.results_data(as_dict=True)
+
+            (batch, results), counts, seen, errs = counted_ccl(
+                ccl, batch_run, f"CatPhan {model} batch")
+            check_model_results(results, model, f"card CatPhan {model} batch")
+            t0 = time.perf_counter()
+            cpu = cls(dirs[model][0])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                cpu.analyze(device="cpu")
+                cpu_data = cpu.results_data(as_dict=True)
+            cpu_s = time.perf_counter() - t0
+            worst = compare_tree(cpu_data, results[0], f"CatPhan {model} CPU vs card batch",
+                                 ct_tol)
+            same_warnings(results[0], cpu_data, f"CatPhan {model} scan 0")
+            print(f"CatPhan {model} card batch scan 0 vs the CPU's single scan (the CPU run "
+                  f"{cpu_s:.1f} s): agree (max difference {worst:.2e})")
+
+            walls = []
+
+            def warm_batch():
+                t0 = time.perf_counter()
+                for scan in batch.cts:
+                    scan._slice_centroids = None  # a fresh localisation per run
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    batch.analyze(device="cuda")
+                    data = batch.results_data()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                return data
+
+            warm, outs = median_runs(card, f"warm CatPhanBatch(model=CatPhan{model}) analyze + "
+                                     f"results_data of {CT_SCANS} scans", warm_batch,
+                                     CT_MODEL_WARM_RUNS)
+            check_same_texts([results_text(o) for o in outs], f"CatPhan {model} warm batches")
+            rates = [CT_SCANS / w for w in walls[1:]]
+            print(f"[{card}] warm CatPhan {model} batch: {CT_SCANS / warm * 1e3:.3f} scans/s "
+                  f"(median of {CT_MODEL_WARM_RUNS - 1}; {min(rates):.3f}-{max(rates):.3f})")
+            for mode in ("label", "holes"):
+                masks, args, kwargs = largest_record(seen, mode)
+                kernel, twin = kernel_pairs(ccl)[mode]
+                lines.append(ccl_line(
+                    f"ccl_{mode}_cp{model}", "pylinac_tpu/ops/pallas_label.py:336",
+                    counts[mode], errs.get(mode, 0.0),
+                    timed_pair(card, f"CatPhan {model} ccl {mode} on the batch's largest input",
+                               lambda x: kernel(x, *args, **kwargs),
+                               lambda x: twin(x, *args, **kwargs), masks, ccl_bound)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lines
@@ -5848,6 +5998,9 @@ def main() -> int:
     codec_checks(card)
     kernels += catphan700_phase(card, ccl)
     print(f"CatPhan 700 phase, the codec checks with it: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += catphan_models_phase(card, ccl)
+    print(f"CatPhan 503, 604 and 600 phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += wl_cbct_phase(card, ccl)
     print(f"Winston-Lutz from CBCT phase: {time.perf_counter() - t0:.1f} s")

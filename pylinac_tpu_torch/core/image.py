@@ -894,6 +894,11 @@ class LazyDicomImageStack(DicomImageStack):
         """Every slice, decoded anew."""
         return [self[i] for i in range(len(self))]
 
+    @images.setter
+    def images(self, value) -> None:
+        """Ignored, as in the JAX package: the slices are read from their
+        files."""
+
     @property
     def slice_spacing(self) -> float:
         zs = sorted(z_position(m) for m in self._metas)

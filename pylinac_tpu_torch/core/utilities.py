@@ -102,24 +102,35 @@ class DataModel:
             elif kind.startswith("list[") and kind[5:-1] in _COERCE:
                 setattr(self, field.name, [_COERCE[kind[5:-1]](v) for v in value])
 
-    def model_dump(self) -> dict:
-        """The fields as a dict, in declaration order (base fields first)."""
-        return dataclasses.asdict(self)
+    def model_dump(self, *, by_alias: bool = False,
+                   exclude: set[str] | None = None) -> dict:
+        """The fields as a dict, in declaration order (base fields first),
+        without the top-level fields named in ``exclude``. ``by_alias`` is
+        accepted as pydantic's is and changes nothing: no result field has
+        an alias, in the JAX package either."""
+        data = dataclasses.asdict(self)
+        for name in exclude or ():
+            data.pop(name, None)
+        return data
 
-    def model_dump_json(self) -> str:
+    def model_dump_json(self, *, by_alias: bool = False,
+                        exclude: set[str] | None = None) -> str:
         """The fields as a JSON object; datetimes in ISO 8601, numpy scalars
         as Python numbers, infinite and NaN floats as null (as pydantic)."""
-        return json.dumps(_finite_or_none(self.model_dump()), default=_json_default)
+        return json.dumps(_finite_or_none(self.model_dump(exclude=exclude)),
+                          default=_json_default)
 
-    def output(self, as_dict: bool = False, as_json: bool = False):
-        """What ``results_data(as_dict, as_json)`` returns: the model, the
-        JSON-compatible dict the JAX package returns, or JSON."""
+    def output(self, as_dict: bool = False, as_json: bool = False,
+               by_alias: bool = False, exclude: set[str] | None = None):
+        """What ``results_data(as_dict, as_json, by_alias, exclude)``
+        returns: the model, the JSON-compatible dict the JAX package
+        returns, or JSON, the last two without the fields in ``exclude``."""
         if as_dict and as_json:
             raise ValueError("Cannot return as both dict and JSON. Pick one.")
         if as_dict:
-            return json.loads(self.model_dump_json())
+            return json.loads(self.model_dump_json(exclude=exclude))
         if as_json:
-            return self.model_dump_json()
+            return self.model_dump_json(exclude=exclude)
         return self
 
 
@@ -153,14 +164,17 @@ class ResultsDataMixin(Generic[T], WarningCollectorMixin):
     def _generate_results_data(self) -> T:
         raise NotImplementedError
 
-    def results_data(self, as_dict: bool = False, as_json: bool = False):
+    def results_data(self, as_dict: bool = False, as_json: bool = False,
+                     by_alias: bool = False, exclude: set[str] | None = None):
         """The typed result; ``as_dict`` gives the JSON-compatible dict the
-        JAX package returns, ``as_json`` JSON."""
+        JAX package returns, ``as_json`` JSON, each without the top-level
+        fields named in ``exclude``. ``by_alias`` changes nothing: no result
+        field has an alias."""
         if as_dict and as_json:
             raise ValueError("Cannot return as both dict and JSON. Pick one.")
         data = self._generate_results_data()
         data.warnings = self.get_captured_warnings()
-        return data.output(as_dict, as_json)
+        return data.output(as_dict, as_json, by_alias, exclude)
 
 
 def is_iterable(obj) -> bool:

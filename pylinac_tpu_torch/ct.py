@@ -171,10 +171,12 @@ class SpatialResolutionROI(RectangleROI):
 
 
 class HUDiskROI(DiskROI):
-    """A disk ROI with a nominal HU value and tolerance."""
+    """A disk ROI with a nominal HU value and tolerance. ``background_mean``
+    and ``background_std`` are accepted and unused, as in the JAX package."""
 
     def __init__(self, array, angle, roi_radius, dist_from_center, phantom_center,
-                 nominal_value=None, tolerance=None):
+                 nominal_value=None, tolerance=None, background_mean=None,
+                 background_std=None):
         new_center = self._get_shifted_center(angle, dist_from_center, phantom_center)
         super().__init__(array, roi_radius, new_center)
         self.nominal_val = nominal_value

@@ -269,8 +269,8 @@ class FieldProfileAnalysis(ResultsDataMixin):
         canvas = pdf.PylinacCanvas(filename, page_title="Field Analysis",
                                    metadata=metadata, metadata_location=(2, 5),
                                    logo=logo)
-        data = self.results_data(as_dict=True)
-        data.pop("pylinac_version")
+        data = self.results_data(as_dict=True, by_alias=True,
+                                 exclude={"pylinac_version"})
         data["x_metrics"].pop("values")
         data["y_metrics"].pop("values")
         offset = 0.0

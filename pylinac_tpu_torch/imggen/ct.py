@@ -15,8 +15,8 @@ GE Helios with its Section 1 and uniform Section 3. The same seed gives the
 same pixels as the JAX package's generators.
 
 Two private generators, test and smoke data with no JAX counterpart (the
-JAX package generates neither), write a CatPhan 700 series
-(:func:`_generate_catphan700`) and a kV CBCT of a BB
+JAX package generates neither), write a CatPhan 503, 600, 604 or 700 series
+(:func:`_generate_catphan`, :func:`_generate_catphan700`) and a kV CBCT of a BB
 (:func:`_generate_cbct_bb`, the fixture of
 ``tests/models/test_winstonlutz.py:124-157`` at any size), in any transfer
 syntax the port's ``dcmwrite`` encodes.
@@ -66,6 +66,72 @@ def _disk(arr, cx, cy, r_px, value):
     yy, xx = np.mgrid[:h, :w]
     mask = (yy - cy) ** 2 + (xx - cx) ** 2 < r_px**2
     arr[mask] = value
+
+
+CP504_GAUGE_BOUNDARIES = (0, 0.107, 0.173, 0.236, 0.286, 0.335, 0.387, 0.434, 0.479)
+
+
+def _draw_gauge(hu: np.ndarray, yy: np.ndarray, xx: np.ndarray, center: float,
+                mm_per_pixel: float, roll: float, start_angle: float = np.pi,
+                ccw: bool = True,
+                boundaries: tuple = CP504_GAUGE_BOUNDARIES) -> np.ndarray:
+    """``hu`` with the CTP528 line-pair gauge drawn at r = 47 mm, its eight
+    regions between ``boundaries`` (fractions of the circle) along the
+    circle profile that starts at ``start_angle`` + ``roll`` (radians,
+    y-down) and runs counter-clockwise if ``ccw``, as the analyzer's
+    ``CollapsedCircleProfile`` samples it; then blurred once."""
+    r_gauge = 47.0
+    npeaks = (2, 3, 4, 4, 4, 5, 5, 5)
+    # nominal gap size (cm) per region — the physical bar width of
+    # the real gauge (region N is N lp/cm, so gap = 5/N mm).  Bars
+    # are drawn at this TRUE width, centered in the analyzer's
+    # angular sector (analyzer table: ct.py CTP528CP504.roi_settings,
+    # reference ct.py:1398).  Stretching `npeaks` bars across the
+    # whole sector instead rasterizes region 8 at ~3.8 lp/cm — the
+    # measured MTF floor then never reaches 10-30% and every
+    # results_data() call warns about extrapolation.
+    gaps_cm = (0.5, 0.25, 0.167, 0.125, 0.1, 0.083, 0.071, 0.063)
+    circ = 2 * np.pi * r_gauge  # mm of arc along the gauge ring
+    # anti-aliased bar coverage via 2x2 subpixel supersampling —
+    # hard boolean bars rasterize to ±1 px width jitter between
+    # regions, which wobbles the measured peak/valley means enough
+    # to make the MTF non-monotonic on an otherwise clean phantom
+    cov = np.zeros_like(hu)
+    band_any = np.zeros(hu.shape, bool)
+    for oy in (-0.25, 0.25):
+        for ox in (-0.25, 0.25):
+            ys, xs = yy + oy, xx + ox
+            rr = np.hypot(ys - center, xs - center) * mm_per_pixel
+            band = (rr > r_gauge - 3) & (rr < r_gauge + 3)
+            band_any |= band
+            theta = np.arctan2(ys - center, xs - center) - roll
+            if ccw:
+                f = ((start_angle - theta) % (2 * np.pi)) / (2 * np.pi)
+            else:
+                f = ((theta - start_angle) % (2 * np.pi)) / (2 * np.pi)
+            for region in range(8):
+                f0, f1 = boundaries[region], boundaries[region + 1]
+                n = npeaks[region]
+                sector_mm = (f1 - f0) * circ
+                bar_mm = gaps_cm[region] * 10.0
+                period_mm = 2.0 * bar_mm
+                train_mm = (n - 1) * period_mm + bar_mm
+                off_mm = (sector_mm - train_mm) / 2.0
+                in_region = band & (f >= f0) & (f < f1)
+                s = (f - f0) * circ  # arc-length into the sector
+                phase = s - off_mm
+                bars = in_region & (phase >= 0) & (phase < train_mm) & (
+                    phase % period_mm < bar_mm)
+                cov[bars] += 0.25
+    hu = np.where(band_any, hu * (1 - cov) + 800.0 * cov, hu)
+    # finite scanner resolution: one binomial pass on top of the
+    # supersampled rasterization gives MTF50 ≈ 0.49 lp/mm (reference
+    # demo: ~0.56) with the 10% point ≈ 0.77 lp/mm — inside the
+    # 0.1-0.8 lp/mm gauge range, so relative_resolution(10..90)
+    # interpolates instead of warning about extrapolation, while
+    # region 8 keeps ~7% true modulation for the peak finder.
+    hu = _smooth(hu)
+    return hu
 
 
 def generate_catphan504(
@@ -149,55 +215,7 @@ def generate_catphan504(
 
         # --- CTP528 (line pair gauge at r=47mm)
         if abs(z - CTP528_OFFSET) <= 20:
-            r_gauge = 47.0
-            boundaries = (0, 0.107, 0.173, 0.236, 0.286, 0.335, 0.387, 0.434, 0.479)
-            npeaks = (2, 3, 4, 4, 4, 5, 5, 5)
-            # nominal gap size (cm) per region — the physical bar width of
-            # the real gauge (region N is N lp/cm, so gap = 5/N mm).  Bars
-            # are drawn at this TRUE width, centered in the analyzer's
-            # angular sector (analyzer table: ct.py CTP528CP504.roi_settings,
-            # reference ct.py:1398).  Stretching `npeaks` bars across the
-            # whole sector instead rasterizes region 8 at ~3.8 lp/cm — the
-            # measured MTF floor then never reaches 10-30% and every
-            # results_data() call warns about extrapolation.
-            gaps_cm = (0.5, 0.25, 0.167, 0.125, 0.1, 0.083, 0.071, 0.063)
-            circ = 2 * np.pi * r_gauge  # mm of arc along the gauge ring
-            # anti-aliased bar coverage via 2x2 subpixel supersampling —
-            # hard boolean bars rasterize to ±1 px width jitter between
-            # regions, which wobbles the measured peak/valley means enough
-            # to make the MTF non-monotonic on an otherwise clean phantom
-            cov = np.zeros_like(hu)
-            band_any = np.zeros(hu.shape, bool)
-            for oy in (-0.25, 0.25):
-                for ox in (-0.25, 0.25):
-                    ys, xs = yy + oy, xx + ox
-                    rr = np.hypot(ys - center, xs - center) * mm_per_pixel
-                    band = (rr > r_gauge - 3) & (rr < r_gauge + 3)
-                    band_any |= band
-                    theta = np.arctan2(ys - center, xs - center) - roll
-                    f = ((np.pi - theta) % (2 * np.pi)) / (2 * np.pi)
-                    for region in range(8):
-                        f0, f1 = boundaries[region], boundaries[region + 1]
-                        n = npeaks[region]
-                        sector_mm = (f1 - f0) * circ
-                        bar_mm = gaps_cm[region] * 10.0
-                        period_mm = 2.0 * bar_mm
-                        train_mm = (n - 1) * period_mm + bar_mm
-                        off_mm = (sector_mm - train_mm) / 2.0
-                        in_region = band & (f >= f0) & (f < f1)
-                        s = (f - f0) * circ  # arc-length into the sector
-                        phase = s - off_mm
-                        bars = in_region & (phase >= 0) & (phase < train_mm) & (
-                            phase % period_mm < bar_mm)
-                        cov[bars] += 0.25
-            hu = np.where(band_any, hu * (1 - cov) + 800.0 * cov, hu)
-            # finite scanner resolution: one binomial pass on top of the
-            # supersampled rasterization gives MTF50 ≈ 0.49 lp/mm (reference
-            # demo: ~0.56) with the 10% point ≈ 0.77 lp/mm — inside the
-            # 0.1-0.8 lp/mm gauge range, so relative_resolution(10..90)
-            # interpolates instead of warning about extrapolation, while
-            # region 8 keeps ~7% true modulation for the peak finder.
-            hu = _smooth(hu)
+            hu = _draw_gauge(hu, yy, xx, center, mm_per_pixel, roll)
 
         # --- CTP515 (low contrast bubbles)
         if abs(z - CTP515_OFFSET) <= 8:
@@ -598,7 +616,7 @@ def generate_helios(
 
 
 # ---------------------------------------------------------------------------
-# test and smoke data: a CatPhan 700 series and a CBCT of a BB
+# test and smoke data: CatPhan 503, 600, 604 and 700 series and a CBCT of a BB
 # ---------------------------------------------------------------------------
 # the CatPhan 700's plugs (``ct.CTP404CP700.roi_settings``): angle (deg,
 # y-down image convention), HU
@@ -687,33 +705,92 @@ def _write_ct_slice(path, stored: np.ndarray, z: float, index: int, uids: tuple,
     dcm.dcmwrite(path, ds, transfer_syntax=transfer_syntax)
 
 
-def _generate_catphan700(
+# the other models' plugs (``ct.CTP404CP600`` and ``ct.CTP404CP604``; the 503
+# has the 504's ``HU_PLUGS``): angle (deg, y-down image convention), HU
+CP600_PLUGS = {
+    "Air": (90, -1000), "PMP": (60, -196), "LDPE": (0, -104), "Poly": (-60, -47),
+    "Acrylic": (-120, 115), "Delrin": (-180, 365), "Teflon": (120, 1000), "Vial": (-90, 0),
+}
+CP604_PLUGS = {
+    "Air": (-90, -1000), "PMP": (-120, -196), "50% Bone": (-150, 725), "LDPE": (180, -104),
+    "Poly": (120, -47), "Acrylic": (60, 115), "20% Bone": (30, 237), "Delrin": (0, 365),
+    "Teflon": (-60, 1000),
+}
+# the CTP515 disks' angles (deg) at 50 mm: ``ct.CTP515`` and ``ct.CTP515CP600``
+CP504_LOW_CONTRAST_ANGLES = (-87.4, -69.1, -52.7, -38.5, -25.1, -12.9)
+CP600_LOW_CONTRAST_ANGLES = (92.6, 110.9, 127.3, 141.5, 154.9, 167.1)
+LOW_CONTRAST_RADII_MM = (6, 3.5, 3, 2.5, 2, 1.5)
+# air bubbles for the roll: one of 5 mm at 73 mm, beyond the air plug and
+# in line with it (the wire ramps at 38 mm and the plug at 58.7 mm leave
+# too little room between them for a bubble whose edge does not join
+# theirs); the 700's two of 5 mm at 45 mm above and below the centre
+OUTER_BUBBLE_TOP = ((-90, 73, 5.0),)
+OUTER_BUBBLE_BOTTOM = ((90, 73, 5.0),)
+CP700_BUBBLES = ((-90, 45, 5.0), (90, 45, 5.0))
+# each model (``ct.CatPhan503/600/604/700``): the body's radius (mm), the
+# CTP404 plugs, the angles of the plug-sized water disks at the CTP404's
+# background ROIs, the CTP528, CTP515 and CTP486 offsets from CTP404 (mm;
+# None where the model has no such module), the CTP528 gauge's start
+# angle, direction and region boundaries (None: the 700's bar groups), the
+# CTP515 disks' angles, and the default slice count and CTP404 position
+# (mm), which put every module inside the scan
+CATPHAN_MODELS = {
+    "503": dict(radius=97, plugs=HU_PLUGS, water=(), ctp528=-30, ctp515=None, ctp486=-110,
+                gauge=(np.pi, True, CP504_GAUGE_BOUNDARIES), low_contrast=None,
+                bubbles=OUTER_BUBBLE_TOP, num_slices=60, ctp404_z=50.0),
+    "600": dict(radius=101, plugs=CP600_PLUGS, water=(), ctp528=-70, ctp515=-110,
+                ctp486=-160,
+                gauge=(np.pi - 0.1, False,
+                       (0, 0.127, 0.195, 0.255, 0.304, 0.354, 0.405, 0.453, 0.496)),
+                low_contrast=CP600_LOW_CONTRAST_ANGLES, bubbles=OUTER_BUBBLE_BOTTOM,
+                num_slices=80, ctp404_z=75.0),
+    "604": dict(radius=101, plugs=CP604_PLUGS, water=(-30, -210), ctp528=40, ctp515=-40,
+                ctp486=-80, gauge=(np.pi, True, CP504_GAUGE_BOUNDARIES),
+                low_contrast=CP504_LOW_CONTRAST_ANGLES, bubbles=OUTER_BUBBLE_TOP,
+                num_slices=60, ctp404_z=20.0),
+    "700": dict(radius=101, plugs=CP700_PLUGS, water=(), ctp528=CP700_CTP528_OFFSET,
+                ctp515=CP700_CTP515_OFFSET, ctp486=CP700_CTP486_OFFSET, gauge=None,
+                low_contrast=CP600_LOW_CONTRAST_ANGLES, bubbles=CP700_BUBBLES,
+                num_slices=80, ctp404_z=70.0),
+}
+
+
+def _generate_catphan(
     dir_out: str | Path,
-    num_slices: int = 80,
+    model: str,
+    num_slices: int | None = None,
     slice_thickness_mm: float = 2.5,
     mm_per_pixel: float = 0.5,
     image_size: int = 512,
-    ctp404_z_mm: float = 70.0,
+    ctp404_z_mm: float | None = None,
     noise_hu: float = 3.0,
     bar_hu: float = 1000.0,
     bar_blur_mm: float = 0.4,
     low_contrast_hu: float = 10.0,
+    vial: bool = True,
     seed: int = 1234,
     transfer_syntax: str = dcm.EXPLICIT_VR_LE,
 ) -> list[str]:
-    """Write a synthetic CatPhan 700 series of int16 slices (HU, intercept
-    0); returns the file paths. Test and smoke data, not a public
-    generator.
+    """Write a synthetic CatPhan 503, 600, 604 or 700 (``model``) series of
+    int16 slices (HU, intercept 0); returns the file paths. Test and smoke
+    data, not a public generator.
 
-    A 101 mm water cylinder holds, at their CatPhan 700 offsets from
-    ``ctp404_z_mm``: CTP404 (the eleven CP700 plugs at their nominal HU and
-    angles, with the wire ramps, central hole and geometry nodes of
-    :func:`generate_catphan504` and its roll bubbles, made smaller), CTP714 at -40 mm (the eight bar
-    groups of 0.1-0.8 lp/mm inside ``CTP528CP700``'s rectangles, blurred by
-    ``bar_blur_mm``), CTP515 at -80 mm (the CP600/700 low-contrast disks)
-    and a uniform CTP486 at -160 mm. Slices sit at (i - n/2) x thickness,
-    so the defaults put every module inside the scan. Band-limited noise of
-    ``noise_hu`` is drawn from ``seed``."""
+    A water cylinder of the model's radius holds, at the model's offsets
+    from ``ctp404_z_mm`` (``CATPHAN_MODELS``; its default puts every module
+    inside the model's default ``num_slices``): CTP404 (the model's plugs
+    at their nominal HU and angles, the 604's background ROIs as water
+    disks, the wire ramps, central hole and geometry nodes of
+    :func:`generate_catphan504`, and the model's air bubbles), the
+    spatial-resolution module (the line-pair gauge of
+    :func:`generate_catphan504` along the model's circle profile, or the
+    700's eight bar groups inside ``CTP528CP700``'s rectangles, blurred by
+    ``bar_blur_mm``), the model's CTP515 low-contrast disks (none on the
+    503) and a uniform CTP486. ``vial=False`` leaves the 600's water vial
+    out: its hole reads as air. Slices sit at (i - n/2) x thickness.
+    Band-limited noise of ``noise_hu`` is drawn from ``seed``."""
+    spec = CATPHAN_MODELS[model]
+    num_slices = spec["num_slices"] if num_slices is None else num_slices
+    ctp404_z_mm = spec["ctp404_z"] if ctp404_z_mm is None else ctp404_z_mm
     rng = np.random.default_rng(seed)
     os.makedirs(dir_out, exist_ok=True)
     center = image_size / 2 - 0.5
@@ -721,7 +798,7 @@ def _generate_catphan700(
     z_positions = (np.arange(num_slices) - num_slices / 2) * slice_thickness_mm
     yy, xx = np.mgrid[:image_size, :image_size]
     phantom = np.full((image_size, image_size), -1000.0)
-    phantom[(yy - center) ** 2 + (xx - center) ** 2 < (101 / mm_per_pixel) ** 2] = 0.0
+    phantom[(yy - center) ** 2 + (xx - center) ** 2 < (spec["radius"] / mm_per_pixel) ** 2] = 0.0
 
     def polar_to_px(angle_deg, dist_mm):
         a = np.deg2rad(angle_deg)
@@ -730,17 +807,21 @@ def _generate_catphan700(
 
     hu_module = phantom.copy()
     hu_module[(yy - center) ** 2 + (xx - center) ** 2 < (95 / mm_per_pixel) ** 2] = 45.0
-    for angle, value in CP700_PLUGS.values():
+    plugs = [(angle, -1000 if name == "Vial" and not vial else value)
+             for name, (angle, value) in spec["plugs"].items()]
+    for angle, value in plugs + [(angle, 0) for angle in spec["water"]]:
         _disk(hu_module, *polar_to_px(angle, PLUG_DIST_MM), PLUG_RADIUS_MM / mm_per_pixel, value)
-    # the roll bubbles, 5 mm at 45 mm: clear of the top and bottom wire
-    # ramps (the 504 generator's 6 mm bubbles at 44 mm reach the ramps at
-    # 38 mm, which shortens those two wires) and of the plugs at 58.7 mm
-    for bub_angle in (-90, 90):
-        _disk(hu_module, *polar_to_px(bub_angle, 45), 5.0 / mm_per_pixel, -1000)
-    bar_module = phantom + _bar_template(center, image_size, mm_per_pixel, bar_hu, bar_blur_mm)
+    for angle, dist_mm, radius_mm in spec["bubbles"]:
+        _disk(hu_module, *polar_to_px(angle, dist_mm), radius_mm / mm_per_pixel, -1000)
+    if spec["gauge"] is None:
+        resolution_module = phantom + _bar_template(center, image_size, mm_per_pixel,
+                                                    bar_hu, bar_blur_mm)
+    else:
+        start_angle, ccw, boundaries = spec["gauge"]
+        resolution_module = _draw_gauge(phantom.copy(), yy, xx, center, mm_per_pixel, 0.0,
+                                        start_angle, ccw, boundaries)
     low_contrast_module = phantom.copy()
-    for angle, radius_mm in zip((92.6, 110.9, 127.3, 141.5, 154.9, 167.1),
-                                (6, 3.5, 3, 2.5, 2, 1.5)):
+    for angle, radius_mm in zip(spec["low_contrast"] or (), LOW_CONTRAST_RADII_MM):
         _disk(low_contrast_module, *polar_to_px(angle, 50), radius_mm / mm_per_pixel,
               low_contrast_hu)
 
@@ -749,9 +830,9 @@ def _generate_catphan700(
         dz = z - ctp404_z_mm
         if abs(dz) <= 20:
             hu = hu_module.copy()
-        elif abs(dz - CP700_CTP528_OFFSET) <= 10:
-            hu = bar_module.copy()
-        elif abs(dz - CP700_CTP515_OFFSET) <= 8:
+        elif abs(dz - spec["ctp528"]) <= 10:
+            hu = resolution_module.copy()
+        elif spec["ctp515"] is not None and abs(dz - spec["ctp515"]) <= 8:
             hu = low_contrast_module.copy()
         else:
             hu = phantom.copy()
@@ -780,6 +861,13 @@ def _generate_catphan700(
                         uids, mm_per_pixel, slice_thickness_mm, 0.0, transfer_syntax)
         paths.append(path)
     return paths
+
+
+def _generate_catphan700(dir_out: str | Path, **kwargs) -> list[str]:
+    """:func:`_generate_catphan` of a CatPhan 700: CTP404 at +70 mm of 80
+    slices by default, CTP714 at -40 mm, CTP515 at -80 mm and CTP486 at
+    -160 mm from it."""
+    return _generate_catphan(dir_out, "700", **kwargs)
 
 
 def _generate_cbct_bb(

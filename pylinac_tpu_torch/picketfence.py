@@ -352,8 +352,8 @@ class MLCValue:
 class Picket:
     """One picket: a line fit through its MLC measurements."""
 
-    def __init__(self, mlc_measurements: list[MLCValue], orientation, image, tolerance,
-                 separate_leaves, nominal_gap, log_fits=None):
+    def __init__(self, mlc_measurements: list[MLCValue], log_fits, orientation,
+                 image, tolerance, separate_leaves, nominal_gap):
         self.mlc_meas = mlc_measurements
         self.log_fits = log_fits
         self.tolerance = tolerance
